@@ -1,0 +1,532 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's cognitive serving tick on one NVIDIA GPU and
+hold each hand-written CUDA kernel against its plain PyTorch version.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero):
+
+1. device  — require CUDA; print the card's name and power limit;
+2. build   — compile the four kernels from ``src/repro_torch/kernels/csrc``
+             (one nvcc per source, in parallel) and print the build time;
+3. parity  — walk full-width spiking-YOLO (64x64, T=5, 32 base channels,
+             4 stages) at batch 8 layer by layer, calling each kernel on
+             the main path's own inputs and comparing it with its plain
+             version on the same inputs (TF32 off): spike_conv and
+             spike_matmul allclose atol=1e-4 rtol=1e-5, lif_scan equal,
+             norm_affine_lif spikes equal except where the plain membrane
+             lies within 1e-4 of v_th; spike_conv also on a partly silent
+             patch matrix so the tile skip runs;
+4. timings — per kernel, device-time medians (CUDA events behind a spin
+             kernel, so host launch overhead is not counted) over 30 runs
+             of every launch of a tick (kernel, plain version, one
+             torch.matmul where it computes the same function), and the
+             least time the card could take for the same work (bytes at
+             3.35 TB/s, fp32 operations at 67 TFLOP/s, this run's data);
+5. serve   — CognitiveEngine (full spiking_yolo, kernel backend, default
+             ISP, batch 8, seeded random weights) answers 16 requests, 8
+             voxel windows and 8 raw event buffers; every result is
+             checked, every kernel's launch counter must show the tick's
+             launches, each layer's spikes are held to its plain version
+             on the same inputs, and the differences from the plain
+             engine are printed; then the tick latency (p50, p90) of
+             the kernel and plain engines, in turns;
+6. report  — one JSON line of per-kernel numbers, the card line, and
+             the result line ``{"ok": true, "device": {...}}`` last.
+
+Run alone (without ``src/``) or without a card, it fails before any
+result is printed.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+BATCH = 8
+REQUESTS = 16
+EVENT_CAPACITY = 2048
+TIMING_REPS = 30
+LATENCY_TICKS = 120
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
+FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
+NEAR_TOL = 1e-4
+SPIN_CYCLES_PER_S = 2e9         # ~ the H100's SM clock, for the spin kernel
+
+# name -> (source in the repo, the TPU kernel it replaces)
+KERNELS = {
+    "spike_conv": ("src/repro_torch/kernels/csrc/spike_conv.cu",
+                   "src/repro/kernels/spike_conv.py:126"),
+    "norm_affine_lif": ("src/repro_torch/kernels/csrc/norm_affine_lif.cu",
+                        "src/repro/kernels/lif_scan.py:142"),
+    "lif_scan": ("src/repro_torch/kernels/csrc/lif_scan.cu",
+                 "src/repro/kernels/lif_scan.py:71"),
+    "spike_matmul": ("src/repro_torch/kernels/csrc/spike_matmul.cu",
+                     "src/repro/kernels/spike_matmul.py:53"),
+}
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def time_ms(fn, reps=TIMING_REPS, warmup=3):
+    """Median device time of one call of ``fn``.  A spin kernel keeps the
+    card busy while the host enqueues ``fn``, so the two events bracket
+    fn's device work, not the host's launch overhead."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = int(max(2 * host_s, 1e-4) * SPIN_CYCLES_PER_S)
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+class KernelStats:
+    """Per-kernel sums over one tick's launches."""
+
+    def __init__(self):
+        self.ms = self.plain_ms = self.bound_ms = 0.0
+        self.bytes_s = self.ops_s = 0.0
+        self.library_ms = None
+        self.max_abs_err = 0.0
+        self.shapes = []
+
+    def add(self, shape, ms, plain_ms, nbytes, nops, err, library_ms=None):
+        self.shapes.append(shape)
+        self.ms += ms
+        self.plain_ms += plain_ms
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_FLOPS * 1e3
+        self.bound_ms += max(tb, to)
+        self.bytes_s += tb
+        self.ops_s += to
+        self.max_abs_err = max(self.max_abs_err, float(err))
+        if library_ms is not None:
+            self.library_ms = (self.library_ms or 0.0) + library_ms
+
+    def row(self, name, launches):
+        src, replaces = KERNELS[name]
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": self.max_abs_err, "ms": self.ms,
+                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "bound_by": "bytes" if self.bytes_s >= self.ops_s
+                else "operations",
+                "library_ms": self.library_ms}
+
+
+def live_tile_elems(occ, M, K, bm=128, bk=128):
+    """Patch elements inside tiles whose occupancy bit is set."""
+    import torch
+    rows = torch.full((occ.shape[0],), bm, dtype=torch.float64)
+    rows[-1] = M - bm * (occ.shape[0] - 1)
+    cols = torch.full((occ.shape[1],), bk, dtype=torch.float64)
+    cols[-1] = K - bk * (occ.shape[1] - 1)
+    return float((occ.double().cpu() * rows[:, None] * cols[None, :]).sum())
+
+
+# ---------------------------------------------------------------------------
+# requests
+# ---------------------------------------------------------------------------
+
+def make_requests(cfg, rng):
+    """8 voxel windows then 8 raw event buffers (ragged, some overfull)
+    with Bayer frames, all from one numpy generator."""
+    import numpy as np
+    import torch
+    from repro_torch.core.encoding import EventStream, events_to_voxel
+    from repro_torch.serve.cognitive_engine import PerceptionRequest
+
+    def events(n):
+        return EventStream(
+            t=rng.random(n).astype(np.float32),
+            x=rng.integers(0, cfg.width, n).astype(np.int32),
+            y=rng.integers(0, cfg.height, n).astype(np.int32),
+            p=rng.integers(0, 2, n).astype(np.int32),
+            valid=rng.random(n) < 0.97)
+
+    def bayer():
+        b = rng.uniform(0.05, 0.95, (cfg.height, cfg.width)).astype(
+            np.float32)
+        hot = rng.random(b.shape) < 0.01
+        b[hot] = rng.choice([0.0, 1.0], int(hot.sum()))
+        return b
+
+    reqs = []
+    for i in range(REQUESTS // 2):
+        ev = events(EVENT_CAPACITY)
+        vox = events_to_voxel(EventStream(*(torch.as_tensor(a) for a in ev)),
+                              time_steps=cfg.time_steps, height=cfg.height,
+                              width=cfg.width)
+        reqs.append(PerceptionRequest(rid=i, voxels=vox.numpy(),
+                                      bayer=bayer()))
+    for i in range(REQUESTS // 2, REQUESTS):
+        n = int(rng.integers(EVENT_CAPACITY // 2, EVENT_CAPACITY * 5 // 4))
+        reqs.append(PerceptionRequest(rid=i, events=events(n), bayer=bayer()))
+    return reqs
+
+
+# ---------------------------------------------------------------------------
+# phase 3 + 4: per-kernel parity and timings on the main path's inputs
+# ---------------------------------------------------------------------------
+
+def kernel_phase(params, cfg, vox):
+    import torch
+    from repro_torch.core import layers as L
+    from repro_torch.core.backbones import yolo_specs
+    from repro_torch.core.lif import lif_scan as lif_plain
+    from repro_torch.kernels.lif_scan import lif_scan
+    from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
+    from repro_torch.kernels.spike_matmul import spike_matmul
+
+    st = {k: KernelStats() for k in KERNELS}
+    lif_kw = dict(tau=cfg.tau_mem, v_th=cfg.v_threshold, v_reset=cfg.v_reset)
+    T, B = vox.shape[:2]
+
+    def conv(p, x, stride, name):
+        """spike_conv (+ norm_affine_lif when p fires) on x's patches."""
+        kh = p["w"].shape[0]
+        xf = L.fold(x)
+        patches, (Ho, Wo) = L.spike_im2col(xf, kh, kh, stride)
+        wmat = p["w"].reshape(-1, p["w"].shape[-1]).contiguous()
+        occ = occupancy_mask(patches)
+        M, K = patches.shape
+        N = wmat.shape[1]
+        y = spike_conv(patches, wmat, occ)
+        y_ref = L.blocked_matmul(patches, wmat)
+        torch.cuda.synchronize()
+        check(torch.allclose(y, y_ref, atol=1e-4, rtol=1e-5),
+              f"spike_conv {name} disagrees with its plain version")
+        live = live_tile_elems(occ, M, K)
+        st["spike_conv"].add(
+            (M, K, N),
+            time_ms(lambda: spike_conv(patches, wmat, occ)),
+            time_ms(lambda: L.blocked_matmul(patches, wmat)),
+            live * 4 + (K * N + M * N + occ.numel()) * 4, 2.0 * N * live,
+            (y - y_ref).abs().max(),
+            library_ms=time_ms(lambda: torch.matmul(patches, wmat)))
+        print(f"  spike_conv {name:9s} M={M} K={K} N={N} live tiles "
+              f"{int(occ.sum())}/{occ.numel()} max|err| "
+              f"{float((y - y_ref).abs().max()):.3g}")
+        return L.unfold(y.reshape(B * T, Ho, Wo, N), T, B), patches, wmat
+
+    x = vox
+    f0_patches = None
+    for s in yolo_specs(cfg):
+        p = params["backbone"][s.name]
+        y5, patches, wmat = conv(p, x, s.stride, s.name)
+        if s.name == "f0":
+            f0_patches = (patches, wmat)
+        x = fire(p, y5, s.name, st, lif_kw)
+    feats = x
+    y5, _, _ = conv(params["head"]["conv"], feats, 1, "head_conv")
+    h = fire(params["head"]["conv"], y5, "head_conv", st, lif_kw)
+    conv(params["head"]["pred"], h, 1, "head_pred")
+
+    # partly silent input: the first half of the frames carry no spike
+    patches, wmat = f0_patches
+    silent = patches.clone()
+    silent[: silent.shape[0] // 2] = 0
+    occ = occupancy_mask(silent)
+    check(int((occ == 0).sum()) > 0, "no silent tile in the skip check")
+    got = spike_conv(silent, wmat, occ)
+    want = L.blocked_matmul(silent, wmat)
+    torch.cuda.synchronize()
+    check(torch.allclose(got, want, atol=1e-4, rtol=1e-5),
+          "spike_conv disagrees on a partly silent input")
+    print(f"  spike_conv partly silent: {int((occ == 0).sum())}/"
+          f"{occ.numel()} tiles skipped, max|err| "
+          f"{float((got - want).abs().max()):.3g}")
+
+    # control head: ctrl_hidden fires through lif_scan, ctrl_out is the
+    # spike-input matmul
+    ph, po = params["ctrl_hidden"], params["ctrl_out"]
+    cur = (feats.mean(dim=(2, 3)) @ ph["w"] + ph["bias"])
+    flat = cur.reshape(T, -1).contiguous()
+    s_k = lif_scan(flat, **lif_kw)
+    s_p = lif_plain(flat, **lif_kw)
+    torch.cuda.synchronize()
+    check(torch.equal(s_k, s_p), "lif_scan is not bit-exact")
+    st["lif_scan"].add(tuple(flat.shape),
+                       time_ms(lambda: lif_scan(flat, **lif_kw)),
+                       time_ms(lambda: lif_plain(flat, **lif_kw)),
+                       2 * flat.numel() * 4, 8 * flat.numel(), 0.0)
+    print(f"  lif_scan [T,N]={tuple(flat.shape)} spikes "
+          f"{float(s_k.mean()):.3f} bit-exact")
+
+    hx = s_k.reshape(T * B, -1).contiguous()
+    rnd = (torch.rand(hx.shape, device=hx.device,
+                      generator=torch.Generator(hx.device).manual_seed(1))
+           < 0.3).float()
+    errs = []
+    for xin, label in ((hx, "main path"), (rnd, "30% spikes")):
+        got = spike_matmul(xin, po["w"])
+        want = L.blocked_matmul(xin, po["w"])
+        torch.cuda.synchronize()
+        check(torch.allclose(got, want, atol=1e-4, rtol=1e-5),
+              f"spike_matmul disagrees ({label})")
+        errs.append(float((got - want).abs().max()))
+        print(f"  spike_matmul {label} {tuple(xin.shape)}@"
+              f"{tuple(po['w'].shape)} spikes {float(xin.mean()):.3f} "
+              f"max|err| {errs[-1]:.3g}")
+    M, K = hx.shape
+    N = po["w"].shape[1]
+    live = live_tile_elems(occupancy_mask(hx), M, K)
+    st["spike_matmul"].add(
+        (M, K, N), time_ms(lambda: spike_matmul(hx, po["w"])),
+        time_ms(lambda: L.blocked_matmul(hx, po["w"])),
+        (M * K + K * N + M * N) * 4, 2.0 * N * live, max(errs),
+        library_ms=time_ms(lambda: torch.matmul(hx, po["w"])))
+    return st
+
+
+def fire(p, y5, name, st, lif_kw):
+    """norm_affine_lif on a conv output against its plain version."""
+    import torch
+    from repro_torch.core.layers import instance_norm_affine
+    from repro_torch.kernels.lif_scan import norm_affine_lif as kernel
+    from repro_torch.kernels.lif_scan import norm_affine_lif_plain as plain
+    from repro_torch.testing import spike_mismatch
+    T, B, Ho, Wo, C = y5.shape
+    y4 = y5.reshape(T, B, Ho * Wo, C).contiguous()
+    s_k = kernel(y4, p["scale"], p["bias"], **lif_kw)
+    z = instance_norm_affine(y4, p["scale"], p["bias"])
+    s_p = plain(y4, p["scale"], p["bias"], **lif_kw)
+    torch.cuda.synchronize()
+    res = spike_mismatch(z, s_k, tol=NEAR_TOL, **lif_kw)
+    check(res["far"] == 0, f"norm_affine_lif {name}: {res['far']} spikes "
+          f"differ away from threshold")
+    n = y4.numel()
+    st["norm_affine_lif"].add(
+        (T, B, Ho * Wo, C),
+        time_ms(lambda: kernel(y4, p["scale"], p["bias"], **lif_kw)),
+        time_ms(lambda: plain(y4, p["scale"], p["bias"], **lif_kw)),
+        2 * n * 4 + 2 * C * 4, 14 * n, (s_k - s_p).abs().max())
+    print(f"  norm_affine_lif {name:9s} [T,B,HW,C]={(T, B, Ho * Wo, C)} "
+          f"rate {float(s_k.mean()):.3f} flipped {res['flipped']} "
+          f"(near threshold {res['near']})")
+    return s_k.reshape(T, B, Ho, Wo, C)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the engine
+# ---------------------------------------------------------------------------
+
+def layer_walk(params, cfg, plain_cfg, vox):
+    """Every layer of the kernel path on the kernel path's own input,
+    held to the plain layer's currents on the same input."""
+    import torch
+    from repro_torch.core import layers as L
+    from repro_torch.core.backbones import yolo_specs
+    from repro_torch.testing import spike_mismatch
+
+    def held(name, got, z):
+        res = spike_mismatch(z, got, tol=NEAR_TOL, tau=cfg.tau_mem,
+                             v_th=cfg.v_threshold, v_reset=cfg.v_reset)
+        check(res["far"] == 0, f"layer {name}: {res['far']} spikes differ "
+              f"away from threshold")
+        print(f"  layer {name:11s} flipped {res['flipped']} "
+              f"(near threshold {res['near']})")
+
+    x = vox
+    for s in yolo_specs(cfg):
+        p = params["backbone"][s.name]
+        out = L.apply_spiking_conv(p, x, cfg, stride=s.stride)
+        held(s.name, out, L.apply_spiking_conv(p, x, plain_cfg,
+                                               stride=s.stride, fire=False))
+        x = out
+    ph = params["head"]["conv"]
+    h = L.apply_spiking_conv(ph, x, cfg)
+    held("head_conv", h, L.apply_spiking_conv(ph, x, plain_cfg, fire=False))
+    pred = L.apply_spiking_conv(params["head"]["pred"], h, cfg, fire=False)
+    pred_p = L.apply_spiking_conv(params["head"]["pred"], h, plain_cfg,
+                                  fire=False)
+    check(torch.allclose(pred, pred_p, atol=1e-4, rtol=1e-5),
+          "head readout disagrees with the plain layer")
+    pooled = x.mean(dim=(2, 3))
+    c = params["ctrl_hidden"]
+    hc = L.apply_spiking_dense(c, pooled, cfg)
+    held("ctrl_hidden", hc, L.apply_spiking_dense(c, pooled, plain_cfg,
+                                                  fire=False))
+    o = params["ctrl_out"]
+    got = L.apply_spiking_dense(o, hc, cfg, fire=False, spike_input=True)
+    want = L.apply_spiking_dense(o, hc, plain_cfg, fire=False)
+    check(torch.allclose(got, want, atol=1e-4, rtol=1e-5),
+          "ctrl_out disagrees with the plain layer")
+
+
+def serve_phase(params, cfg, reqs, dev):
+    import numpy as np
+    import torch
+    from repro_torch.core.encoding import (EventStream, as_stream,
+                                           events_to_voxel_batch, fit_stream)
+    from repro_torch.kernels import build
+    from repro_torch.serve.cognitive_engine import (CognitiveEngine,
+                                                    PerceptionRequest)
+
+    def clone(rs):
+        return [PerceptionRequest(rid=r.rid, voxels=r.voxels, bayer=r.bayer,
+                                  events=r.events) for r in rs]
+
+    eng = CognitiveEngine(params, cfg, batch=BATCH, device=dev)
+    eng.run_to_completion(clone(reqs[:BATCH]))          # warm-up
+    ticks0 = eng.ticks
+
+    build.reset_launches()
+    done = eng.run_to_completion(clone(reqs))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    ticks = eng.ticks - ticks0
+    print(f"  served {len(done)} requests in {ticks} ticks; launches "
+          f"{launches}")
+    check(sorted(r.rid for r in done) == list(range(REQUESTS)),
+          "not every request was answered")
+    per_tick = {"spike_conv": 2 * cfg.num_stages + 2,
+                "norm_affine_lif": 2 * cfg.num_stages + 1,
+                "lif_scan": 1, "spike_matmul": 1}
+    for k, n in per_tick.items():
+        check(launches.get(k, 0) == n * ticks,
+              f"{k}: {launches.get(k, 0)} launches, want {n} x {ticks} "
+              f"ticks")
+    h = cfg.height // 2 ** cfg.num_stages
+    for r in done:
+        res = r.result
+        check(res.rgb.shape == (cfg.height, cfg.width, 3), "rgb shape")
+        check(res.control.shape == (cfg.control_dim,), "control shape")
+        check(res.raw_pred.shape == (h, h, cfg.num_anchors,
+                                     5 + cfg.num_classes), "raw_pred shape")
+        for a in (res.rgb, res.control, res.raw_pred):
+            check(np.isfinite(a).all(), f"non-finite output (rid {r.rid})")
+        check(res.rgb.min() >= 0.0 and res.rgb.max() <= 1.0,
+              "rgb outside [0, 1]")
+        check(((res.control >= 0) & (res.control <= 1)).all(),
+              "control outside [0, 1]")
+        check(set(res.stage_params) == set(eng.isp_cfg.stages),
+              "stage params")
+
+    # each layer held to its plain version on the event-derived batch
+    ev = [fit_stream(as_stream(r.events), EVENT_CAPACITY)
+          for r in reqs[BATCH:]]
+    evs = EventStream(*(torch.stack(ls).to(dev) for ls in zip(*ev)))
+    vox = events_to_voxel_batch(evs, time_steps=cfg.time_steps,
+                                height=cfg.height,
+                                width=cfg.width).transpose(0, 1).contiguous()
+    plain_cfg = dataclasses.replace(cfg, backend="torch")
+    layer_walk(params, cfg, plain_cfg, vox)
+
+    # end-to-end differences from the plain engine (printed, not gated)
+    plain = CognitiveEngine(params, plain_cfg, batch=BATCH, device=dev)
+    ref = {r.rid: r.result for r in plain.run_to_completion(clone(reqs))}
+    for f in ("raw_pred", "control", "rgb"):
+        d = max(float(np.abs(getattr(r.result, f) - getattr(ref[r.rid], f))
+                      .max()) for r in done)
+        print(f"  end-to-end max|kernel - plain| {f}: {d:.3g}")
+
+    # tick latency, kernel and plain engines in turns on the same batches
+    lat = {"kernels": [], "plain": []}
+    engines = [("kernels", eng), ("plain", plain)]
+    for i in range(LATENCY_TICKS):
+        batch = reqs[(i % 2) * BATCH:(i % 2 + 1) * BATCH]
+        for name, e in (engines if i % 2 == 0 else engines[::-1]):
+            for r in clone(batch):
+                check(e.submit(r), "engine full")
+            e.tick()
+            lat[name].append(e.last_tick_s * 1e3)
+    summary = {name: {"p50_ms": statistics.median(v),
+                      "p90_ms": statistics.quantiles(v, n=10)[8],
+                      "ticks": len(v)} for name, v in lat.items()}
+    print(f"  tick latency (batch {BATCH}, {LATENCY_TICKS} ticks each, "
+          f"host clock to results on the host): {summary}")
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are missing under {SRC}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    from repro_torch.configs.registry import SNN_ARCHS
+    from repro_torch.core.npu import init_npu
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"[1/6] device: {card} (torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
+
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"[2/6] build: {time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        regs = [ln.strip() for ln in build.build_log(name).splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"  {name}: {' | '.join(regs)}")
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(SNN_ARCHS["spiking_yolo"], backend="cuda")
+    params = init_npu(torch.Generator().manual_seed(0), cfg, device=dev)
+    reqs = make_requests(cfg, np.random.default_rng(0))
+    vox = torch.stack([torch.as_tensor(r.voxels)
+                       for r in reqs[:BATCH]], dim=1).to(dev)
+
+    print("[3/6] per-kernel parity on the main path's inputs "
+          f"(batch {BATCH})")
+    st = kernel_phase(params, cfg, vox)
+    print("[4/6] timings (ms per tick, medians of CUDA-event runs)")
+    for name, s in st.items():
+        print(f"  {name}: kernel {s.ms:.4f} plain {s.plain_ms:.4f} "
+              f"library {s.library_ms} bound {s.bound_ms:.4f} over "
+              f"{len(s.shapes)} launches")
+
+    print("[5/6] serving: CognitiveEngine, full spiking_yolo, kernels")
+    launches, latency = serve_phase(params, cfg, reqs, dev)
+
+    rows = [st[k].row(k, launches[k]) for k in KERNELS]
+    print("[6/6] report")
+    print(json.dumps({"serve": {"batch": BATCH, "requests": REQUESTS,
+                                "tick_latency": latency}}))
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

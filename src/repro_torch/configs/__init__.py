@@ -1,0 +1,4 @@
+from repro_torch.configs.base import (DEFAULT_ISP_STAGES, EncodingConfig,
+                                     ISPConfig, SNNConfig)
+
+__all__ = ["DEFAULT_ISP_STAGES", "EncodingConfig", "ISPConfig", "SNNConfig"]

@@ -1,0 +1,135 @@
+"""DVS event encoding (paper §IV-A): event buffers -> voxel grids, the
+counterpart of ``repro.core.encoding``.
+
+Semantics, as in the reference:
+
+- invalid events and out-of-bounds ``x``/``y``/``p`` are dropped;
+- time bin = ``floor(t / window * time_steps)`` in float32, in that
+  order; bins outside ``[0, time_steps)`` follow ``oob``: "clip" aliases
+  them into the edge bins, "drop" discards them;
+- ``mode``: "binary" (one-hot occupancy), "count" (per-polarity counts),
+  "signed" (channels ``(ON - OFF, ON + OFF)``).
+
+The scatter is one ``index_put_(..., accumulate=True)`` of ones into a
+flat float32 grid with a dump slot for dead events: adding 1.0 to
+integer counts below 2^24 is exact in any order, so the grid is
+bit-identical to the reference.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+VOXEL_MODES = ("binary", "count", "signed")
+OOB_POLICIES = ("clip", "drop")
+
+
+class EventStream(NamedTuple):
+    """Fixed-capacity event buffer; leaves are [N] for one window or
+    [B, N] when batched."""
+    t: torch.Tensor      # float32 in [0, window)
+    x: torch.Tensor      # int32
+    y: torch.Tensor      # int32
+    p: torch.Tensor      # int32 {0, 1}
+    valid: torch.Tensor  # bool
+
+    @property
+    def capacity(self) -> int:
+        return self.t.shape[-1]
+
+
+def as_stream(ev, device=None) -> EventStream:
+    """An EventStream of tensors (float32 t, int32 x/y/p, bool valid)
+    from any stream whose leaves convert with ``torch.as_tensor``."""
+    def leaf(a, dtype):
+        return torch.as_tensor(a).to(device=device, dtype=dtype)
+    return EventStream(t=leaf(ev.t, torch.float32), x=leaf(ev.x, torch.int32),
+                       y=leaf(ev.y, torch.int32), p=leaf(ev.p, torch.int32),
+                       valid=leaf(ev.valid, torch.bool))
+
+
+def events_to_voxel_batch(evs: EventStream, *, time_steps: int,
+                          height: int, width: int, window: float = 1.0,
+                          mode: str = "binary",
+                          oob: str = "clip") -> torch.Tensor:
+    """Batched encoding, batch-major: leaves [B, N] -> [B, T, H, W, 2]."""
+    if mode not in VOXEL_MODES:
+        raise ValueError(f"mode must be one of {VOXEL_MODES}, got {mode!r}")
+    if oob not in OOB_POLICIES:
+        raise ValueError(f"oob must be one of {OOB_POLICIES}, got {oob!r}")
+    B = evs.t.shape[0]
+    tbin = torch.floor(evs.t / window * time_steps).to(torch.int64)
+    x, y, p = (a.to(torch.int64) for a in (evs.x, evs.y, evs.p))
+    ok = (evs.valid & (x >= 0) & (x < width) & (y >= 0) & (y < height)
+          & (p >= 0) & (p < 2))
+    if oob == "drop":
+        ok = ok & (tbin >= 0) & (tbin < time_steps)
+    tbin = tbin.clamp(0, time_steps - 1)
+    size = time_steps * height * width * 2
+    b = torch.arange(B, device=evs.t.device)[:, None]
+    flat = b * size + ((tbin * height + y) * width + x) * 2 + p
+    flat = torch.where(ok, flat, B * size)      # dead events -> dump slot
+    grid = torch.zeros(B * size + 1, dtype=torch.float32,
+                       device=evs.t.device)
+    grid.index_put_((flat.reshape(-1),),
+                    torch.ones(flat.numel(), dtype=torch.float32,
+                               device=evs.t.device), accumulate=True)
+    grid = grid[:-1].reshape(B, time_steps, height, width, 2)
+    if mode == "binary":
+        grid = (grid > 0).to(torch.float32)
+    elif mode == "signed":
+        grid = torch.stack([grid[..., 1] - grid[..., 0],
+                            grid[..., 1] + grid[..., 0]], dim=-1)
+    return grid
+
+
+def events_to_voxel(ev: EventStream, **kw) -> torch.Tensor:
+    """One window ([N] leaves) -> voxel grid [T, H, W, 2]."""
+    return events_to_voxel_batch(
+        EventStream(*(a[None] for a in ev)), **kw)[0]
+
+
+# ---------------------------------------------------------------------------
+# EventStream budgeting
+# ---------------------------------------------------------------------------
+
+def pad_stream(ev: EventStream, capacity: int) -> EventStream:
+    """Grow a stream ([N] or [B, N] leaves) to ``capacity`` with invalid
+    padding; shrinking goes through ``budget_events``."""
+    n = ev.capacity
+    if n == capacity:
+        return ev
+    if n > capacity:
+        raise ValueError(
+            f"stream has capacity {n} > {capacity}; budget it first "
+            f"(repro_torch.core.encoding.budget_events)")
+    grow = (0, capacity - n)
+    return EventStream(t=F.pad(ev.t, grow), x=F.pad(ev.x, grow),
+                       y=F.pad(ev.y, grow), p=F.pad(ev.p, grow),
+                       valid=F.pad(ev.valid, grow, value=False))
+
+
+def budget_events(ev: EventStream, budget: int) -> EventStream:
+    """Compact a single window ([N] leaves) to exactly ``budget``
+    capacity, keeping at most ``budget`` live events: the EARLIEST ones
+    (a FIFO drop-tail, ties broken by buffer position)."""
+    if budget <= 0:
+        raise ValueError(f"budget must be positive, got {budget}")
+    n = ev.capacity
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=ev.t.device)
+    score = torch.where(ev.valid, ev.t, inf)
+    order = torch.sort(score, stable=True).indices
+    keep = order[:budget] if budget <= n else F.pad(order, (0, budget - n))
+    rank_ok = torch.arange(budget, device=ev.t.device) < min(n, budget)
+    return EventStream(t=ev.t[keep], x=ev.x[keep], y=ev.y[keep],
+                       p=ev.p[keep], valid=ev.valid[keep] & rank_ok)
+
+
+def fit_stream(ev: EventStream, capacity: int) -> EventStream:
+    """Coerce a single-window stream to EXACTLY ``capacity``: overfull
+    buffers are budgeted, under-full ones padded with invalid events."""
+    if ev.capacity > capacity:
+        return budget_events(ev, capacity)
+    return pad_stream(ev, capacity)

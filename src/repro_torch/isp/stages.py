@@ -1,0 +1,229 @@
+"""Pluggable ISP stage registry (paper §V–§VI), the counterpart of
+``repro.isp.stages`` on the plain ``"torch"`` backend.
+
+Each stage declares its NPU-controllable parameters (``ParamSpec``
+ranges and defaults) and one implementation per backend; a pipeline is
+an ordered tuple of stage names, and the NPU control vector maps onto
+the declared ranges in pipeline order, so ``control_dim`` is derived.
+
+Stage implementations take a batch — ``x`` [B, H, W] or [B, H, W, 3] —
+and ``p``, a ``{param: scalar or [B]}`` dict: one compiled-free eager
+path serves every control setting.  The fusion metadata of the
+reference (stencil windows, reduce stats) belongs to the fused ISP
+backend, which is later work.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.isp._util import bcast
+from repro_torch.isp.awb import awb_apply_stats, awb_gains
+from repro_torch.isp.demosaic import demosaic_mhc
+from repro_torch.isp.dpc import dpc_correct
+from repro_torch.isp.gamma import apply_gamma, gamma_lut, sharpen_luma
+from repro_torch.isp.nlm import nlm_denoise
+from repro_torch.isp.tone import apply_saturation, reinhard_tonemap
+
+
+class ParamSpec(NamedTuple):
+    """One NPU-controllable parameter: the control vector's [0, 1]
+    sigmoid output maps onto ``[lo, hi]`` by lerp."""
+    name: str
+    lo: float
+    hi: float
+    default: float
+
+
+StageFn = Callable[[torch.Tensor, Dict[str, torch.Tensor]], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    name: str
+    params: Tuple[ParamSpec, ...]
+    impls: Dict[str, StageFn]       # backend name -> implementation
+    domain: str = "rgb"             # "bayer" | "rgb" | "any": input domain
+    out_domain: Optional[str] = None  # None => unchanged (demosaic: "rgb")
+    doc: str = ""
+
+    def impl_for(self, backend: str) -> StageFn:
+        fn = self.impls.get(backend)
+        return fn if fn is not None else self.impls["torch"]
+
+
+STAGES: Dict[str, Stage] = {}
+BACKENDS: List[str] = ["torch"]
+
+
+def register_stage(name: str, params: Tuple[ParamSpec, ...], impl: StageFn,
+                   domain: str = "rgb", out_domain: Optional[str] = None,
+                   doc: str = "") -> Stage:
+    """Register (or replace) a stage with its plain ``torch`` impl."""
+    impls = dict(STAGES[name].impls) if name in STAGES else {}
+    impls["torch"] = impl
+    stage = Stage(name=name, params=tuple(params), impls=impls,
+                  domain=domain, out_domain=out_domain, doc=doc)
+    STAGES[name] = stage
+    return stage
+
+
+def get_stage(name: str) -> Stage:
+    try:
+        return STAGES[name]
+    except KeyError:
+        raise KeyError(f"unknown ISP stage {name!r}; registered: "
+                       f"{sorted(STAGES)}") from None
+
+
+# ---------------------------------------------------------------------------
+# Control-vector <-> per-stage parameter mapping
+# ---------------------------------------------------------------------------
+
+def stage_param_specs(stage_names) -> List[Tuple[str, ParamSpec]]:
+    """Flattened (stage, spec) list in pipeline order — the layout of the
+    control vector.  Duplicate stage names are rejected (they would
+    alias their control slots)."""
+    if len(set(stage_names)) != len(tuple(stage_names)):
+        raise ValueError(
+            f"duplicate ISP stage in {tuple(stage_names)}: control-vector "
+            f"mapping is keyed by stage name")
+    return [(name, spec) for name in stage_names
+            for spec in get_stage(name).params]
+
+
+def control_dim_for(stage_names) -> int:
+    return len(stage_param_specs(stage_names))
+
+
+def control_to_stage_params(ctrl: torch.Tensor, stage_names) \
+        -> Dict[str, Dict[str, torch.Tensor]]:
+    """Map a [..., control_dim] vector in [0, 1] onto the declared
+    ranges: slot ``i`` drives the ``i``-th (stage, param) in order."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {n: {} for n in stage_names}
+    for i, (sname, spec) in enumerate(stage_param_specs(stage_names)):
+        out[sname][spec.name] = spec.lo + (spec.hi - spec.lo) * ctrl[..., i]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Pipeline runner
+# ---------------------------------------------------------------------------
+
+def check_stage_order(stage_names) -> None:
+    """A stage declaring ``domain="rgb"`` cannot run before demosaic,
+    and vice versa."""
+    domain = "bayer"
+    for name in stage_names:
+        stage = get_stage(name)
+        if stage.domain not in ("any", domain):
+            raise ValueError(
+                f"stage {name!r} expects {stage.domain!r} input but the "
+                f"pipeline {tuple(stage_names)} is in the {domain!r} "
+                f"domain at that point")
+        domain = stage.out_domain or domain
+
+
+def resolve_stage_params(name: str, stage_params) -> Dict[str, torch.Tensor]:
+    """One stage's {param: value} dict with missing entries defaulted."""
+    p = dict(stage_params.get(name, {})) if stage_params else {}
+    for spec in get_stage(name).params:
+        p.setdefault(spec.name, torch.tensor(spec.default,
+                                             dtype=torch.float32))
+    return p
+
+
+def run_stages(raw: torch.Tensor, stage_params, stage_names,
+               backend: str = "torch") -> torch.Tensor:
+    """Run a batch of Bayer mosaics ``raw`` [B, H, W] through the named
+    stages in order.  ``stage_params``: {stage: {param: scalar or [B]}};
+    missing stages and params take their defaults."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown ISP backend {backend!r}; registered: "
+                         f"{BACKENDS}")
+    for sname, sp in (stage_params or {}).items():
+        declared = {spec.name for spec in get_stage(sname).params}
+        unknown = set(sp) - declared
+        if unknown:
+            raise ValueError(
+                f"unknown param(s) {sorted(unknown)} for ISP stage "
+                f"{sname!r}; declared: {sorted(declared)}")
+    check_stage_order(stage_names)
+    x = raw
+    for name in stage_names:
+        p = resolve_stage_params(name, stage_params)
+        x = get_stage(name).impl_for(backend)(x, p)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Built-in stages (paper §V)
+# ---------------------------------------------------------------------------
+
+def _exposure(x, p):
+    return torch.clamp(x * bcast(p["gain"], x), 0.0, 1.0)
+
+
+def _dpc(x, p):
+    return dpc_correct(x, threshold=p["threshold"])[0]
+
+
+def _demosaic(x, p):
+    return demosaic_mhc(x)
+
+
+def _awb(x, p):
+    return awb_apply_stats(x, p, awb_gains(x))
+
+
+def _nlm(x, p):
+    return nlm_denoise(x, strength=p["strength"])
+
+
+def _gamma(x, p):
+    return apply_gamma(x, gamma_lut(p["gamma"], device=x.device))
+
+
+def _sharpen(x, p):
+    return sharpen_luma(x, p["amount"])
+
+
+def _tonemap(x, p):
+    return reinhard_tonemap(x, p["strength"])
+
+
+def _ccm(x, p):
+    return apply_saturation(x, p["saturation"])
+
+
+register_stage(
+    "exposure", (ParamSpec("gain", 0.5, 2.0, 1.0),), _exposure,
+    domain="any", doc="digital gain, clipped to [0,1] (either domain)")
+register_stage(
+    "dpc", (ParamSpec("threshold", 0.05, 0.5, 0.2),), _dpc,
+    domain="bayer", doc="dynamic defective pixel correction (§V-B.1)")
+register_stage(
+    "demosaic", (), _demosaic, domain="bayer", out_domain="rgb",
+    doc="Malvar-He-Cutler 5x5 demosaic (§V-B.3)")
+register_stage(
+    "awb", (ParamSpec("enable", 0.0, 1.0, 1.0),
+            ParamSpec("bias_r", 0.5, 2.0, 1.0),
+            ParamSpec("bias_b", 0.5, 2.0, 1.0)), _awb,
+    doc="grey-world AWB, softly blended, with NPU r/b bias (§V-B.2)")
+register_stage(
+    "nlm", (ParamSpec("strength", 0.0, 1.0, 0.3),), _nlm,
+    doc="bounded-window non-local-means denoise (§V-B.4)")
+register_stage(
+    "gamma", (ParamSpec("gamma", 0.4, 3.0, 2.2),), _gamma,
+    doc="256-entry gamma LUT with linear interp (§V-B.5)")
+register_stage(
+    "sharpen", (ParamSpec("amount", 0.0, 1.0, 0.3),), _sharpen,
+    doc="luma sharpening in YCbCr (§V-B.5)")
+register_stage(
+    "tonemap", (ParamSpec("strength", 0.0, 1.0, 0.5),), _tonemap,
+    doc="global Reinhard tone-mapping; strength 0 ~= identity")
+register_stage(
+    "ccm", (ParamSpec("saturation", 0.0, 2.0, 1.0),), _ccm,
+    doc="luma-preserving saturation matrix (CCM analogue)")

@@ -1,0 +1,5 @@
+"""Hand-written Hopper kernels of the port, each beside its plain
+PyTorch version: ``spike_conv`` (gated GEMM), ``spike_matmul``
+(tile-skip GEMM), ``lif_scan`` and ``norm_affine_lif``.  ``build``
+compiles ``csrc/`` with ``nvcc`` at first use; ``ops`` dispatches the
+spiking layers onto them."""

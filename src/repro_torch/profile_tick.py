@@ -1,0 +1,118 @@
+"""Profile the serving tick on the card: where a tick's time goes.
+
+    python -m repro_torch.profile_tick [--ticks 20] [--batch 8] [--backend cuda]
+
+Serves full-width spiking-YOLO (seeded random weights, random voxel
+windows and Bayer frames) through ``CognitiveEngine`` and records
+``--ticks`` ticks under ``torch.profiler`` after three warm-up ticks.
+Prints, per tick: the host wall time, the host time inside each stage
+span (``tick.upload``/``encode``/``npu``/``isp``/``fetch``, set by
+``EngineCore``), the device busy time (the sum of kernel and copy times)
+and so the device's idle share, the number of device operations, and the
+kernels that take the most device time.  The last line is one JSON
+object with those numbers.  Needs a CUDA device; it never falls back to
+the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import SNN_ARCHS
+from repro_torch.core.npu import init_npu
+from repro_torch.serve.cognitive_engine import (CognitiveEngine,
+                                                PerceptionRequest)
+
+STAGES = ("tick.upload", "tick.encode", "tick.npu", "tick.isp", "tick.fetch")
+
+
+def _requests(cfg, batch, rng):
+    out = []
+    for i in range(batch):
+        vox = (rng.random((cfg.time_steps, cfg.height, cfg.width, 2))
+               < 0.05).astype(np.float32)
+        bayer = rng.uniform(0.05, 0.95, (cfg.height, cfg.width)).astype(
+            np.float32)
+        out.append(PerceptionRequest(rid=i, voxels=vox, bayer=bayer))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ticks", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"))
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_tick: needs a CUDA device")
+
+    cfg = dataclasses.replace(SNN_ARCHS["spiking_yolo"], backend=args.backend)
+    params = init_npu(torch.Generator().manual_seed(args.seed), cfg)
+    eng = CognitiveEngine(params, cfg, batch=args.batch)
+    reqs = _requests(cfg, args.batch, np.random.default_rng(args.seed))
+
+    def tick():
+        for r in reqs:
+            eng.submit(dataclasses.replace(r, result=None))
+        eng.tick()
+        return eng.last_tick_s
+
+    for _ in range(3):
+        tick()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        walls = [tick() for _ in range(args.ticks)]
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+
+    events = prof.events()
+    n = args.ticks
+    spans = {s: sum(e.cpu_time_total for e in events if e.name == s) / n
+             / 1e3 for s in STAGES}
+    # device-side events, less the stage spans' own GPU annotations
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.name not in STAGES]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / n / 1e3
+    # the same device time, as the kernels attributed to host operations
+    attributed_ms = sum(k.duration for e in events for k in e.kernels) / n / 1e3
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / n / 1e3)
+    wall_ms = total_s / n * 1e3
+    print(f"backend {args.backend}, batch {args.batch}, {n} ticks, "
+          f"{torch.cuda.get_device_name(0)}")
+    print(f"tick wall p50 {statistics.median(walls) * 1e3:.3f} ms; "
+          f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
+          f"({len(dev) / n:.0f} device ops per tick; {attributed_ms:.3f} ms "
+          f"attributed to host ops)")
+    for s, ms in spans.items():
+        print(f"  host span {s:12s} {ms:8.3f} ms")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    for name, ms in top:
+        print(f"  device {ms:8.4f} ms  {name[:90]}")
+    print(json.dumps({
+        "backend": args.backend, "batch": args.batch, "ticks": n,
+        "device": torch.cuda.get_device_name(0),
+        "tick_wall_p50_ms": statistics.median(walls) * 1e3,
+        "wall_ms_per_tick": wall_ms, "device_busy_ms_per_tick": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_attributed_ms_per_tick": attributed_ms,
+        "device_ops_per_tick": len(dev) / n, "host_span_ms": spans,
+        "top_device_ms": dict(top[:8])}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,143 @@
+"""EngineCore: the device-side half of the cognitive serving tick, the
+counterpart of ``repro.serve.engine_core`` on one device.
+
+A tick is ``encode -> npu_forward -> control -> ISP`` run eagerly on the
+engine's device: ONE host->device copy of the staging bank (the bank is
+one contiguous, pinned buffer), the tick's kernels on the current
+stream, and ONE device->host copy of every output packed into a single
+flat tensor.  No mesh and no launch table in this slice; CUDA graphs
+for the tick are later work.  ``torch.profiler`` spans ``tick.upload``,
+``tick.encode``, ``tick.npu``, ``tick.isp`` and ``tick.fetch`` mark the
+stages (``python -m repro_torch.profile_tick`` reads them).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from repro_torch.configs.base import EncodingConfig, ISPConfig, SNNConfig
+from repro_torch.core.encoding import events_to_voxel_batch
+from repro_torch.core.npu import NPUOutput, npu_forward, params_to, \
+    resolve_device
+from repro_torch.isp.pipeline import (control_vector_pipeline_batch,
+                                      legacy_control_permutation)
+from repro_torch.isp.stages import BACKENDS as ISP_BACKENDS
+from repro_torch.isp.stages import control_to_stage_params
+
+
+class EngineCore:
+    """Owns the tick, the engine's device and its parameter copy."""
+
+    def __init__(self, npu_params, cfg: SNNConfig,
+                 isp_cfg: Optional[ISPConfig] = None, *,
+                 frame_hw: Optional[tuple] = None,
+                 control_order: str = "pipeline",
+                 enc_cfg: Optional[EncodingConfig] = None,
+                 collect_sparsity: bool = False, device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.isp_cfg = isp_cfg if isp_cfg is not None else ISPConfig()
+        self.enc_cfg = enc_cfg if enc_cfg is not None else EncodingConfig()
+        need = self.isp_cfg.control_dim
+        if cfg.control_dim < need:
+            raise ValueError(
+                f"NPU control_dim={cfg.control_dim} < {need} needed by ISP "
+                f"pipeline {self.isp_cfg.name!r}; build the SNNConfig with "
+                f"repro_torch.core.npu.configure_for_isp")
+        if self.enc_cfg.backend != "torch":
+            raise ValueError(f"unknown encoding backend "
+                             f"{self.enc_cfg.backend!r}")
+        if self.isp_cfg.backend not in ISP_BACKENDS:
+            raise ValueError(
+                f"unknown ISP backend {self.isp_cfg.backend!r}; "
+                f"registered: {ISP_BACKENDS}")
+        self.frame_hw: Tuple[int, int] = (
+            frame_hw if frame_hw is not None else (cfg.height, cfg.width))
+        if control_order not in ("pipeline", "legacy"):
+            raise ValueError(f"control_order must be 'pipeline' or "
+                             f"'legacy', got {control_order!r}")
+        self.perm = None
+        if control_order == "legacy":
+            p = legacy_control_permutation(self.isp_cfg.stages)
+            if cfg.control_dim <= max(p):
+                raise ValueError(
+                    f"NPU control_dim={cfg.control_dim} too narrow for "
+                    f"the legacy slot layout (needs > {max(p)})")
+            self.perm = torch.tensor(p, dtype=torch.int64,
+                                     device=self.device)
+        self.collect_sparsity = bool(collect_sparsity)
+        self.params = params_to(npu_params, self.device)
+
+    # ------------------------------------------------------------------
+    def _encode(self, events):
+        c, e = self.cfg, self.enc_cfg
+        vox = events_to_voxel_batch(
+            events, time_steps=c.time_steps, height=c.height, width=c.width,
+            window=e.window, mode=e.mode, oob=e.oob)
+        return vox.transpose(0, 1)                   # -> [T, B, H, W, 2]
+
+    @torch.no_grad()
+    def step(self, voxels, bayer, events, from_events):
+        """The tick on device tensors -> (NPUOutput, rgb [B, H, W, 3],
+        stage params {stage: {param: [B]}})."""
+        if self.cfg.in_channels == 2:
+            with record_function("tick.encode"):
+                enc = self._encode(events)
+                voxels = torch.where(
+                    from_events[None, :, None, None, None], enc, voxels)
+        with record_function("tick.npu"):
+            out = npu_forward(self.params, voxels, self.cfg,
+                              collect_sparsity=self.collect_sparsity)
+        ctrl = out.control[:, self.perm] if self.perm is not None \
+            else out.control[:, :self.isp_cfg.control_dim]
+        with record_function("tick.isp"):
+            rgb = control_vector_pipeline_batch(bayer, ctrl, self.isp_cfg)
+            sp = control_to_stage_params(ctrl, self.isp_cfg.stages)
+        return out, rgb, sp
+
+    def upload(self, bank):
+        """ONE host->device copy of the whole staging bank; returns the
+        device views ``(voxels, bayer, events, from_events)``."""
+        with record_function("tick.upload"):
+            dev = bank.buffer.to(self.device, non_blocking=True, copy=True)
+            return bank.device_views(dev)
+
+    def fetch(self, outputs):
+        """ONE device->host copy of the tick's outputs (packed into one
+        flat float32 tensor), unpacked into numpy arrays of the same
+        structure."""
+        out, rgb, sp = outputs
+        leaves: Dict[tuple, torch.Tensor] = {
+            ("raw_pred",): out.raw_pred, ("control",): out.control,
+            ("sparsity",): out.sparsity, ("tile_skip",): out.tile_skip,
+            ("rgb",): rgb}
+        for s, params in sp.items():
+            for k, v in params.items():
+                leaves[("sp", s, k)] = v
+        for k, v in (out.layer_rates or {}).items():
+            leaves[("rates", k)] = v
+        with record_function("tick.fetch"):
+            flat = torch.cat([t.reshape(-1).to(torch.float32)
+                              for t in leaves.values()]).cpu().numpy()
+        host, off = {}, 0
+        for key, t in leaves.items():
+            n = t.numel()
+            host[key] = flat[off:off + n].reshape(tuple(t.shape))
+            off += n
+        rates = ({k[1]: host[k] for k in host if k[0] == "rates"}
+                 if out.layer_rates is not None else None)
+        npu = NPUOutput(raw_pred=host[("raw_pred",)],
+                        control=host[("control",)],
+                        sparsity=np.float32(host[("sparsity",)]),
+                        tile_skip=np.float32(host[("tile_skip",)]),
+                        layer_rates=rates)
+        stage_params = {s: {k: host[("sp", s, k)] for k in params}
+                        for s, params in sp.items()}
+        return npu, host[("rgb",)], stage_params
+
+    def tick(self, bank):
+        """upload -> step -> fetch in one call."""
+        return self.fetch(self.step(*self.upload(bank)))

@@ -1,0 +1,111 @@
+"""The four CUDA kernels against their plain PyTorch versions on the
+card.  Every test needs an NVIDIA GPU and skips without one; the file
+imports no JAX, so it runs on a machine that has only PyTorch:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances: the GEMMs sum in another order than cuBLAS (allclose
+atol=1e-4, rtol=1e-5, TF32 off); the LIF scan replays the plain
+recurrence op for op (equal); the norm kernel's statistics round
+differently, so its spikes may flip only where the plain membrane lies
+within 1e-4 of threshold.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.layers import instance_norm_affine, spike_im2col
+from repro_torch.kernels import build
+from repro_torch.kernels.lif_scan import lif_scan, norm_affine_lif
+from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
+from repro_torch.kernels.spike_matmul import spike_matmul
+from repro_torch.testing import spike_mismatch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    """Decided inside the test, never at collection time, so every
+    worker collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _spikes(rng, shape, density, silent_rows=0):
+    x = (rng.random(shape) < density).astype(np.float32)
+    x[:silent_rows] = 0.0
+    return torch.tensor(x)
+
+
+@pytest.mark.parametrize("T,N", [(5, 512), (3, 1025), (5, 40960)])
+def test_lif_scan_bitexact(dev, T, N):
+    rng = np.random.default_rng(N)
+    cur = torch.tensor(rng.normal(0.6, 1.0, (T, N)).astype(np.float32))
+    got = lif_scan(cur.to(dev))
+    torch.testing.assert_close(got, lif_scan(cur).to(dev), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("T,B,HW,C", [(5, 2, 256, 64), (3, 3, 100, 40),
+                                      (5, 8, 1024, 32)])
+def test_norm_affine_lif_matches_plain(dev, T, B, HW, C):
+    rng = np.random.default_rng(HW + C)
+    y = torch.tensor(rng.normal(0.3, 1.0, (T, B, HW, C)).astype(np.float32),
+                     device=dev)
+    scale = torch.tensor(rng.normal(1, 0.2, (C,)).astype(np.float32),
+                         device=dev)
+    bias = torch.tensor(rng.normal(0, 0.1, (C,)).astype(np.float32),
+                        device=dev)
+    got = norm_affine_lif(y, scale, bias)
+    res = spike_mismatch(instance_norm_affine(y, scale, bias), got, tol=1e-4)
+    assert res["far"] == 0, res
+
+
+# (N, H, W, cin, cout, k, stride, density, silent frames)
+CONV_CASES = {
+    "strided_ragged": (4, 17, 15, 2, 19, 3, 2, 0.3, 0),
+    "wide_k": (2, 8, 8, 40, 24, 3, 1, 0.2, 0),
+    "pointwise": (3, 8, 8, 256, 14, 1, 1, 0.4, 0),
+    "partly_silent": (6, 16, 16, 32, 64, 3, 1, 0.3, 4),
+    "all_silent": (2, 8, 8, 4, 8, 3, 2, 0.0, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_spike_conv_matches_plain(dev, case):
+    n, h, w_, cin, cout, k, stride, dens, silent = CONV_CASES[case]
+    rng = np.random.default_rng(len(case))
+    xf = _spikes(rng, (n, h, w_, cin), dens, silent).to(dev)
+    w = torch.tensor(rng.normal(0, 1, (k, k, cin, cout)).astype(np.float32),
+                     device=dev)
+    patches, _ = spike_im2col(xf, k, k, stride)
+    wmat = w.reshape(-1, cout).contiguous()
+    occ = occupancy_mask(patches)
+    got = spike_conv(patches, wmat, occ)
+    want = spike_conv(patches.cpu(), wmat.cpu(), occ.cpu())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("M,K,N,density", [(40, 64, 8, 0.3), (40, 64, 8, 0.0),
+                                           (300, 200, 33, 0.1)])
+def test_spike_matmul_matches_plain(dev, M, K, N, density):
+    rng = np.random.default_rng(M + K)
+    x = _spikes(rng, (M, K), density)
+    w = torch.tensor(rng.normal(0, 1, (K, N)).astype(np.float32))
+    got = spike_matmul(x.to(dev), w.to(dev))
+    torch.testing.assert_close(got.cpu(), spike_matmul(x, w), atol=1e-4,
+                               rtol=1e-5)
+
+
+def test_launch_counters(dev):
+    build.reset_launches()
+    x = torch.ones(5, 64, device=dev)
+    lif_scan(x)
+    spike_matmul(x, torch.ones(64, 8, device=dev))
+    lif_scan(x.cpu())                       # the plain version: no launch
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == {"lif_scan": 1, "spike_matmul": 1}

@@ -1,0 +1,78 @@
+"""The port's boundary: ``repro_torch`` and ``chip_smoke.py`` import
+nothing of JAX and nothing of the JAX package ``repro`` (the machine
+with the card has no JAX), and the entry points do not fall back to the
+CPU when no card is present."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)(\.|\s)(?!_))",
+    re.MULTILINE)
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.serve.cognitive_engine" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax'\n"
+        "             or n.startswith('jax.') or n == 'repro'\n"
+        "             or n.startswith('repro.'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_sources_have_no_jax_or_repro_imports():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        hits = _FORBIDDEN.findall(f.read_text())
+        assert not hits, (f, hits)
+
+
+@pytest.mark.parametrize("line,bad", [
+    ("import jax", True), ("from jax import numpy", True),
+    ("import repro.core", True), ("from repro.core import npu", True),
+    ("    from repro import configs", True),
+    ("import repro_torch", False), ("from repro_torch.core import npu", False),
+    ("import jaxlib_free", False)])
+def test_forbidden_import_pattern(line, bad):
+    assert bool(_FORBIDDEN.search(line)) == bad
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    from repro_torch.configs.registry import reduced_snn
+    from repro_torch.core.npu import init_npu
+    from repro_torch.serve.cognitive_engine import CognitiveEngine
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    cfg = reduced_snn("spiking_yolo")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_npu(gen, cfg)
+    params = init_npu(gen, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CognitiveEngine(params, cfg, batch=2)
