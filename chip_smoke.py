@@ -7,30 +7,45 @@ hold each hand-written CUDA kernel against its plain PyTorch version.
 Phases (any failure raises and exits non-zero):
 
 1. device  — require CUDA; print the card's name and power limit;
-2. build   — compile the four kernels from ``src/repro_torch/kernels/csrc``
-             (one nvcc per source, in parallel) and print the build time;
+2. build   — compile the seven kernels from ``src/repro_torch/kernels/csrc``
+             (one nvcc per source, in parallel); print the build time and
+             each kernel's register report;
 3. parity  — walk full-width spiking-YOLO (64x64, T=5, 32 base channels,
-             4 stages) at batch 8 layer by layer, calling each kernel on
-             the main path's own inputs and comparing it with its plain
+             4 stages) at batch 8 layer by layer, calling each NPU kernel
+             on the main path's own inputs and comparing it with its plain
              version on the same inputs (TF32 off): spike_conv and
              spike_matmul allclose atol=1e-4 rtol=1e-5, lif_scan equal,
              norm_affine_lif spikes equal except where the plain membrane
              lies within 1e-4 of v_th; spike_conv also on a partly silent
-             patch matrix so the tile skip runs;
+             patch matrix so the tile skip runs.  Then the all-kernel
+             tick's own encode and ISP inputs: event_voxel equal to its
+             plain version in every mode x oob policy on the 8 event
+             windows of the request set, and the ISP walked stage by
+             stage with the stage params of the kernel NPU's control
+             vector: demosaic equal, nlm within 1e-6 (max |err| printed);
 4. timings — per kernel, device-time medians (CUDA events behind a spin
              kernel, so host launch overhead is not counted) over 30 runs
              of every launch of a tick (kernel, plain version, one
              torch.matmul where it computes the same function), and the
              least time the card could take for the same work (bytes at
              3.35 TB/s, fp32 operations at 67 TFLOP/s, this run's data);
-5. serve   — CognitiveEngine (full spiking_yolo, kernel backend, default
-             ISP, batch 8, seeded random weights) answers 16 requests, 8
-             voxel windows and 8 raw event buffers; every result is
-             checked, every kernel's launch counter must show the tick's
-             launches, each layer's spikes are held to its plain version
-             on the same inputs, and the differences from the plain
-             engine are printed; then the tick latency (p50, p90) of
-             the kernel and plain engines, in turns;
+             plus demosaic and nlm on an [8, 512, 512] batch;
+5. serve   — three CognitiveEngines (full spiking_yolo, batch 8, seeded
+             random weights) answer the same 16 requests, 8 voxel windows
+             and 8 raw event buffers: the all-kernel engine (encoding,
+             SNN and ISP on their kernels), the SNN-kernel engine (torch
+             encoding and ISP) and the plain engine.  Each runs with the
+             launch counters set to 0 just before it and read just after:
+             the all-kernel engine must show every kernel's launches per
+             tick, the SNN-kernel engine none of event_voxel, demosaic and
+             nlm, the plain engine none at all.  Every result is checked,
+             each layer's spikes are held to its plain version on the same
+             inputs, and the all-kernel results to the plain engine's
+             (raw_pred and control 1e-4, rgb 1e-4, printed); then the
+             cognitive loop (cognitive_forward on the "cuda" ISP config,
+             cognitive_step(use_cuda=True)) against its plain run at the
+             same bars; then the tick latency (p50, p90) of the three
+             engines, in turns;
 6. report  — one JSON line of per-kernel numbers, the card line, and
              the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -58,6 +73,9 @@ LATENCY_TICKS = 120
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
 NEAR_TOL = 1e-4
+E2E_TOL = 1e-4                  # end-to-end raw_pred, control and rgb
+NLM_TOL = 1e-6
+LARGE_HW = 512                  # the extra demosaic/nlm timing line
 SPIN_CYCLES_PER_S = 2e9         # ~ the H100's SM clock, for the spin kernel
 
 # name -> (source in the repo, the TPU kernel it replaces)
@@ -70,7 +88,21 @@ KERNELS = {
                  "src/repro/kernels/lif_scan.py:71"),
     "spike_matmul": ("src/repro_torch/kernels/csrc/spike_matmul.cu",
                      "src/repro/kernels/spike_matmul.py:53"),
+    "event_voxel": ("src/repro_torch/kernels/csrc/event_voxel.cu",
+                    "src/repro/kernels/event_voxel.py:81"),
+    "demosaic": ("src/repro_torch/kernels/csrc/demosaic.cu",
+                 "src/repro/kernels/demosaic.py:67"),
+    "nlm": ("src/repro_torch/kernels/csrc/nlm.cu",
+            "src/repro/kernels/nlm.py:55"),
 }
+NPU_KERNELS = ("spike_conv", "norm_affine_lif", "lif_scan", "spike_matmul")
+TICK_KERNELS = ("event_voxel", "demosaic", "nlm")
+
+
+def npu_launches_per_tick(cfg):
+    return {"spike_conv": 2 * cfg.num_stages + 2,
+            "norm_affine_lif": 2 * cfg.num_stages + 1,
+            "lif_scan": 1, "spike_matmul": 1}
 
 
 def check(cond, msg):
@@ -201,7 +233,7 @@ def kernel_phase(params, cfg, vox):
     from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
     from repro_torch.kernels.spike_matmul import spike_matmul
 
-    st = {k: KernelStats() for k in KERNELS}
+    st = {k: KernelStats() for k in NPU_KERNELS}
     lif_kw = dict(tau=cfg.tau_mem, v_th=cfg.v_threshold, v_reset=cfg.v_reset)
     T, B = vox.shape[:2]
 
@@ -330,8 +362,132 @@ def fire(p, y5, name, st, lif_kw):
     return s_k.reshape(T, B, Ho, Wo, C)
 
 
+def event_windows(reqs, dev):
+    """The raw event buffers of the request set, fitted to the FIFO as
+    the engine stages them: an EventStream of [8, EVENT_CAPACITY]."""
+    import torch
+    from repro_torch.core.encoding import EventStream, as_stream, fit_stream
+    ev = [fit_stream(as_stream(r.events), EVENT_CAPACITY)
+          for r in reqs if r.events is not None]
+    return EventStream(*(torch.stack(ls).to(dev) for ls in zip(*ev)))
+
+
+def nlm_ops(B, H, W, C):
+    """fp32 operations of NLM: per pixel the luminance and the final
+    divide (2C), and per shift a difference, a square, four box adds, a
+    scale, a negation, a divide, an exp, the weight sum and 2C
+    weighted-sum ops."""
+    return B * H * W * (2 * C + 49 * (11 + 2 * C))
+
+
+def tick_kernel_phase(params, cfg, reqs, dev):
+    """event_voxel, demosaic and nlm on the all-kernel tick's own
+    inputs, each held to its plain version and timed."""
+    import torch
+    from repro_torch.configs.registry import ISP_CONFIGS
+    from repro_torch.core.encoding import (OOB_POLICIES, VOXEL_MODES,
+                                           events_to_voxel_batch,
+                                           voxel_batch)
+    from repro_torch.core.npu import npu_forward
+    from repro_torch.isp.demosaic import demosaic_mhc
+    from repro_torch.isp.nlm import nlm_denoise
+    from repro_torch.isp.stages import (control_to_stage_params, get_stage,
+                                        resolve_stage_params)
+    from repro_torch.kernels.demosaic import demosaic
+    from repro_torch.kernels.event_voxel import event_voxel
+    from repro_torch.kernels.nlm import nlm
+
+    st = {k: KernelStats() for k in TICK_KERNELS}
+    evs = event_windows(reqs, dev)
+    kw = dict(time_steps=cfg.time_steps, height=cfg.height, width=cfg.width)
+    for mode in VOXEL_MODES:
+        for oob in OOB_POLICIES:
+            got = event_voxel(evs, mode=mode, oob=oob, **kw)
+            want = events_to_voxel_batch(evs, mode=mode, oob=oob, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"event_voxel {mode}/{oob} is not bit-exact")
+    B, N = evs.t.shape
+    grid = B * cfg.time_steps * cfg.height * cfg.width * 2
+    live = int(evs.valid.sum())
+    st["event_voxel"].add(
+        (B, N), time_ms(lambda: event_voxel(evs, **kw)),
+        time_ms(lambda: events_to_voxel_batch(evs, **kw)),
+        B * N * 17 + grid * 4, 10 * B * N + grid, 0.0)
+    print(f"  event_voxel [B,N]=({B},{N}) {live} live events: bit-exact in "
+          f"{len(VOXEL_MODES) * len(OOB_POLICIES)} mode x oob cases")
+
+    # the ISP stage by stage, with the kernel NPU's control on these windows
+    isp_cfg = ISP_CONFIGS["cuda"]
+    vox = voxel_batch(evs, backend="cuda", **kw).contiguous()
+    ctrl = npu_forward(params, vox, cfg).control[:, :isp_cfg.control_dim]
+    sp = control_to_stage_params(ctrl, isp_cfg.stages)
+    x = torch.stack([torch.as_tensor(r.bayer) for r in reqs
+                     if r.events is not None]).to(dev)
+    for name in isp_cfg.stages:
+        p = resolve_stage_params(name, sp)
+        if name == "demosaic":
+            got, want = demosaic(x), demosaic_mhc(x)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), "demosaic is not bit-exact")
+            Bx, H, W = x.shape
+            st["demosaic"].add(
+                (Bx, H, W), time_ms(lambda: demosaic(x)),
+                time_ms(lambda: demosaic_mhc(x)), Bx * H * W * 16,
+                44 * Bx * H * W, 0.0)
+            print(f"  demosaic [B,H,W]=({Bx},{H},{W}) bit-exact")
+            x = got
+        elif name == "nlm":
+            s = p["strength"]
+            got, want = nlm(x, s), nlm_denoise(x, s)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            check(err <= NLM_TOL, f"nlm max|err| {err:.3g} > {NLM_TOL}")
+            Bx, H, W, C = x.shape
+            st["nlm"].add(
+                (Bx, H, W, C), time_ms(lambda: nlm(x, s)),
+                time_ms(lambda: nlm_denoise(x, s)), 2 * x.numel() * 4 + Bx * 4,
+                nlm_ops(Bx, H, W, C), err)
+            print(f"  nlm [B,H,W,C]=({Bx},{H},{W},{C}) strengths "
+                  f"{[round(float(v), 3) for v in s]} max|err| {err:.3g}")
+            x = got
+        else:
+            x = get_stage(name).impl_for("torch")(x, p)
+    return st
+
+
+def large_isp_line(dev):
+    """demosaic and nlm on an [8, 512, 512] batch: one printed line."""
+    import torch
+    from repro_torch.isp.demosaic import demosaic_mhc
+    from repro_torch.isp.nlm import nlm_denoise
+    from repro_torch.kernels.demosaic import demosaic
+    from repro_torch.kernels.nlm import nlm
+    g = torch.Generator(dev).manual_seed(2)
+    raw = torch.rand((BATCH, LARGE_HW, LARGE_HW), device=dev, generator=g)
+    strength = torch.rand((BATCH,), device=dev, generator=g)
+    rgb = demosaic(raw)
+    check(torch.equal(rgb, demosaic_mhc(raw)),
+          "demosaic is not bit-exact at 512x512")
+    got, want = nlm(rgb, strength), nlm_denoise(rgb, strength)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= NLM_TOL, f"nlm max|err| {err:.3g} at 512x512")
+    n = BATCH * LARGE_HW * LARGE_HW
+    row = {"shape": [BATCH, LARGE_HW, LARGE_HW],
+           "demosaic": {"ms": time_ms(lambda: demosaic(raw)),
+                        "plain_ms": time_ms(lambda: demosaic_mhc(raw)),
+                        "bound_ms": n * 16 / HBM_BYTES_PER_S * 1e3},
+           "nlm": {"ms": time_ms(lambda: nlm(rgb, strength)),
+                   "plain_ms": time_ms(lambda: nlm_denoise(rgb, strength)),
+                   "bound_ms": max(nlm_ops(BATCH, LARGE_HW, LARGE_HW, 3)
+                                   / FP32_FLOPS, n * 24 / HBM_BYTES_PER_S)
+                   * 1e3, "max_abs_err": err}}
+    print("  large " + json.dumps(row))
+
+
 # ---------------------------------------------------------------------------
-# phase 5: the engine
+# phase 5: the engines
 # ---------------------------------------------------------------------------
 
 def layer_walk(params, cfg, plain_cfg, vox):
@@ -377,39 +533,10 @@ def layer_walk(params, cfg, plain_cfg, vox):
           "ctrl_out disagrees with the plain layer")
 
 
-def serve_phase(params, cfg, reqs, dev):
+def check_results(done, cfg, isp_cfg):
     import numpy as np
-    import torch
-    from repro_torch.core.encoding import (EventStream, as_stream,
-                                           events_to_voxel_batch, fit_stream)
-    from repro_torch.kernels import build
-    from repro_torch.serve.cognitive_engine import (CognitiveEngine,
-                                                    PerceptionRequest)
-
-    def clone(rs):
-        return [PerceptionRequest(rid=r.rid, voxels=r.voxels, bayer=r.bayer,
-                                  events=r.events) for r in rs]
-
-    eng = CognitiveEngine(params, cfg, batch=BATCH, device=dev)
-    eng.run_to_completion(clone(reqs[:BATCH]))          # warm-up
-    ticks0 = eng.ticks
-
-    build.reset_launches()
-    done = eng.run_to_completion(clone(reqs))
-    torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
-    ticks = eng.ticks - ticks0
-    print(f"  served {len(done)} requests in {ticks} ticks; launches "
-          f"{launches}")
     check(sorted(r.rid for r in done) == list(range(REQUESTS)),
           "not every request was answered")
-    per_tick = {"spike_conv": 2 * cfg.num_stages + 2,
-                "norm_affine_lif": 2 * cfg.num_stages + 1,
-                "lif_scan": 1, "spike_matmul": 1}
-    for k, n in per_tick.items():
-        check(launches.get(k, 0) == n * ticks,
-              f"{k}: {launches.get(k, 0)} launches, want {n} x {ticks} "
-              f"ticks")
     h = cfg.height // 2 ** cfg.num_stages
     for r in done:
         res = r.result
@@ -423,33 +550,80 @@ def serve_phase(params, cfg, reqs, dev):
               "rgb outside [0, 1]")
         check(((res.control >= 0) & (res.control <= 1)).all(),
               "control outside [0, 1]")
-        check(set(res.stage_params) == set(eng.isp_cfg.stages),
-              "stage params")
+        check(set(res.stage_params) == set(isp_cfg.stages), "stage params")
+
+
+def max_diff(a, b, field):
+    import numpy as np
+    return max(float(np.abs(getattr(a[k], field) - getattr(b[k], field))
+                     .max()) for k in a)
+
+
+def serve_phase(params, cfg, reqs, dev):
+    import torch
+    from repro_torch.configs.registry import ENCODING_CONFIGS, ISP_CONFIGS
+    from repro_torch.core.encoding import voxel_batch
+    from repro_torch.kernels import build
+    from repro_torch.serve.cognitive_engine import (CognitiveEngine,
+                                                    PerceptionRequest)
+
+    def clone(rs):
+        return [PerceptionRequest(rid=r.rid, voxels=r.voxels, bayer=r.bayer,
+                                  events=r.events) for r in rs]
+
+    plain_cfg = dataclasses.replace(cfg, backend="torch")
+    engines = {
+        "all_kernels": CognitiveEngine(
+            params, cfg, isp_cfg=ISP_CONFIGS["cuda"],
+            enc_cfg=ENCODING_CONFIGS["cuda"], batch=BATCH, device=dev),
+        "snn_kernels": CognitiveEngine(params, cfg, batch=BATCH, device=dev),
+        "plain": CognitiveEngine(params, plain_cfg, batch=BATCH, device=dev),
+    }
+    for eng in engines.values():
+        eng.run_to_completion(clone(reqs[BATCH:]))        # warm-up
+
+    npu = npu_launches_per_tick(cfg)
+    want_per_tick = {
+        "all_kernels": dict(npu, event_voxel=1, demosaic=1, nlm=1),
+        "snn_kernels": npu, "plain": {}}
+    results, launches = {}, {}
+    for name, eng in engines.items():
+        ticks0 = eng.ticks
+        build.reset_launches()                      # counts to 0 ...
+        done = eng.run_to_completion(clone(reqs))
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)               # ... read just after
+        ticks = eng.ticks - ticks0
+        print(f"  {name}: served {len(done)} requests in {ticks} ticks; "
+              f"launches {counts}")
+        check_results(done, eng.cfg, eng.isp_cfg)
+        want = {k: n * ticks for k, n in want_per_tick[name].items()}
+        check({k: v for k, v in counts.items() if v} == want,
+              f"{name}: launches {counts}, want {want} ({ticks} ticks)")
+        results[name] = {r.rid: r.result for r in done}
+        launches[name] = counts
 
     # each layer held to its plain version on the event-derived batch
-    ev = [fit_stream(as_stream(r.events), EVENT_CAPACITY)
-          for r in reqs[BATCH:]]
-    evs = EventStream(*(torch.stack(ls).to(dev) for ls in zip(*ev)))
-    vox = events_to_voxel_batch(evs, time_steps=cfg.time_steps,
-                                height=cfg.height,
-                                width=cfg.width).transpose(0, 1).contiguous()
-    plain_cfg = dataclasses.replace(cfg, backend="torch")
+    vox = voxel_batch(event_windows(reqs, dev), backend="cuda",
+                      time_steps=cfg.time_steps, height=cfg.height,
+                      width=cfg.width).contiguous()
     layer_walk(params, cfg, plain_cfg, vox)
 
-    # end-to-end differences from the plain engine (printed, not gated)
-    plain = CognitiveEngine(params, plain_cfg, batch=BATCH, device=dev)
-    ref = {r.rid: r.result for r in plain.run_to_completion(clone(reqs))}
+    # end to end against the plain engine
     for f in ("raw_pred", "control", "rgb"):
-        d = max(float(np.abs(getattr(r.result, f) - getattr(ref[r.rid], f))
-                      .max()) for r in done)
-        print(f"  end-to-end max|kernel - plain| {f}: {d:.3g}")
+        d = max_diff(results["all_kernels"], results["plain"], f)
+        d11 = max_diff(results["snn_kernels"], results["plain"], f)
+        print(f"  end-to-end max|kernel - plain| {f}: all-kernel {d:.3g}, "
+              f"SNN-kernel {d11:.3g}")
+        check(d <= E2E_TOL, f"all-kernel {f} differs from plain by {d:.3g}")
 
-    # tick latency, kernel and plain engines in turns on the same batches
-    lat = {"kernels": [], "plain": []}
-    engines = [("kernels", eng), ("plain", plain)]
+    # tick latency, the three engines in turns on the same batches
+    lat = {name: [] for name in engines}
+    order = list(engines.items())
     for i in range(LATENCY_TICKS):
         batch = reqs[(i % 2) * BATCH:(i % 2 + 1) * BATCH]
-        for name, e in (engines if i % 2 == 0 else engines[::-1]):
+        k = i % len(order)
+        for name, e in order[k:] + order[:k]:
             for r in clone(batch):
                 check(e.submit(r), "engine full")
             e.tick()
@@ -459,7 +633,52 @@ def serve_phase(params, cfg, reqs, dev):
                       "ticks": len(v)} for name, v in lat.items()}
     print(f"  tick latency (batch {BATCH}, {LATENCY_TICKS} ticks each, "
           f"host clock to results on the host): {summary}")
-    return launches, summary
+    return launches["all_kernels"], summary
+
+
+def cognitive_phase(params, cfg, reqs, dev):
+    """cognitive_forward on the "cuda" ISP config and
+    cognitive_step(use_cuda=True), each against its plain run and with
+    its launches counted."""
+    import torch
+    from repro_torch.configs.registry import ISP_CONFIGS
+    from repro_torch.core.cognitive import cognitive_forward, cognitive_step
+    from repro_torch.core.encoding import voxel_batch
+    from repro_torch.kernels import build
+    plain_cfg = dataclasses.replace(cfg, backend="torch")
+    vox = voxel_batch(event_windows(reqs, dev), backend="cuda",
+                      time_steps=cfg.time_steps, height=cfg.height,
+                      width=cfg.width).contiguous()
+    bayer = torch.stack([torch.as_tensor(r.bayer) for r in reqs
+                         if r.events is not None]).to(dev)
+    want_counts = dict(npu_launches_per_tick(cfg), demosaic=1, nlm=1)
+    runs = {
+        "cognitive_forward": (
+            lambda: cognitive_forward(params, vox, bayer, cfg,
+                                      ISP_CONFIGS["cuda"]),
+            lambda: cognitive_forward(params, vox, bayer, plain_cfg,
+                                      ISP_CONFIGS["default"])),
+        "cognitive_step": (
+            lambda: cognitive_step(params, vox, bayer, cfg, use_cuda=True),
+            lambda: cognitive_step(params, vox, bayer, plain_cfg)),
+    }
+    for name, (kernel_run, plain_run) in runs.items():
+        build.reset_launches()
+        got = kernel_run()
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        check(counts == want_counts, f"{name}: launches {counts}, want "
+              f"{want_counts}")
+        want = plain_run()
+        diffs = {"raw_pred": (got.npu.raw_pred, want.npu.raw_pred),
+                 "control": (got.npu.control, want.npu.control),
+                 "rgb": (got.rgb, want.rgb)}
+        diffs = {k: float((a - b).abs().max()) for k, (a, b) in diffs.items()}
+        check(bool(torch.isfinite(got.rgb).all()), f"{name}: non-finite rgb")
+        check(all(d <= E2E_TOL for d in diffs.values()),
+              f"{name} differs from its plain run: {diffs}")
+        print(f"  {name}: launches {counts}; max|kernel - plain| "
+              + ", ".join(f"{k} {d:.3g}" for k, d in diffs.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -507,14 +726,18 @@ def main() -> int:
     print("[3/6] per-kernel parity on the main path's inputs "
           f"(batch {BATCH})")
     st = kernel_phase(params, cfg, vox)
+    st.update(tick_kernel_phase(params, cfg, reqs, dev))
     print("[4/6] timings (ms per tick, medians of CUDA-event runs)")
     for name, s in st.items():
         print(f"  {name}: kernel {s.ms:.4f} plain {s.plain_ms:.4f} "
               f"library {s.library_ms} bound {s.bound_ms:.4f} over "
               f"{len(s.shapes)} launches")
+    large_isp_line(dev)
 
-    print("[5/6] serving: CognitiveEngine, full spiking_yolo, kernels")
+    print("[5/6] serving: CognitiveEngine, full spiking_yolo; the "
+          "cognitive loop")
     launches, latency = serve_phase(params, cfg, reqs, dev)
+    cognitive_phase(params, cfg, reqs, dev)
 
     rows = [st[k].row(k, launches[k]) for k in KERNELS]
     print("[6/6] report")

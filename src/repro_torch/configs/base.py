@@ -17,8 +17,9 @@ DEFAULT_ISP_STAGES: Tuple[str, ...] = (
 @dataclasses.dataclass(frozen=True)
 class ISPConfig:
     """An ordered tuple of registered ISP stage names plus the backend
-    their implementations resolve through (see ``repro_torch.isp.stages``).
-    This slice ports the plain ``"torch"`` backend only."""
+    their implementations resolve through (see ``repro_torch.isp.stages``):
+    ``"torch"`` (plain PyTorch) or ``"cuda"`` (the demosaic and NLM
+    kernels; every other stage runs its ``"torch"`` impl)."""
     name: str = "default"
     stages: Tuple[str, ...] = DEFAULT_ISP_STAGES
     backend: str = "torch"
@@ -36,7 +37,8 @@ class EncodingConfig:
     """DVS ingestion policy: ``mode`` "binary" | "count" | "signed";
     ``oob`` "clip" | "drop" for timestamps outside the window;
     ``event_capacity`` is the per-slot event FIFO depth (overfull
-    submissions are budgeted earliest-first)."""
+    submissions are budgeted earliest-first); ``backend`` "torch" (plain
+    scatter) or "cuda" (the voxelization kernel)."""
     name: str = "paper_binary"
     mode: str = "binary"
     oob: str = "clip"

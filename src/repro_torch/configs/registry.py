@@ -1,12 +1,15 @@
-"""Named configurations of the slice, copied from the JAX package's
+"""Named configurations of the port, copied from the JAX package's
 ``repro.configs.registry``: the paper's spiking-YOLO architecture, the
-default ISP ordering and the paper's binary event encoding."""
+ISP orderings and the event encodings.  The JAX ``"pallas"`` entries
+are ``"cuda"`` here; the fused ISP entries (``"fused"``,
+``"hdr_fused"``) come with the fused ISP backend."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
-from repro_torch.configs.base import EncodingConfig, ISPConfig, SNNConfig
+from repro_torch.configs.base import (DEFAULT_ISP_STAGES, EncodingConfig,
+                                      ISPConfig, SNNConfig)
 
 # The other three paper backbones (vgg, densenet, mobilenet) come with
 # the depthwise and max-pool ports.
@@ -25,10 +28,31 @@ def reduced_snn(name: str, backend: str = "torch") -> SNNConfig:
 
 ISP_CONFIGS: Dict[str, ISPConfig] = {
     "default": ISPConfig(name="default"),
+    # demosaic and NLM on their CUDA kernels
+    "cuda": ISPConfig(name="cuda", backend="cuda"),
+    # HDR capture: tone-map after denoise, colour-matrix before gamma.
+    "hdr": ISPConfig(name="hdr",
+                     stages=DEFAULT_ISP_STAGES[:5]
+                     + ("tonemap", "ccm") + DEFAULT_ISP_STAGES[5:]),
+    # Latency-critical preview: drop NLM (the most expensive stage)
+    # and sharpen — bare exposure/DPC/demosaic/AWB/gamma, control_dim 6.
+    "fast_preview": ISPConfig(
+        name="fast_preview",
+        stages=("exposure", "dpc", "demosaic", "awb", "gamma")),
 }
 
 ENCODING_CONFIGS: Dict[str, EncodingConfig] = {
     # the paper's §IV-A one-hot encoding (boundary events alias in)
     "paper_binary": EncodingConfig(name="paper_binary"),
+    # rate-preserving counts with strict window semantics
+    "count_strict": EncodingConfig(name="count_strict", mode="count",
+                                   oob="drop"),
+    # polarity-split (net, total) channels for motion-direction cues
+    "signed": EncodingConfig(name="signed", mode="signed"),
+    # the voxelization kernel
+    "cuda": EncodingConfig(name="cuda", backend="cuda"),
+    # night/low-light traffic: tiny FIFO, drop stragglers
+    "night_lowrate": EncodingConfig(name="night_lowrate", mode="count",
+                                    oob="drop", event_capacity=256),
 }
 

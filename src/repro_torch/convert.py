@@ -3,10 +3,10 @@ both compute the same function on the same weights.
 
 Nothing here imports the JAX package: parameters arrive as a nested dict
 of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)`` on the
-JAX side), an ``SNNConfig`` as any object with the reference's field
-names.  The parameter trees have the same keys on both sides: HWIO conv
-weights ``w`` with per-channel ``scale``/``bias``, dense ``w`` [cin,
-cout] with ``bias``.
+JAX side), a config as any object with the reference's field names.
+The parameter trees have the same keys on both sides: HWIO conv weights
+``w`` with per-channel ``scale``/``bias``, dense ``w`` [cin, cout] with
+``bias``.
 """
 from __future__ import annotations
 
@@ -15,25 +15,50 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.configs.base import SNNConfig
+from repro_torch.configs.base import EncodingConfig, ISPConfig, SNNConfig
+from repro_torch.core.npu import resolve_device
 
-# JAX backend name -> the port's
-SNN_BACKENDS = {"jnp": "torch", "pallas": "cuda"}
+# JAX backend name -> the port's (SNN layers, ISP stages, encoding)
+BACKEND_NAMES = {"jnp": "torch", "pallas": "cuda"}
 
 
-def params_from_numpy(tree, device="cpu"):
-    """Nested dict of numpy arrays -> nested dict of float32 tensors."""
+def params_from_numpy(tree, device="cuda"):
+    """Nested dict of numpy arrays -> nested dict of float32 tensors on
+    ``device`` (raises for "cuda" without a card)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return torch.tensor(np.asarray(tree, np.float32)).to(device)
 
 
+def _mapped(cls, cfg):
+    """A ``cls`` with ``cfg``'s fields, its backend name mapped."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cls)}
+    backend = fields["backend"]
+    if backend == "pallas_fused":
+        raise NotImplementedError(
+            f"{cls.__name__} backend {backend!r} is not ported yet (the "
+            f"fused ISP planner and its segment kernels)")
+    if backend not in BACKEND_NAMES:
+        raise ValueError(f"{cls.__name__} backend {backend!r} has no port "
+                         f"(known: {sorted(BACKEND_NAMES)})")
+    fields["backend"] = BACKEND_NAMES[backend]
+    if "stages" in fields:
+        fields["stages"] = tuple(fields["stages"])
+    return cls(**fields)
+
+
 def snn_config(cfg) -> SNNConfig:
     """The port's SNNConfig with the same fields, backend name mapped."""
-    fields = {f.name: getattr(cfg, f.name)
-              for f in dataclasses.fields(SNNConfig)}
-    if fields["backend"] not in SNN_BACKENDS:
-        raise ValueError(f"SNNConfig backend {fields['backend']!r} has no "
-                         f"port (known: {sorted(SNN_BACKENDS)})")
-    fields["backend"] = SNN_BACKENDS[fields["backend"]]
-    return SNNConfig(**fields)
+    return _mapped(SNNConfig, cfg)
+
+
+def isp_config(cfg) -> ISPConfig:
+    """The port's ISPConfig with the same fields, backend name mapped."""
+    return _mapped(ISPConfig, cfg)
+
+
+def encoding_config(cfg) -> EncodingConfig:
+    """The port's EncodingConfig with the same fields, backend name
+    mapped."""
+    return _mapped(EncodingConfig, cfg)

@@ -10,20 +10,27 @@ Semantics, as in the reference:
 - ``mode``: "binary" (one-hot occupancy), "count" (per-polarity counts),
   "signed" (channels ``(ON - OFF, ON + OFF)``).
 
-The scatter is one ``index_put_(..., accumulate=True)`` of ones into a
-flat float32 grid with a dump slot for dead events: adding 1.0 to
+The plain scatter is one ``index_put_(..., accumulate=True)`` of ones
+into a flat float32 grid with a dump slot for dead events: adding 1.0 to
 integer counts below 2^24 is exact in any order, so the grid is
-bit-identical to the reference.
+bit-identical to the reference.  ``voxel_batch`` dispatches on the
+encoding backend: ``"torch"`` is that plain scatter, ``"cuda"`` the
+voxelization kernel (:mod:`repro_torch.kernels.event_voxel`).
+
+It also carries the batched EventStream plumbing of the reference:
+stacking and concatenating bounded event buffers, validity-masked
+padding, and event budgeting for overfull windows.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 VOXEL_MODES = ("binary", "count", "signed")
 OOB_POLICIES = ("clip", "drop")
+ENCODING_BACKENDS = ("torch", "cuda")
 
 
 class EventStream(NamedTuple):
@@ -39,6 +46,10 @@ class EventStream(NamedTuple):
     def capacity(self) -> int:
         return self.t.shape[-1]
 
+    def num_events(self) -> torch.Tensor:
+        """Live events per window: [] or [B] int64."""
+        return self.valid.sum(dim=-1)
+
 
 def as_stream(ev, device=None) -> EventStream:
     """An EventStream of tensors (float32 t, int32 x/y/p, bool valid)
@@ -50,17 +61,34 @@ def as_stream(ev, device=None) -> EventStream:
                        valid=leaf(ev.valid, torch.bool))
 
 
-def events_to_voxel_batch(evs: EventStream, *, time_steps: int,
-                          height: int, width: int, window: float = 1.0,
-                          mode: str = "binary",
-                          oob: str = "clip") -> torch.Tensor:
-    """Batched encoding, batch-major: leaves [B, N] -> [B, T, H, W, 2]."""
+def resolve_mode(mode: Optional[str], binary: bool = True) -> str:
+    """``mode``, or the legacy ``binary`` flag's (True -> "binary",
+    False -> "count") when ``mode`` is None."""
+    if mode is None:
+        return "binary" if binary else "count"
     if mode not in VOXEL_MODES:
         raise ValueError(f"mode must be one of {VOXEL_MODES}, got {mode!r}")
+    return mode
+
+
+def check_oob(oob: str) -> None:
     if oob not in OOB_POLICIES:
         raise ValueError(f"oob must be one of {OOB_POLICIES}, got {oob!r}")
+
+
+def events_to_voxel_batch(evs: EventStream, *, time_steps: int,
+                          height: int, width: int, window: float = 1.0,
+                          binary: bool = True, mode: Optional[str] = None,
+                          oob: str = "clip") -> torch.Tensor:
+    """Batched encoding, batch-major: leaves [B, N] -> [B, T, H, W, 2].
+    ``mode`` overrides the legacy ``binary`` flag."""
+    mode = resolve_mode(mode, binary)
+    check_oob(oob)
     B = evs.t.shape[0]
-    tbin = torch.floor(evs.t / window * time_steps).to(torch.int64)
+    # divide by a float32 tensor, not a Python scalar: on a CUDA tensor
+    # torch turns division by a scalar into a multiply by its reciprocal
+    div = torch.full((), window, dtype=torch.float32, device=evs.t.device)
+    tbin = torch.floor(evs.t / div * time_steps).to(torch.int64)
     x, y, p = (a.to(torch.int64) for a in (evs.x, evs.y, evs.p))
     ok = (evs.valid & (x >= 0) & (x < width) & (y >= 0) & (y < height)
           & (p >= 0) & (p < 2))
@@ -91,6 +119,23 @@ def events_to_voxel(ev: EventStream, **kw) -> torch.Tensor:
         EventStream(*(a[None] for a in ev)), **kw)[0]
 
 
+def voxel_batch(evs: EventStream, *, backend: str = "torch",
+                **kw) -> torch.Tensor:
+    """Batched encoding on the encoding ``backend``, time-major for the
+    multi-step SNN layers: leaves [B, N] -> [T, B, H, W, 2] (a view of
+    the batch-major grid)."""
+    if backend == "cuda":
+        # imported here: the kernel module imports this one
+        from repro_torch.kernels.event_voxel import event_voxel
+        vox = event_voxel(evs, **kw)
+    elif backend == "torch":
+        vox = events_to_voxel_batch(evs, **kw)
+    else:
+        raise ValueError(f"unknown encoding backend {backend!r}; known: "
+                         f"{ENCODING_BACKENDS}")
+    return vox.transpose(0, 1)
+
+
 # ---------------------------------------------------------------------------
 # EventStream budgeting
 # ---------------------------------------------------------------------------
@@ -111,25 +156,61 @@ def pad_stream(ev: EventStream, capacity: int) -> EventStream:
                        valid=F.pad(ev.valid, grow, value=False))
 
 
-def budget_events(ev: EventStream, budget: int) -> EventStream:
-    """Compact a single window ([N] leaves) to exactly ``budget``
-    capacity, keeping at most ``budget`` live events: the EARLIEST ones
-    (a FIFO drop-tail, ties broken by buffer position)."""
+def stack_streams(streams: Sequence[EventStream],
+                  capacity: Optional[int] = None) -> EventStream:
+    """Stack single-window ([N]-leaf) streams of ragged capacity into one
+    batched stream with [B, max_N] leaves and validity-mask padding."""
+    if not streams:
+        raise ValueError("stack_streams needs at least one stream")
+    cap = capacity if capacity is not None \
+        else max(s.capacity for s in streams)
+    padded = [pad_stream(s, cap) for s in streams]
+    return EventStream(*(torch.stack(ls) for ls in zip(*padded)))
+
+
+def concat_streams(*streams: EventStream) -> EventStream:
+    """Merge event buffers along the capacity axis (e.g. several sensor
+    FIFO drains landing in one window).  Leaves may be [N] or [B, N]."""
+    if not streams:
+        raise ValueError("concat_streams needs at least one stream")
+    return EventStream(*(torch.cat(ls, dim=-1) for ls in zip(*streams)))
+
+
+def budget_events(ev: EventStream, budget: int,
+                  rng: Optional[torch.Generator] = None) -> EventStream:
+    """Compact a window ([N] leaves, or [B, N] budgeted per window) to
+    exactly ``budget`` capacity, keeping at most ``budget`` live events:
+    the EARLIEST ones (a FIFO drop-tail, ties broken by buffer
+    position), or with ``rng`` a uniform random subsample of the live
+    ones.  Under-full windows keep every live event.  ``rng`` draws
+    other numbers than the reference's JAX key does."""
     if budget <= 0:
         raise ValueError(f"budget must be positive, got {budget}")
     n = ev.capacity
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=ev.t.device)
-    score = torch.where(ev.valid, ev.t, inf)
-    order = torch.sort(score, stable=True).indices
-    keep = order[:budget] if budget <= n else F.pad(order, (0, budget - n))
-    rank_ok = torch.arange(budget, device=ev.t.device) < min(n, budget)
-    return EventStream(t=ev.t[keep], x=ev.x[keep], y=ev.y[keep],
-                       p=ev.p[keep], valid=ev.valid[keep] & rank_ok)
+    dev = ev.t.device
+    if rng is None:
+        key = ev.t
+    else:
+        key = torch.rand(ev.t.shape, generator=rng,
+                         device=rng.device).to(dev)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    order = torch.sort(torch.where(ev.valid, key, inf), dim=-1,
+                       stable=True).indices
+    keep = order[..., :budget] if budget <= n \
+        else F.pad(order, (0, budget - n))
+    rank_ok = torch.arange(budget, device=dev) < min(n, budget)
+
+    def take(a):
+        return torch.gather(a, -1, keep)
+    return EventStream(t=take(ev.t), x=take(ev.x), y=take(ev.y),
+                       p=take(ev.p), valid=take(ev.valid) & rank_ok)
 
 
-def fit_stream(ev: EventStream, capacity: int) -> EventStream:
-    """Coerce a single-window stream to EXACTLY ``capacity``: overfull
-    buffers are budgeted, under-full ones padded with invalid events."""
+def fit_stream(ev: EventStream, capacity: int,
+               rng: Optional[torch.Generator] = None) -> EventStream:
+    """Coerce a stream ([N] or [B, N] leaves) to EXACTLY ``capacity``:
+    overfull buffers are budgeted (see ``budget_events``), under-full
+    ones padded with invalid events."""
     if ev.capacity > capacity:
-        return budget_events(ev, capacity)
+        return budget_events(ev, capacity, rng)
     return pad_stream(ev, capacity)

@@ -18,14 +18,20 @@ def _box3(x: torch.Tensor) -> torch.Tensor:
     return x / 9.0
 
 
+def nlm_bandwidth(strength, device) -> torch.Tensor:
+    """The filter bandwidth ``h = 1e-3 + 0.2 * strength`` (float32, the
+    shape of ``strength``: a scalar or [B])."""
+    return 1e-3 + 0.2 * torch.as_tensor(strength, dtype=torch.float32,
+                                        device=device)
+
+
 def nlm_denoise(img: torch.Tensor, strength=0.1,
                 search: int = 7) -> torch.Tensor:
     """img [B, H, W] or [B, H, W, C] in [0, 1]; strength scalar or [B]."""
     single = img.dim() == 3
     if single:
         img = img[..., None]
-    h = bcast(1e-3 + 0.2 * torch.as_tensor(strength, dtype=torch.float32,
-                                           device=img.device), img[..., 0])
+    h = bcast(nlm_bandwidth(strength, img.device), img[..., 0])
     r = search // 2
     lum = img.mean(dim=-1)
     wsum = acc = None

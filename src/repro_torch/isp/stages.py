@@ -1,10 +1,13 @@
 """Pluggable ISP stage registry (paper §V–§VI), the counterpart of
-``repro.isp.stages`` on the plain ``"torch"`` backend.
+``repro.isp.stages``.
 
 Each stage declares its NPU-controllable parameters (``ParamSpec``
 ranges and defaults) and one implementation per backend; a pipeline is
 an ordered tuple of stage names, and the NPU control vector maps onto
 the declared ranges in pipeline order, so ``control_dim`` is derived.
+Backends: ``"torch"`` (every stage's plain implementation) and
+``"cuda"`` (demosaic and NLM on their CUDA kernels); a stage without an
+implementation for the requested backend runs its ``"torch"`` one.
 
 Stage implementations take a batch — ``x`` [B, H, W] or [B, H, W, 3] —
 and ``p``, a ``{param: scalar or [B]}`` dict: one compiled-free eager
@@ -26,6 +29,8 @@ from repro_torch.isp.dpc import dpc_correct
 from repro_torch.isp.gamma import apply_gamma, gamma_lut, sharpen_luma
 from repro_torch.isp.nlm import nlm_denoise
 from repro_torch.isp.tone import apply_saturation, reinhard_tonemap
+from repro_torch.kernels.demosaic import demosaic as demosaic_kernel
+from repro_torch.kernels.nlm import nlm as nlm_kernel
 
 
 class ParamSpec(NamedTuple):
@@ -55,7 +60,12 @@ class Stage:
 
 
 STAGES: Dict[str, Stage] = {}
-BACKENDS: List[str] = ["torch"]
+BACKENDS: List[str] = []
+
+
+def register_backend(name: str) -> None:
+    if name not in BACKENDS:
+        BACKENDS.append(name)
 
 
 def register_stage(name: str, params: Tuple[ParamSpec, ...], impl: StageFn,
@@ -68,6 +78,18 @@ def register_stage(name: str, params: Tuple[ParamSpec, ...], impl: StageFn,
                   domain=domain, out_domain=out_domain, doc=doc)
     STAGES[name] = stage
     return stage
+
+
+def register_stage_impl(name: str, backend: str, impl: StageFn) -> None:
+    """Attach an implementation on ``backend`` to a registered stage.
+    The ``Stage`` is rebuilt with a fresh ``impls`` dict, so a ``Stage``
+    object handed out before keeps the impls it had."""
+    if name not in STAGES:
+        raise KeyError(f"unknown ISP stage {name!r}")
+    register_backend(backend)
+    stage = STAGES[name]
+    STAGES[name] = dataclasses.replace(stage,
+                                       impls={**stage.impls, backend: impl})
 
 
 def get_stage(name: str) -> Stage:
@@ -174,12 +196,20 @@ def _demosaic(x, p):
     return demosaic_mhc(x)
 
 
+def _demosaic_cuda(x, p):
+    return demosaic_kernel(x)
+
+
 def _awb(x, p):
     return awb_apply_stats(x, p, awb_gains(x))
 
 
 def _nlm(x, p):
     return nlm_denoise(x, strength=p["strength"])
+
+
+def _nlm_cuda(x, p):
+    return nlm_kernel(x, p["strength"])
 
 
 def _gamma(x, p):
@@ -197,6 +227,9 @@ def _tonemap(x, p):
 def _ccm(x, p):
     return apply_saturation(x, p["saturation"])
 
+
+register_backend("torch")
+register_backend("cuda")
 
 register_stage(
     "exposure", (ParamSpec("gain", 0.5, 2.0, 1.0),), _exposure,
@@ -227,3 +260,6 @@ register_stage(
 register_stage(
     "ccm", (ParamSpec("saturation", 0.0, 2.0, 1.0),), _ccm,
     doc="luma-preserving saturation matrix (CCM analogue)")
+
+register_stage_impl("demosaic", "cuda", _demosaic_cuda)
+register_stage_impl("nlm", "cuda", _nlm_cuda)

@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels of the port, each beside its plain
 PyTorch version: ``spike_conv`` (gated GEMM), ``spike_matmul``
-(tile-skip GEMM), ``lif_scan`` and ``norm_affine_lif``.  ``build``
-compiles ``csrc/`` with ``nvcc`` at first use; ``ops`` dispatches the
-spiking layers onto them."""
+(tile-skip GEMM), ``lif_scan`` and ``norm_affine_lif`` (the NPU),
+``event_voxel`` (DVS encoding), ``demosaic`` and ``nlm`` (the ISP).
+``build`` compiles ``csrc/`` with ``nvcc`` at first use; ``ops``
+dispatches the spiking layers onto them."""

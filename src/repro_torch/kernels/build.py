@@ -37,6 +37,9 @@ SOURCES = {
     "spike_matmul": "spike_matmul.cu",
     "lif_scan": "lif_scan.cu",
     "norm_affine_lif": "norm_affine_lif.cu",
+    "event_voxel": "event_voxel.cu",
+    "demosaic": "demosaic.cu",
+    "nlm": "nlm.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,0 +1,128 @@
+// Non-local means, FPGA-adapted: 7x7 search window, 3x3 box-filtered
+// patch distances on luminance, cyclic boundaries.  img [B, H, W, C]
+// (C <= 4) with its luminance lum [B, H, W] and the per-image filter
+// bandwidth h [B] -> out [B, H, W, C].
+//
+// Replaces the TPU kernel nlm_pallas (src/repro/kernels/nlm.py), which
+// reads wrap-padded 128x128 tiles with a halo of 4 from VMEM, evaluates
+// the 49 shifts as shifted-difference + separable box-filter algebra,
+// and runs once per channel (recomputing the weights each time).  Here
+// one thread computes one pixel: for each shift it forms the 9 squared
+// luminance differences of its 3x3 patch, box-filters them, and applies
+// the one weight to every channel, so the 49 weights are computed once
+// and shared by the channels.  Indices wrap mod H and W, so any frame
+// size works (no tile divisibility).  Like the TPU kernel it takes the
+// luminance plane as an input: the wrapper computes it with torch's
+// mean, the plain version's own op, and h = 1e-3 + 0.2 * strength
+// likewise.
+//
+// What bounds it on the H100: operations -- about 49 x (9 differences,
+// 9 squares, 6 box adds, exp, 2C+1 weight ops) per pixel against
+// 2 x C x 4 bytes of image traffic; at [8, 64, 64, 3] the work is tens
+// of MFLOP, so one launch's latency and the exp throughput dominate.
+// The neighbourhood re-reads hit L1/L2; shared-memory tiling is later
+// work.
+//
+// Rounding: the plain version's order, each step a round-to-nearest
+// intrinsic so nvcc cannot contract FMAs --
+//   d2 = ((s(y,x) + s(y-1,x)) + s(y+1,x)) per column, then
+//        ((c(x) + c(x-1)) + c(x+1)), times float32(1/9)  [torch turns
+//        the plain version's "/ 9.0" on a CUDA tensor into a multiply by
+//        the reciprocal]
+//   w = expf(-d2 / (h*h)); wsum and acc summed in (dy, dx) order;
+//   out = acc / max(wsum, 1e-9).
+// with roll(a, (dy, dx))[y, x] == a[y - dy, x - dx].
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxC = 4;
+constexpr int kR = 3;          // search radius (7x7 window)
+
+__device__ __forceinline__ int wrap(int v, int n) {
+  v %= n;
+  return v < 0 ? v + n : v;
+}
+
+__global__ void nlm_kernel(const float* __restrict__ img,
+                           const float* __restrict__ lum,
+                           const float* __restrict__ h,
+                           float* __restrict__ out, int64_t total, int H,
+                           int W, int C) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int x = (int)(i % W);
+  const int y = (int)((i / W) % H);
+  const int64_t b = i / ((int64_t)H * W);
+  const float* L = lum + b * H * W;
+  const float* I = img + b * H * W * C;
+  const float hb = h[b];
+  const float hh = __fmul_rn(hb, hb);
+
+  // rows[k] / cols[k]: wrapped index of y + k - 4 / x + k - 4
+  int rows[9], cols[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    rows[k] = wrap(y + k - 4, H) * W;
+    cols[k] = wrap(x + k - 4, W);
+  }
+  // centre luminances of the 3x3 patch
+  float lc[3][3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) lc[a][c] = L[rows[a + 3] + cols[c + 3]];
+
+  float wsum = 0.f;
+  float acc[kMaxC] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int dy = -kR; dy <= kR; ++dy) {
+#pragma unroll
+    for (int dx = -kR; dx <= kR; ++dx) {
+      // squared differences s[a][c] at (y + a - 1, x + c - 1)
+      float s[3][3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float d = __fsub_rn(
+              lc[a][c], L[rows[a + 3 - dy] + cols[c + 3 - dx]]);
+          s[a][c] = __fmul_rn(d, d);
+        }
+      float col[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        col[c] = __fadd_rn(__fadd_rn(s[1][c], s[0][c]), s[2][c]);
+      const float box = __fadd_rn(__fadd_rn(col[1], col[0]), col[2]);
+      const float d2 = __fmul_rn(box, 1.0f / 9.0f);
+      const float w = expf(__fdiv_rn(-d2, hh));
+      wsum = __fadd_rn(wsum, w);
+      const float* v = I + ((int64_t)rows[4 - dy] + cols[4 - dx]) * C;
+#pragma unroll
+      for (int ch = 0; ch < kMaxC; ++ch)
+        if (ch < C) acc[ch] = __fadd_rn(acc[ch], __fmul_rn(w, v[ch]));
+    }
+  }
+  // torch.clamp(wsum, min=1e-9): NaN passes through
+  const float den = (!isnan(wsum) && wsum < 1e-9f) ? 1e-9f : wsum;
+  float* o = out + i * C;
+#pragma unroll
+  for (int ch = 0; ch < kMaxC; ++ch)
+    if (ch < C) o[ch] = __fdiv_rn(acc[ch], den);
+}
+
+}  // namespace
+
+extern "C" int nlm_launch(const float* img, const float* lum, const float* h,
+                          float* out, int B, int H, int W, int C,
+                          void* stream) {
+  if (C < 1 || C > kMaxC) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 128;
+  const int64_t total = (int64_t)B * H * W;
+  const int64_t blocks = (total + threads - 1) / threads;
+  nlm_kernel<<<(unsigned)blocks, threads, 0,
+               static_cast<cudaStream_t>(stream)>>>(img, lum, h, out, total,
+                                                    H, W, C);
+  return static_cast<int>(cudaGetLastError());
+}

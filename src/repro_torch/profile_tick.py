@@ -1,10 +1,14 @@
 """Profile the serving tick on the card: where a tick's time goes.
 
     python -m repro_torch.profile_tick [--ticks 20] [--batch 8] [--backend cuda]
+        [--enc-backend torch|cuda] [--isp-backend torch|cuda]
 
 Serves full-width spiking-YOLO (seeded random weights, random voxel
-windows and Bayer frames) through ``CognitiveEngine`` and records
-``--ticks`` ticks under ``torch.profiler`` after three warm-up ticks.
+windows and Bayer frames) through ``CognitiveEngine`` — the SNN layers
+on ``--backend``, the event encoding on ``--enc-backend`` and the ISP on
+``--isp-backend`` (``cuda`` for all three is the all-kernel tick) — and
+records ``--ticks`` ticks under ``torch.profiler`` after three warm-up
+ticks.
 Prints, per tick: the host wall time, the host time inside each stage
 span (``tick.upload``/``encode``/``npu``/``isp``/``fetch``, set by
 ``EngineCore``), the device busy time (the sum of kernel and copy times)
@@ -24,12 +28,16 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import SNN_ARCHS
+from repro_torch.configs.registry import (ENCODING_CONFIGS, ISP_CONFIGS,
+                                         SNN_ARCHS)
 from repro_torch.core.npu import init_npu
 from repro_torch.serve.cognitive_engine import (CognitiveEngine,
                                                 PerceptionRequest)
 
 STAGES = ("tick.upload", "tick.encode", "tick.npu", "tick.isp", "tick.fetch")
+# backend name -> the named config that runs on it
+ISP_BY_BACKEND = {"torch": "default", "cuda": "cuda"}
+ENC_BY_BACKEND = {"torch": "paper_binary", "cuda": "cuda"}
 
 
 def _requests(cfg, batch, rng):
@@ -48,6 +56,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"))
+    ap.add_argument("--enc-backend", default="torch", choices=("cuda", "torch"))
+    ap.add_argument("--isp-backend", default="torch", choices=("cuda", "torch"))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -55,7 +65,10 @@ def main(argv=None) -> int:
 
     cfg = dataclasses.replace(SNN_ARCHS["spiking_yolo"], backend=args.backend)
     params = init_npu(torch.Generator().manual_seed(args.seed), cfg)
-    eng = CognitiveEngine(params, cfg, batch=args.batch)
+    eng = CognitiveEngine(
+        params, cfg, batch=args.batch,
+        isp_cfg=ISP_CONFIGS[ISP_BY_BACKEND[args.isp_backend]],
+        enc_cfg=ENCODING_CONFIGS[ENC_BY_BACKEND[args.enc_backend]])
     reqs = _requests(cfg, args.batch, np.random.default_rng(args.seed))
 
     def tick():
@@ -91,7 +104,8 @@ def main(argv=None) -> int:
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / n / 1e3)
     wall_ms = total_s / n * 1e3
-    print(f"backend {args.backend}, batch {args.batch}, {n} ticks, "
+    print(f"backend {args.backend} (encoding {args.enc_backend}, ISP "
+          f"{args.isp_backend}), batch {args.batch}, {n} ticks, "
           f"{torch.cuda.get_device_name(0)}")
     print(f"tick wall p50 {statistics.median(walls) * 1e3:.3f} ms; "
           f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
@@ -103,7 +117,8 @@ def main(argv=None) -> int:
     for name, ms in top:
         print(f"  device {ms:8.4f} ms  {name[:90]}")
     print(json.dumps({
-        "backend": args.backend, "batch": args.batch, "ticks": n,
+        "backend": args.backend, "enc_backend": args.enc_backend,
+        "isp_backend": args.isp_backend, "batch": args.batch, "ticks": n,
         "device": torch.cuda.get_device_name(0),
         "tick_wall_p50_ms": statistics.median(walls) * 1e3,
         "wall_ms_per_tick": wall_ms, "device_busy_ms_per_tick": busy_ms,

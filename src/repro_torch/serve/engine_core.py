@@ -2,10 +2,11 @@
 counterpart of ``repro.serve.engine_core`` on one device.
 
 A tick is ``encode -> npu_forward -> control -> ISP`` run eagerly on the
-engine's device: ONE host->device copy of the staging bank (the bank is
-one contiguous, pinned buffer), the tick's kernels on the current
-stream, and ONE device->host copy of every output packed into a single
-flat tensor.  No mesh and no launch table in this slice; CUDA graphs
+engine's device, each stage on the backend its config names
+(``EncodingConfig``, ``SNNConfig``, ``ISPConfig``): ONE host->device
+copy of the staging bank (the bank is one contiguous, pinned buffer),
+the tick's kernels on the current stream, and ONE device->host copy of
+every output packed into a single flat tensor.  No mesh and no launch table in this slice; CUDA graphs
 for the tick are later work.  ``torch.profiler`` spans ``tick.upload``,
 ``tick.encode``, ``tick.npu``, ``tick.isp`` and ``tick.fetch`` mark the
 stages (``python -m repro_torch.profile_tick`` reads them).
@@ -19,7 +20,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import EncodingConfig, ISPConfig, SNNConfig
-from repro_torch.core.encoding import events_to_voxel_batch
+from repro_torch.core.encoding import ENCODING_BACKENDS, voxel_batch
 from repro_torch.core.npu import NPUOutput, npu_forward, params_to, \
     resolve_device
 from repro_torch.isp.pipeline import (control_vector_pipeline_batch,
@@ -47,9 +48,10 @@ class EngineCore:
                 f"NPU control_dim={cfg.control_dim} < {need} needed by ISP "
                 f"pipeline {self.isp_cfg.name!r}; build the SNNConfig with "
                 f"repro_torch.core.npu.configure_for_isp")
-        if self.enc_cfg.backend != "torch":
+        if self.enc_cfg.backend not in ENCODING_BACKENDS:
             raise ValueError(f"unknown encoding backend "
-                             f"{self.enc_cfg.backend!r}")
+                             f"{self.enc_cfg.backend!r}; known: "
+                             f"{ENCODING_BACKENDS}")
         if self.isp_cfg.backend not in ISP_BACKENDS:
             raise ValueError(
                 f"unknown ISP backend {self.isp_cfg.backend!r}; "
@@ -73,11 +75,13 @@ class EngineCore:
 
     # ------------------------------------------------------------------
     def _encode(self, events):
+        """Every slot's event FIFO -> [T, B, H, W, 2] on the encoding
+        backend ("cuda": the voxelization kernel)."""
         c, e = self.cfg, self.enc_cfg
-        vox = events_to_voxel_batch(
-            events, time_steps=c.time_steps, height=c.height, width=c.width,
-            window=e.window, mode=e.mode, oob=e.oob)
-        return vox.transpose(0, 1)                   # -> [T, B, H, W, 2]
+        return voxel_batch(events, backend=e.backend,
+                           time_steps=c.time_steps, height=c.height,
+                           width=c.width, window=e.window, mode=e.mode,
+                           oob=e.oob)
 
     @torch.no_grad()
     def step(self, voxels, bayer, events, from_events):

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions on the
+"""The CUDA kernels against their plain PyTorch versions on the
 card.  Every test needs an NVIDIA GPU and skips without one; the file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
@@ -8,15 +8,24 @@ Tolerances: the GEMMs sum in another order than cuBLAS (allclose
 atol=1e-4, rtol=1e-5, TF32 off); the LIF scan replays the plain
 recurrence op for op (equal); the norm kernel's statistics round
 differently, so its spikes may flip only where the plain membrane lies
-within 1e-4 of threshold.
+within 1e-4 of threshold.  The event voxelization and the demosaic
+are bit-exact (equal); NLM is held at atol 1e-6, its exp and the plain
+version's may differ in the last bit.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.encoding import (OOB_POLICIES, VOXEL_MODES,
+                                       EventStream, events_to_voxel_batch)
 from repro_torch.core.layers import instance_norm_affine, spike_im2col
+from repro_torch.isp.demosaic import demosaic_mhc
+from repro_torch.isp.nlm import nlm_denoise
 from repro_torch.kernels import build
+from repro_torch.kernels.demosaic import demosaic
+from repro_torch.kernels.event_voxel import event_voxel
 from repro_torch.kernels.lif_scan import lif_scan, norm_affine_lif
+from repro_torch.kernels.nlm import nlm
 from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
 from repro_torch.kernels.spike_matmul import spike_matmul
 from repro_torch.testing import spike_mismatch
@@ -101,11 +110,75 @@ def test_spike_matmul_matches_plain(dev, M, K, N, density):
                                rtol=1e-5)
 
 
+def _events(rng, B, N, T, H, W, *, live=0.8, hot=False):
+    """[B, N] events with out-of-range coordinates, polarities and
+    timestamps (boundary ``t == window`` included); ``hot`` piles every
+    event onto four cells."""
+    t = rng.uniform(-0.3, 1.3, (B, N)).astype(np.float32)
+    t[:, :3] = 1.0
+    if hot:
+        x = rng.integers(0, 2, (B, N))
+        y = rng.integers(0, 2, (B, N))
+    else:
+        x = rng.integers(-2, W + 2, (B, N))
+        y = rng.integers(-2, H + 2, (B, N))
+    p = rng.integers(-1, 3, (B, N))
+    return EventStream(torch.tensor(t), *(torch.tensor(a.astype(np.int32))
+                                          for a in (x, y, p)),
+                       torch.tensor(rng.random((B, N)) < live))
+
+
+@pytest.mark.parametrize("case", ["path", "empty", "overfull", "odd"])
+def test_event_voxel_bitexact(dev, case):
+    B, N, T, H, W = {"path": (8, 2048, 5, 64, 64), "empty": (2, 512, 5, 16, 16),
+                     "overfull": (2, 8192, 3, 16, 12),
+                     "odd": (3, 300, 7, 37, 53)}[case]
+    rng = np.random.default_rng(len(case))
+    evs = _events(rng, B, N, T, H, W, live=0.0 if case == "empty" else 0.8,
+                  hot=case == "overfull")
+    on_dev = EventStream(*(a.to(dev) for a in evs))
+    for mode in VOXEL_MODES:
+        for oob in OOB_POLICIES:
+            kw = dict(time_steps=T, height=H, width=W, mode=mode, oob=oob)
+            got = event_voxel(on_dev, **kw)
+            want = events_to_voxel_batch(on_dev, **kw)
+            assert torch.equal(got, want), (mode, oob)
+            assert torch.equal(got.cpu(), events_to_voxel_batch(evs, **kw))
+
+
+@pytest.mark.parametrize("B,H,W", [(8, 64, 64), (2, 37, 53)])
+def test_demosaic_bitexact(dev, B, H, W):
+    raw = torch.tensor(np.random.default_rng(H).uniform(
+        -0.1, 1.1, (B, H, W)).astype(np.float32), device=dev)
+    assert torch.equal(demosaic(raw), demosaic_mhc(raw))
+
+
+@pytest.mark.parametrize("B,H,W,C", [(8, 64, 64, 3), (2, 128, 96, 3),
+                                     (2, 20, 17, 1)])
+def test_nlm_matches_plain(dev, B, H, W, C):
+    rng = np.random.default_rng(H + C)
+    img = torch.tensor(rng.uniform(0, 1, (B, H, W, C)).astype(np.float32),
+                       device=dev)
+    strength = torch.tensor(rng.uniform(0, 1, B).astype(np.float32),
+                            device=dev)
+    got = nlm(img, strength)
+    torch.testing.assert_close(got, nlm_denoise(img, strength), atol=1e-6,
+                               rtol=0)
+
+
 def test_launch_counters(dev):
     build.reset_launches()
     x = torch.ones(5, 64, device=dev)
     lif_scan(x)
     spike_matmul(x, torch.ones(64, 8, device=dev))
     lif_scan(x.cpu())                       # the plain version: no launch
+    evs = _events(np.random.default_rng(0), 2, 64, 3, 8, 8)
+    event_voxel(EventStream(*(a.to(dev) for a in evs)), time_steps=3,
+                height=8, width=8)
+    event_voxel(evs, time_steps=3, height=8, width=8)      # plain
+    rgb = demosaic(torch.rand(2, 8, 8, device=dev))
+    nlm(rgb, 0.3)
+    nlm(rgb.cpu(), 0.3)                                     # plain
     torch.cuda.synchronize()
-    assert build.LAUNCHES == {"lif_scan": 1, "spike_matmul": 1}
+    assert build.LAUNCHES == {"lif_scan": 1, "spike_matmul": 1,
+                              "event_voxel": 1, "demosaic": 1, "nlm": 1}

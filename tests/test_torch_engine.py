@@ -64,7 +64,7 @@ def setup():
     jcfg = jax_reduced_snn("spiking_yolo")
     jparams = jax_init_npu(jax.random.PRNGKey(0), jcfg)
     params = convert.params_from_numpy(
-        jax.tree_util.tree_map(np.asarray, jparams))
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     payloads = _payloads(jcfg, N_REQ)
     jeng = JaxEngine(jparams, jcfg, batch=BATCH)
     want = {r.rid: r.result for r in jeng.run_to_completion(

@@ -29,7 +29,9 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.serve.cognitive_engine" in mods
+    for m in ("serve.cognitive_engine", "core.cognitive",
+              "kernels.event_voxel", "kernels.demosaic", "kernels.nlm"):
+        assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -64,7 +66,10 @@ def test_forbidden_import_pattern(line, bad):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
+    import numpy as np
+
     from repro_torch.configs.registry import reduced_snn
+    from repro_torch.convert import params_from_numpy
     from repro_torch.core.npu import init_npu
     from repro_torch.serve.cognitive_engine import CognitiveEngine
     if torch.cuda.is_available():
@@ -76,3 +81,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     params = init_npu(gen, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CognitiveEngine(params, cfg, batch=2)
+    tree = {"w": np.ones((2, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(tree)
+    assert params_from_numpy(tree, device="cpu")["w"].device.type == "cpu"

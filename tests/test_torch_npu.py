@@ -80,7 +80,7 @@ def _cfg(ref, backend):
 
 
 def _params(ref):
-    return convert.params_from_numpy(ref["jparams"])
+    return convert.params_from_numpy(ref["jparams"], device="cpu")
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
