@@ -7,7 +7,7 @@ hold each hand-written CUDA kernel against its plain PyTorch version.
 Phases (any failure raises and exits non-zero):
 
 1. device  — require CUDA; print the card's name and power limit;
-2. build   — compile the seven kernels from ``src/repro_torch/kernels/csrc``
+2. build   — compile the kernels from ``src/repro_torch/kernels/csrc``
              (one nvcc per source, in parallel); print the build time and
              each kernel's register report;
 3. parity  — walk full-width spiking-YOLO (64x64, T=5, 32 base channels,
@@ -22,29 +22,46 @@ Phases (any failure raises and exits non-zero):
              plain version in every mode x oob policy on the 8 event
              windows of the request set, and the ISP walked stage by
              stage with the stage params of the kernel NPU's control
-             vector: demosaic equal, nlm within 1e-6 (max |err| printed);
+             vector: demosaic equal, nlm within 1e-6 (max |err| printed).
+             Then the fused ISP backend ("cuda_fused") on the same frames,
+             for the default (ISP_CONFIGS["fused"]), hdr and fast_preview
+             orderings, segment by segment: each segment's kernel
+             (isp_stencil_segment, isp_pointwise_segment) against its
+             plain version on the same inputs, equal for [exposure+dpc],
+             [demosaic] and [awb*+gamma], within 1e-6 otherwise, and the
+             whole fused output against the per-stage "torch" path within
+             1e-6; again on an [8, 512, 512] batch with control vectors
+             drawn in [0, 1); and the fast_preview ordering fused through
+             control_vector_pipeline_batch, with its launches counted;
 4. timings — per kernel, device-time medians (CUDA events behind a spin
              kernel, so host launch overhead is not counted) over 30 runs
              of every launch of a tick (kernel, plain version, one
              torch.matmul where it computes the same function), and the
              least time the card could take for the same work (bytes at
              3.35 TB/s, fp32 operations at 67 TFLOP/s, this run's data);
-             plus demosaic and nlm on an [8, 512, 512] batch;
-5. serve   — three CognitiveEngines (full spiking_yolo, batch 8, seeded
+             isp_stencil_segment over the fused default plan's four
+             segments, isp_pointwise_segment on fast_preview's
+             [awb*+gamma]; plus demosaic, nlm and the fused segments on an
+             [8, 512, 512] batch;
+5. serve   — four CognitiveEngines (full spiking_yolo, batch 8, seeded
              random weights) answer the same 16 requests, 8 voxel windows
              and 8 raw event buffers: the all-kernel engine (encoding,
-             SNN and ISP on their kernels), the SNN-kernel engine (torch
-             encoding and ISP) and the plain engine.  Each runs with the
-             launch counters set to 0 just before it and read just after:
-             the all-kernel engine must show every kernel's launches per
-             tick, the SNN-kernel engine none of event_voxel, demosaic and
-             nlm, the plain engine none at all.  Every result is checked,
-             each layer's spikes are held to its plain version on the same
-             inputs, and the all-kernel results to the plain engine's
-             (raw_pred and control 1e-4, rgb 1e-4, printed); then the
-             cognitive loop (cognitive_forward on the "cuda" ISP config,
+             SNN and ISP on their kernels), the fused-ISP engine (the
+             same with ISP_CONFIGS["fused"]), the SNN-kernel engine
+             (torch encoding and ISP) and the plain engine.  Each runs
+             with the launch counters set to 0 just before it and read
+             just after: the all-kernel engine must show every per-stage
+             kernel's launches per tick, the fused-ISP engine the NPU
+             kernels, event_voxel and exactly 4 isp_stencil_segment (no
+             demosaic, nlm or isp_pointwise_segment), the SNN-kernel engine
+             only the NPU kernels, the plain engine none at all.  Every
+             result is checked, each layer's spikes are held to its plain
+             version on the same inputs, and the all-kernel and fused-ISP
+             results to the plain engine's (raw_pred and control 1e-4,
+             rgb 1e-4, printed); then the cognitive loop
+             (cognitive_forward on the "cuda" and "fused" ISP configs,
              cognitive_step(use_cuda=True)) against its plain run at the
-             same bars; then the tick latency (p50, p90) of the three
+             same bars; then the tick latency (p50, p90) of the four
              engines, in turns;
 6. report  — one JSON line of per-kernel numbers, the card line, and
              the result line ``{"ok": true, "device": {...}}`` last.
@@ -94,9 +111,23 @@ KERNELS = {
                  "src/repro/kernels/demosaic.py:67"),
     "nlm": ("src/repro_torch/kernels/csrc/nlm.cu",
             "src/repro/kernels/nlm.py:55"),
+    "isp_pointwise_segment": ("src/repro_torch/kernels/csrc/isp_fused.cu",
+                              "src/repro/kernels/isp_fused.py:109"),
+    "isp_stencil_segment": ("src/repro_torch/kernels/csrc/isp_fused.cu",
+                            "src/repro/kernels/isp_fused.py:145"),
 }
 NPU_KERNELS = ("spike_conv", "norm_affine_lif", "lif_scan", "spike_matmul")
 TICK_KERNELS = ("event_voxel", "demosaic", "nlm")
+FUSED_KERNELS = ("isp_pointwise_segment", "isp_stencil_segment")
+# the fused ISP orderings checked: name -> (stages, its ISP config name)
+FUSED_ORDERINGS = ("fused", "hdr_fused", "fast_preview")
+# plan segments whose kernel gives its plain version's bits
+EXACT_SEGMENTS = ("[exposure+dpc]", "[demosaic]", "[awb*+gamma]")
+# fp32 operations per pixel of each device op of the fused segments,
+# counted from csrc/isp_fused.cu (C = 3 channels where it applies);
+# nlm's from nlm_ops
+SEGMENT_OPS = {"exposure": 9, "awb": 24, "gamma": 21, "tonemap": 17,
+               "ccm": 20, "dpc": 48, "demosaic": 44, "sharpen": 46}
 
 
 def npu_launches_per_tick(cfg):
@@ -380,6 +411,124 @@ def nlm_ops(B, H, W, C):
     return B * H * W * (2 * C + 49 * (11 + 2 * C))
 
 
+def segment_work(ex, x, out):
+    """(bytes, fp32 operations) a fused segment must move and do: its
+    input read once, its output written once, and each op of its chain
+    and window once per pixel."""
+    B, H, W = x.shape[:3]
+    ops = 0
+    for step in ex.chain + ((ex.wstep,) if ex.wstep is not None else ()):
+        if step.op == "nlm":
+            ops += nlm_ops(1, 1, 1, out.shape[3] if out.dim() == 4 else 1)
+        else:
+            ops += SEGMENT_OPS[step.op]
+    return (x.numel() + out.numel()) * 4, ops * B * H * W
+
+
+def fused_orderings():
+    """name -> the ISP config of each fused ordering checked."""
+    import dataclasses as dc
+    from repro_torch.configs.registry import ISP_CONFIGS
+    return {n: (ISP_CONFIGS[n] if ISP_CONFIGS[n].backend == "cuda_fused"
+                else dc.replace(ISP_CONFIGS[n], name=n + "_fused",
+                                backend="cuda_fused"))
+            for n in FUSED_ORDERINGS}
+
+
+def fused_isp_check(x, ctrls, label, st=None):
+    """Each fused ordering on frames x [B, H, W] with control vectors
+    ctrls[name] [B, dim]: every segment's kernel against its plain
+    version on the same inputs, and the whole fused output against the
+    per-stage "torch" path.  With ``st``, the default ordering's
+    stencil segments and fast_preview's pointwise one are timed into
+    it.  Returns the printed max |err| per segment."""
+    import torch
+    from repro_torch.isp.fuse import compile_plan, segment_call
+    from repro_torch.isp.stages import control_to_stage_params, run_stages
+    errs = {}
+    for name, icfg in fused_orderings().items():
+        sp = control_to_stage_params(ctrls[name], icfg.stages)
+        y = x
+        for ex in compile_plan(icfg.stages):
+            check(ex.launches_kernel, f"{name}: segment "
+                  f"{ex.segment.describe()} launches no kernel")
+            kernel, plain, args, kw = segment_call(ex, y, sp)
+            got, want = kernel(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            seg = ex.segment.describe()
+            err = float((got - want).abs().max())
+            if seg in EXACT_SEGMENTS:
+                check(torch.equal(got, want), f"{label} {name} {seg}: not "
+                      f"bit-exact (max|err| {err:.3g})")
+            check(err <= NLM_TOL, f"{label} {name} {seg}: max|err| "
+                  f"{err:.3g} > {NLM_TOL}")
+            errs[f"{name} {seg}"] = err
+            timed = ((name == "fused" and ex.segment.stencil is not None)
+                     or (name == "fast_preview"
+                         and ex.segment.stencil is None))
+            if st is not None and timed:
+                nbytes, nops = segment_work(ex, y, got)
+                k = ("isp_stencil_segment" if ex.segment.stencil
+                     else "isp_pointwise_segment")
+                st[k].add((seg,) + tuple(y.shape),
+                          time_ms(lambda: kernel(*args, **kw)),
+                          time_ms(lambda: plain(*args, **kw)),
+                          nbytes, nops, err)
+            y = want.contiguous()
+        whole = run_stages(x, sp, icfg.stages, backend="cuda_fused")
+        ref = run_stages(x, sp, icfg.stages, backend="torch")
+        torch.cuda.synchronize()
+        err = float((whole - ref).abs().max())
+        check(err <= NLM_TOL, f"{label} {name}: fused vs per-stage max|err| "
+              f"{err:.3g} > {NLM_TOL}")
+        errs[f"{name} whole vs per-stage"] = err
+    print(f"  fused ISP {label} max|err|: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return errs
+
+
+def fused_isp_phase(params, cfg, reqs, dev):
+    """The fused ISP backend on the tick's own frames and control (the
+    kernel NPU's on the event windows; an ordering wider than the NPU's
+    head draws the rest in [0, 1)), then fast_preview fused through the
+    pipeline entry point with its launches counted."""
+    import torch
+    from repro_torch.core.encoding import voxel_batch
+    from repro_torch.core.npu import npu_forward
+    from repro_torch.isp.pipeline import control_vector_pipeline_batch
+    from repro_torch.kernels import build
+    st = {k: KernelStats() for k in FUSED_KERNELS}
+    vox = voxel_batch(event_windows(reqs, dev), backend="cuda",
+                      time_steps=cfg.time_steps, height=cfg.height,
+                      width=cfg.width).contiguous()
+    ctrl = npu_forward(params, vox, cfg).control
+    x = torch.stack([torch.as_tensor(r.bayer) for r in reqs
+                     if r.events is not None]).to(dev)
+    g = torch.Generator(dev).manual_seed(3)
+    ctrls = {}
+    for name, icfg in fused_orderings().items():
+        extra = max(icfg.control_dim - ctrl.shape[1], 0)
+        ctrls[name] = torch.cat([ctrl, torch.rand(
+            (ctrl.shape[0], extra), device=dev, generator=g)],
+            dim=1)[:, :icfg.control_dim].contiguous()
+    fused_isp_check(x, ctrls, "tick [8, 64, 64]", st)
+
+    # the pointwise kernel's main path: fast_preview fused, entry point
+    icfg = fused_orderings()["fast_preview"]
+    build.reset_launches()
+    rgb = control_vector_pipeline_batch(x, ctrls["fast_preview"], icfg)
+    torch.cuda.synchronize()
+    counts = dict(build.LAUNCHES)
+    want = {"isp_stencil_segment": 2, "isp_pointwise_segment": 1}
+    check(counts == want, f"fast_preview fused: launches {counts}, want "
+          f"{want}")
+    check(bool(torch.isfinite(rgb).all()) and rgb.shape == x.shape + (3,),
+          "fast_preview fused: bad rgb")
+    print(f"  fast_preview fused through control_vector_pipeline_batch: "
+          f"launches {counts}")
+    return st, counts
+
+
 def tick_kernel_phase(params, cfg, reqs, dev):
     """event_voxel, demosaic and nlm on the all-kernel tick's own
     inputs, each held to its plain version and timed."""
@@ -457,7 +606,8 @@ def tick_kernel_phase(params, cfg, reqs, dev):
 
 
 def large_isp_line(dev):
-    """demosaic and nlm on an [8, 512, 512] batch: one printed line."""
+    """demosaic, nlm and the fused segments on an [8, 512, 512] batch:
+    printed lines."""
     import torch
     from repro_torch.isp.demosaic import demosaic_mhc
     from repro_torch.isp.nlm import nlm_denoise
@@ -484,6 +634,17 @@ def large_isp_line(dev):
                                    / FP32_FLOPS, n * 24 / HBM_BYTES_PER_S)
                    * 1e3, "max_abs_err": err}}
     print("  large " + json.dumps(row))
+
+    # the fused segments at this size, control vectors in [0, 1)
+    ctrls = {name: torch.rand((BATCH, icfg.control_dim), device=dev,
+                              generator=g)
+             for name, icfg in fused_orderings().items()}
+    st = {k: KernelStats() for k in FUSED_KERNELS}
+    fused_isp_check(raw, ctrls, "[8, 512, 512]", st)
+    print("  large " + json.dumps({"shape": [BATCH, LARGE_HW, LARGE_HW], **{
+        k: {"ms": s.ms, "plain_ms": s.plain_ms, "bound_ms": s.bound_ms,
+            "launches": len(s.shapes), "max_abs_err": s.max_abs_err}
+        for k, s in st.items()}}))
 
 
 # ---------------------------------------------------------------------------
@@ -576,6 +737,9 @@ def serve_phase(params, cfg, reqs, dev):
         "all_kernels": CognitiveEngine(
             params, cfg, isp_cfg=ISP_CONFIGS["cuda"],
             enc_cfg=ENCODING_CONFIGS["cuda"], batch=BATCH, device=dev),
+        "fused_isp": CognitiveEngine(
+            params, cfg, isp_cfg=ISP_CONFIGS["fused"],
+            enc_cfg=ENCODING_CONFIGS["cuda"], batch=BATCH, device=dev),
         "snn_kernels": CognitiveEngine(params, cfg, batch=BATCH, device=dev),
         "plain": CognitiveEngine(params, plain_cfg, batch=BATCH, device=dev),
     }
@@ -585,6 +749,7 @@ def serve_phase(params, cfg, reqs, dev):
     npu = npu_launches_per_tick(cfg)
     want_per_tick = {
         "all_kernels": dict(npu, event_voxel=1, demosaic=1, nlm=1),
+        "fused_isp": dict(npu, event_voxel=1, isp_stencil_segment=4),
         "snn_kernels": npu, "plain": {}}
     results, launches = {}, {}
     for name, eng in engines.items():
@@ -611,13 +776,15 @@ def serve_phase(params, cfg, reqs, dev):
 
     # end to end against the plain engine
     for f in ("raw_pred", "control", "rgb"):
-        d = max_diff(results["all_kernels"], results["plain"], f)
-        d11 = max_diff(results["snn_kernels"], results["plain"], f)
-        print(f"  end-to-end max|kernel - plain| {f}: all-kernel {d:.3g}, "
-              f"SNN-kernel {d11:.3g}")
-        check(d <= E2E_TOL, f"all-kernel {f} differs from plain by {d:.3g}")
+        d = {name: max_diff(results[name], results["plain"], f)
+             for name in ("all_kernels", "fused_isp", "snn_kernels")}
+        print(f"  end-to-end max|kernel - plain| {f}: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in d.items()))
+        for name in ("all_kernels", "fused_isp"):
+            check(d[name] <= E2E_TOL, f"{name} {f} differs from plain by "
+                  f"{d[name]:.3g}")
 
-    # tick latency, the three engines in turns on the same batches
+    # tick latency, the engines in turns on the same batches
     lat = {name: [] for name in engines}
     order = list(engines.items())
     for i in range(LATENCY_TICKS):
@@ -633,11 +800,11 @@ def serve_phase(params, cfg, reqs, dev):
                       "ticks": len(v)} for name, v in lat.items()}
     print(f"  tick latency (batch {BATCH}, {LATENCY_TICKS} ticks each, "
           f"host clock to results on the host): {summary}")
-    return launches["all_kernels"], summary
+    return launches, summary
 
 
 def cognitive_phase(params, cfg, reqs, dev):
-    """cognitive_forward on the "cuda" ISP config and
+    """cognitive_forward on the "cuda" and "fused" ISP configs and
     cognitive_step(use_cuda=True), each against its plain run and with
     its launches counted."""
     import torch
@@ -651,18 +818,26 @@ def cognitive_phase(params, cfg, reqs, dev):
                       width=cfg.width).contiguous()
     bayer = torch.stack([torch.as_tensor(r.bayer) for r in reqs
                          if r.events is not None]).to(dev)
-    want_counts = dict(npu_launches_per_tick(cfg), demosaic=1, nlm=1)
+    npu = npu_launches_per_tick(cfg)
+    per_stage = dict(npu, demosaic=1, nlm=1)
     runs = {
         "cognitive_forward": (
             lambda: cognitive_forward(params, vox, bayer, cfg,
                                       ISP_CONFIGS["cuda"]),
             lambda: cognitive_forward(params, vox, bayer, plain_cfg,
-                                      ISP_CONFIGS["default"])),
+                                      ISP_CONFIGS["default"]), per_stage),
+        "cognitive_forward_fused": (
+            lambda: cognitive_forward(params, vox, bayer, cfg,
+                                      ISP_CONFIGS["fused"]),
+            lambda: cognitive_forward(params, vox, bayer, plain_cfg,
+                                      ISP_CONFIGS["default"]),
+            dict(npu, isp_stencil_segment=4)),
         "cognitive_step": (
             lambda: cognitive_step(params, vox, bayer, cfg, use_cuda=True),
-            lambda: cognitive_step(params, vox, bayer, plain_cfg)),
+            lambda: cognitive_step(params, vox, bayer, plain_cfg),
+            per_stage),
     }
-    for name, (kernel_run, plain_run) in runs.items():
+    for name, (kernel_run, plain_run, want_counts) in runs.items():
         build.reset_launches()
         got = kernel_run()
         torch.cuda.synchronize()
@@ -711,7 +886,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build_all()
     print(f"[2/6] build: {time.perf_counter() - t0:.1f} s")
-    for name in KERNELS:
+    for name in build.SOURCES:
         regs = [ln.strip() for ln in build.build_log(name).splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"  {name}: {' | '.join(regs)}")
@@ -727,6 +902,8 @@ def main() -> int:
           f"(batch {BATCH})")
     st = kernel_phase(params, cfg, vox)
     st.update(tick_kernel_phase(params, cfg, reqs, dev))
+    fused_st, preview_counts = fused_isp_phase(params, cfg, reqs, dev)
+    st.update(fused_st)
     print("[4/6] timings (ms per tick, medians of CUDA-event runs)")
     for name, s in st.items():
         print(f"  {name}: kernel {s.ms:.4f} plain {s.plain_ms:.4f} "
@@ -739,7 +916,14 @@ def main() -> int:
     launches, latency = serve_phase(params, cfg, reqs, dev)
     cognitive_phase(params, cfg, reqs, dev)
 
-    rows = [st[k].row(k, launches[k]) for k in KERNELS]
+    # launches from the main path that runs each kernel: the all-kernel
+    # engine, the fused-ISP engine, fast_preview fused
+    path_launches = dict(launches["all_kernels"])
+    path_launches["isp_stencil_segment"] = \
+        launches["fused_isp"]["isp_stencil_segment"]
+    path_launches["isp_pointwise_segment"] = \
+        preview_counts["isp_pointwise_segment"]
+    rows = [st[k].row(k, path_launches[k]) for k in KERNELS]
     print("[6/6] report")
     print(json.dumps({"serve": {"batch": BATCH, "requests": REQUESTS,
                                 "tick_latency": latency}}))

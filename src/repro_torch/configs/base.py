@@ -18,8 +18,10 @@ DEFAULT_ISP_STAGES: Tuple[str, ...] = (
 class ISPConfig:
     """An ordered tuple of registered ISP stage names plus the backend
     their implementations resolve through (see ``repro_torch.isp.stages``):
-    ``"torch"`` (plain PyTorch) or ``"cuda"`` (the demosaic and NLM
-    kernels; every other stage runs its ``"torch"`` impl)."""
+    ``"torch"`` (plain PyTorch), ``"cuda"`` (the demosaic and NLM
+    kernels; every other stage runs its ``"torch"`` impl) or
+    ``"cuda_fused"`` (the fusion planner's segment kernels,
+    ``repro_torch.isp.fuse``)."""
     name: str = "default"
     stages: Tuple[str, ...] = DEFAULT_ISP_STAGES
     backend: str = "torch"

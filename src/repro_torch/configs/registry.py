@@ -1,8 +1,7 @@
 """Named configurations of the port, copied from the JAX package's
 ``repro.configs.registry``: the paper's spiking-YOLO architecture, the
 ISP orderings and the event encodings.  The JAX ``"pallas"`` entries
-are ``"cuda"`` here; the fused ISP entries (``"fused"``,
-``"hdr_fused"``) come with the fused ISP backend."""
+are ``"cuda"`` here, its ``"pallas_fused"`` ones ``"cuda_fused"``."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,14 +25,22 @@ def reduced_snn(name: str, backend: str = "torch") -> SNNConfig:
         height=32, width=32, backend=backend)
 
 
+_HDR_STAGES = (DEFAULT_ISP_STAGES[:5] + ("tonemap", "ccm")
+               + DEFAULT_ISP_STAGES[5:])
+
 ISP_CONFIGS: Dict[str, ISPConfig] = {
     "default": ISPConfig(name="default"),
     # demosaic and NLM on their CUDA kernels
     "cuda": ISPConfig(name="cuda", backend="cuda"),
+    # the default ordering through the fusion planner: [exposure+dpc]
+    # [demosaic] [awb*+nlm] [gamma+sharpen], 4 segment kernels
+    "fused": ISPConfig(name="fused", backend="cuda_fused"),
     # HDR capture: tone-map after denoise, colour-matrix before gamma.
-    "hdr": ISPConfig(name="hdr",
-                     stages=DEFAULT_ISP_STAGES[:5]
-                     + ("tonemap", "ccm") + DEFAULT_ISP_STAGES[5:]),
+    "hdr": ISPConfig(name="hdr", stages=_HDR_STAGES),
+    # the hdr ordering fused: its pointwise tail joins the sharpen
+    # segment, 9 stages in 4 launches
+    "hdr_fused": ISPConfig(name="hdr_fused", stages=_HDR_STAGES,
+                           backend="cuda_fused"),
     # Latency-critical preview: drop NLM (the most expensive stage)
     # and sharpen — bare exposure/DPC/demosaic/AWB/gamma, control_dim 6.
     "fast_preview": ISPConfig(

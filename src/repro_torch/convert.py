@@ -20,6 +20,8 @@ from repro_torch.core.npu import resolve_device
 
 # JAX backend name -> the port's (SNN layers, ISP stages, encoding)
 BACKEND_NAMES = {"jnp": "torch", "pallas": "cuda"}
+# the ISP stages have a third backend, the fusion planner's
+ISP_BACKEND_NAMES = {**BACKEND_NAMES, "pallas_fused": "cuda_fused"}
 
 
 def params_from_numpy(tree, device="cuda"):
@@ -31,18 +33,14 @@ def params_from_numpy(tree, device="cuda"):
     return torch.tensor(np.asarray(tree, np.float32)).to(device)
 
 
-def _mapped(cls, cfg):
+def _mapped(cls, cfg, names=BACKEND_NAMES):
     """A ``cls`` with ``cfg``'s fields, its backend name mapped."""
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cls)}
     backend = fields["backend"]
-    if backend == "pallas_fused":
-        raise NotImplementedError(
-            f"{cls.__name__} backend {backend!r} is not ported yet (the "
-            f"fused ISP planner and its segment kernels)")
-    if backend not in BACKEND_NAMES:
+    if backend not in names:
         raise ValueError(f"{cls.__name__} backend {backend!r} has no port "
-                         f"(known: {sorted(BACKEND_NAMES)})")
-    fields["backend"] = BACKEND_NAMES[backend]
+                         f"(known: {sorted(names)})")
+    fields["backend"] = names[backend]
     if "stages" in fields:
         fields["stages"] = tuple(fields["stages"])
     return cls(**fields)
@@ -54,8 +52,9 @@ def snn_config(cfg) -> SNNConfig:
 
 
 def isp_config(cfg) -> ISPConfig:
-    """The port's ISPConfig with the same fields, backend name mapped."""
-    return _mapped(ISPConfig, cfg)
+    """The port's ISPConfig with the same fields, backend name mapped
+    (``"pallas_fused"`` too)."""
+    return _mapped(ISPConfig, cfg, ISP_BACKEND_NAMES)
 
 
 def encoding_config(cfg) -> EncodingConfig:

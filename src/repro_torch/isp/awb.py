@@ -32,3 +32,13 @@ def awb_apply_stats(rgb: torch.Tensor, p, stats: torch.Tensor):
         bias_r, torch.ones_like(bias_r), bias_b), dim=-1)
     gains = gains * bias
     return torch.clamp(rgb * gains[:, None, None, :], 0.0, 1.0)
+
+
+# The fused path splits AWB into one global stats pass on the stage's
+# materialised input and the pointwise awb_apply_stats inside a segment.
+AWB_STATS_WIDTH = 3   # grey-world gains (r, g, b)
+
+
+def awb_stats(rgb: torch.Tensor, p) -> torch.Tensor:
+    """Global stats pass: [B, H, W, 3] -> the [B, 3] grey-world gains."""
+    return awb_gains(rgb)

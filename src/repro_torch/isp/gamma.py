@@ -2,6 +2,8 @@
 of ``repro.isp.gamma``."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.isp._util import bcast
@@ -14,19 +16,23 @@ _RGB2YCBCR = torch.tensor([[0.299, 0.587, 0.114],
 _YCC_OFFSET = torch.tensor([0.0, 0.5, 0.5], dtype=torch.float32)
 
 
+@functools.lru_cache(maxsize=None)
 def _lut_axis(device=None) -> torch.Tensor:
     """The reference's ``jnp.linspace(0, 1, 256)``: XLA evaluates it as
     ``i * float32(1/255)`` with the endpoint set to 1, which differs from
-    ``torch.linspace`` in the last bit of some entries."""
+    ``torch.linspace`` in the last bit of some entries.  Built on the
+    device once per device (a constant: callers do not modify it), so a
+    tick copies nothing from the host for it."""
     i = torch.arange(LUT_SIZE - 1, dtype=torch.float32, device=device)
-    step = torch.tensor(1.0 / (LUT_SIZE - 1), dtype=torch.float32,
-                        device=device)
+    step = torch.full((), 1.0 / (LUT_SIZE - 1), dtype=torch.float32,
+                      device=device)
     return torch.cat([i * step, torch.ones(1, device=device)])
 
 
 def gamma_lut(gamma, device=None) -> torch.Tensor:
     """out = in^(1/gamma): gamma scalar -> [256], or [B] -> [B, 256]."""
     g = torch.as_tensor(gamma, dtype=torch.float32, device=device)
+    device = g.device
     inv = 1.0 / torch.clamp(g, min=1e-3)
     return _lut_axis(device) ** inv[..., None]
 
@@ -65,3 +71,27 @@ def sharpen_luma(rgb: torch.Tensor, amount) -> torch.Tensor:
     y2 = torch.clamp(y + bcast(amount, y) * (y - blur), 0.0, 1.0)
     ycc = torch.cat([y2[..., None], ycc[..., 1:]], dim=-1)
     return ycbcr_to_rgb(ycc)
+
+
+SHARPEN_RADIUS = 1   # 5-point cross blur on the luma plane
+
+# The array constants of the windowed form, passed to the fused segment
+# as inputs: the BT.601 matrix, the chroma offset and its inverse.
+SHARPEN_CONSTS = (_RGB2YCBCR, _YCC_OFFSET, torch.linalg.inv(_RGB2YCBCR))
+
+
+def sharpen_window(win: torch.Tensor, p, *, bh: int, bw: int,
+                   consts=SHARPEN_CONSTS, **_) -> torch.Tensor:
+    """Windowed form for the fused path: ``win`` [B, bh+2, bw+2, 3], a
+    wrap-padded window (the reference's cyclic roll) -> the sharpened
+    [B, bh, bw, 3] tile, in :func:`sharpen_luma`'s op order."""
+    mat, off, inv = (c.to(win.device) for c in consts)
+    ycc = torch.einsum("...c,dc->...d", win, mat) + off
+    y = ycc[..., 0]
+    # roll(y, 1)[i] == y[i - 1]: the up/down/left/right fold order
+    y_c = y[:, 1:-1, 1:-1]
+    blur = (y_c + y[:, 0:-2, 1:-1] + y[:, 2:, 1:-1]
+            + y[:, 1:-1, 0:-2] + y[:, 1:-1, 2:]) / 5.0
+    y2 = torch.clamp(y_c + bcast(p["amount"], y_c) * (y_c - blur), 0.0, 1.0)
+    ycc_c = torch.cat([y2[..., None], ycc[:, 1:-1, 1:-1, 1:]], dim=-1) - off
+    return torch.clamp(torch.einsum("...c,dc->...d", ycc_c, inv), 0.0, 1.0)

@@ -49,6 +49,16 @@ def control_vector_pipeline(raw: torch.Tensor, ctrl: torch.Tensor,
     return control_vector_pipeline_batch(raw[None], ctrl[None], config)[0]
 
 
+def plan_summary(config: Optional[ISPConfig] = None) -> str:
+    """The fusion-plan diagram of a config, e.g. the default's
+    ``[exposure+dpc] [demosaic] [awb*+nlm] [gamma+sharpen]``: what the
+    ``"cuda_fused"`` backend runs (``*`` the stats pass, ``?`` an opaque
+    stage)."""
+    from repro_torch.isp.fuse import describe_plan   # import cycle
+    cfg = config if config is not None else ISPConfig()
+    return describe_plan(cfg.stages)
+
+
 # The legacy shim's control-slot order, as (stage, param) pairs.
 _LEGACY_CONTROL_ORDER = (
     ("exposure", "gain"), ("awb", "bias_r"), ("awb", "bias_b"),

@@ -17,7 +17,27 @@ def reinhard_tonemap(rgb: torch.Tensor, strength) -> torch.Tensor:
     return torch.clamp(rgb * (1.0 + k) / (rgb + k), 0.0, 1.0)
 
 
+def _luma(rgb: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """rgb [..., 3] . row [3] summed left to right, [..., 1] (an order
+    the fused CUDA kernel replays; an einsum's GEMM sums in its own)."""
+    row = row.to(rgb.device)
+    return (rgb[..., 0] * row[0] + rgb[..., 1] * row[1]
+            + rgb[..., 2] * row[2])[..., None]
+
+
 def apply_saturation(rgb: torch.Tensor, saturation) -> torch.Tensor:
     """Luma-preserving saturation: 1 is identity, 0 greyscale."""
-    lum = torch.einsum("...c,c->...", rgb, _LUMA.to(rgb.device))[..., None]
+    lum = _luma(rgb, _LUMA)
     return torch.clamp(lum + bcast(saturation, rgb) * (rgb - lum), 0.0, 1.0)
+
+
+# The fused form: the luma row is an array constant, passed to the fused
+# segment as an input; same op order as apply_saturation.
+CCM_CONSTS = (_LUMA,)
+
+
+def apply_saturation_tile(rgb: torch.Tensor, p,
+                          consts=CCM_CONSTS) -> torch.Tensor:
+    lum = _luma(rgb, consts[0])
+    return torch.clamp(lum + bcast(p["saturation"], rgb) * (rgb - lum),
+                       0.0, 1.0)

@@ -40,6 +40,7 @@ SOURCES = {
     "event_voxel": "event_voxel.cu",
     "demosaic": "demosaic.cu",
     "nlm": "nlm.cu",
+    "isp_fused": "isp_fused.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -114,17 +115,18 @@ def build_log(name: str) -> str:
 
 def load(name: str, signature) -> ctypes.CDLL:
     """The loaded library of kernel ``name`` (built on first use).
-    ``signature`` is ``(symbol, argtypes)`` of its launch function, set
-    once on load; the function returns a ``cudaError_t`` as int."""
+    ``signature`` is ``(symbol, argtypes)`` of one of its launch
+    functions, set on that symbol's first use (a library may hold
+    several); the function returns a ``cudaError_t`` as int."""
     lib = _LIBS.get(name)
     if lib is None:
         path = build_all([name])[name]
-        lib = ctypes.CDLL(str(path))
-        symbol, argtypes = signature
-        fn = getattr(lib, symbol)
+        lib = _LIBS[name] = ctypes.CDLL(str(path))
+    symbol, argtypes = signature
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
     return lib
 
 

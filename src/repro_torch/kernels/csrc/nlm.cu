@@ -24,26 +24,16 @@
 // work.
 //
 // Rounding: the plain version's order, each step a round-to-nearest
-// intrinsic so nvcc cannot contract FMAs --
-//   d2 = ((s(y,x) + s(y-1,x)) + s(y+1,x)) per column, then
-//        ((c(x) + c(x-1)) + c(x+1)), times float32(1/9)  [torch turns
-//        the plain version's "/ 9.0" on a CUDA tensor into a multiply by
-//        the reciprocal]
-//   w = expf(-d2 / (h*h)); wsum and acc summed in (dy, dx) order;
-//   out = acc / max(wsum, 1e-9).
-// with roll(a, (dy, dx))[y, x] == a[y - dy, x - dx].
+// intrinsic so nvcc cannot contract FMAs (isp::nlm_pixel in
+// isp_common.cuh, shared with the fused NLM segment of isp_fused.cu).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "isp_common.cuh"
+
 namespace {
 
-constexpr int kMaxC = 4;
-constexpr int kR = 3;          // search radius (7x7 window)
-
-__device__ __forceinline__ int wrap(int v, int n) {
-  v %= n;
-  return v < 0 ? v + n : v;
-}
+constexpr int kMaxC = isp::kNlmMaxC;
 
 __global__ void nlm_kernel(const float* __restrict__ img,
                            const float* __restrict__ lum,
@@ -64,52 +54,14 @@ __global__ void nlm_kernel(const float* __restrict__ img,
   int rows[9], cols[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    rows[k] = wrap(y + k - 4, H) * W;
-    cols[k] = wrap(x + k - 4, W);
+    rows[k] = isp::wrap(y + k - 4, H) * W;
+    cols[k] = isp::wrap(x + k - 4, W);
   }
-  // centre luminances of the 3x3 patch
-  float lc[3][3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) lc[a][c] = L[rows[a + 3] + cols[c + 3]];
-
-  float wsum = 0.f;
-  float acc[kMaxC] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int dy = -kR; dy <= kR; ++dy) {
-#pragma unroll
-    for (int dx = -kR; dx <= kR; ++dx) {
-      // squared differences s[a][c] at (y + a - 1, x + c - 1)
-      float s[3][3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float d = __fsub_rn(
-              lc[a][c], L[rows[a + 3 - dy] + cols[c + 3 - dx]]);
-          s[a][c] = __fmul_rn(d, d);
-        }
-      float col[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        col[c] = __fadd_rn(__fadd_rn(s[1][c], s[0][c]), s[2][c]);
-      const float box = __fadd_rn(__fadd_rn(col[1], col[0]), col[2]);
-      const float d2 = __fmul_rn(box, 1.0f / 9.0f);
-      const float w = expf(__fdiv_rn(-d2, hh));
-      wsum = __fadd_rn(wsum, w);
-      const float* v = I + ((int64_t)rows[4 - dy] + cols[4 - dx]) * C;
-#pragma unroll
-      for (int ch = 0; ch < kMaxC; ++ch)
-        if (ch < C) acc[ch] = __fadd_rn(acc[ch], __fmul_rn(w, v[ch]));
-    }
-  }
-  // torch.clamp(wsum, min=1e-9): NaN passes through
-  const float den = (!isnan(wsum) && wsum < 1e-9f) ? 1e-9f : wsum;
-  float* o = out + i * C;
-#pragma unroll
-  for (int ch = 0; ch < kMaxC; ++ch)
-    if (ch < C) o[ch] = __fdiv_rn(acc[ch], den);
+  auto lum_at = [&](int ry, int cx) { return L[rows[ry] + cols[cx]]; };
+  auto pix = [&](int ry, int cx) {
+    return I + ((int64_t)rows[ry] + cols[cx]) * C;
+  };
+  isp::nlm_pixel(lum_at, pix, hh, C, out + i * C);
 }
 
 }  // namespace

@@ -1,0 +1,296 @@
+"""The fused ISP segments: the wrappers of their two CUDA kernels
+(``csrc/isp_fused.cu``) and their plain versions.
+
+The fusion planner (:mod:`repro_torch.isp.fuse`) cuts a stage ordering
+into segments; each segment is one pass over the frame:
+
+  * ``pointwise_segment``: a run of pointwise stages (plus an optional
+    leading reduce-stage apply) on every pixel;
+  * ``stencil_segment``: the same pointwise run as the prologue of a
+    stencil stage, recomputed on the halo of each output tile (a few
+    redundant halo pixels instead of a materialised intermediate), then
+    the stage's window op.
+
+Stage parameters come as one packed [B, P] float32 tensor (``pvec``, one
+row per frame, laid out by the planner), the reduce stage's global
+statistics as [B, w] (``stats``) and the array constants of the fused
+forms as a tuple (``consts``): all device tensors, so one kernel serves
+every control vector without a host sync.  The halo replays each
+stage's reference: ``pad="wrap"`` for cyclic-roll references,
+``pad="zero"`` for SAME-padded ones, with the zero halo set after the
+prologue, as the per-stage path pads the prologue's output.
+
+The plain versions ``pointwise_segment_torch`` and
+``stencil_segment_torch`` walk the frame in ``(bh, bw)`` tiles like the
+TPU kernels (``block`` sizes are theirs only; the CUDA tile is fixed)
+and call each stage's own torch form.  The wrappers take them for CPU
+tensors; for CUDA tensors they launch the kernels or raise.  A CUDA
+kernel cannot call a Python function, so it interprets a descriptor: one
+op code (``DEVICE_OPS``) and one parameter and constant offset per chain
+step, plus the window op.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.isp.gamma import gamma_lut
+from repro_torch.kernels.build import (check_f32, check_launch, load,
+                                       stream_of)
+
+BH, BW = 128, 128   # the plain versions' default tile
+
+# Device forms of the built-in stages; the op code of each is its index
+# plus one (csrc/isp_fused.cu, enum Op).
+POINTWISE_OPS = ("exposure", "awb", "gamma", "tonemap", "ccm")
+WINDOW_OPS = ("dpc", "demosaic", "nlm", "sharpen")
+DEVICE_OPS = POINTWISE_OPS + WINDOW_OPS
+WINDOW_RADIUS = {"dpc": 2, "demosaic": 2, "nlm": 4, "sharpen": 1}
+MAX_STEPS = 8       # chain steps a descriptor holds (csrc kMaxSteps)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# x, out, pvec, stats, consts, lut, then the ints, the descriptor arrays
+# (ops, param offsets, const offsets), the stream
+_POINTWISE_SIG = ("isp_pointwise_launch",        # B H W C P S n
+                  [_P] * 6 + [_I] * 7 + [_P] * 3 + [_P])
+_STENCIL_SIG = ("isp_stencil_launch",            # B H W Cin Cout P S n
+                [_P] * 6 + [_I] * 8 + [_P] * 3
+                + [_I] * 5 + [_P])               # wop wpoff wcoff r zero
+
+
+class ChainStep(NamedTuple):
+    """One stage inside a segment: ``fn`` is its plain form (``(x, p)``;
+    ``(x, p, stats)`` for a reduce-stage apply; ``(x, p, consts)`` for a
+    tile_fn), its params are columns ``offset : offset + len(names)`` of
+    ``pvec``, its constants ``consts[c_offset : c_offset + n_consts]``,
+    and ``op`` its device form (None: the segment runs plain)."""
+    fn: Optional[Callable]
+    names: Tuple[str, ...]
+    offset: int
+    uses_stats: bool = False
+    uses_consts: bool = False
+    c_offset: int = 0
+    n_consts: int = 0
+    op: Optional[str] = None
+
+
+def _step_params(step: ChainStep, pv: torch.Tensor):
+    return {n: pv[:, step.offset + k] for k, n in enumerate(step.names)}
+
+
+def _step_consts(step: ChainStep, cv):
+    return tuple(cv[step.c_offset:step.c_offset + step.n_consts])
+
+
+def _apply_chain(x, chain, pv, sv, cv):
+    for step in chain:
+        p = _step_params(step, pv)
+        if step.uses_stats:
+            x = step.fn(x, p, sv)
+        elif step.uses_consts:
+            x = step.fn(x, p, _step_consts(step, cv))
+        else:
+            x = step.fn(x, p)
+    return x
+
+
+def _tile_geometry(H, W, bh, bw):
+    """Clamp the tile to the frame and round the grid up: a frame that
+    is not a whole number of tiles runs with a zero fringe that is
+    cropped after the call (the fringe feeds no valid output pixel)."""
+    bh, bw = min(bh, H), min(bw, W)
+    Hp = -(-H // bh) * bh
+    Wp = -(-W // bw) * bw
+    return bh, bw, Hp, Wp
+
+
+def _pad_hw(x: torch.Tensor, top: int, bottom: int, left: int,
+            right: int) -> torch.Tensor:
+    """Zero-pad the image dims (1, 2) of x [B, H, W(, C)]."""
+    tail = (0, 0) * (x.dim() - 3)
+    return F.pad(x, tail + (left, right, top, bottom))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def pointwise_segment_torch(x, pvec, stats, consts=(), *,
+                            chain: Tuple[ChainStep, ...], bh: int = BH,
+                            bw: int = BW):
+    """x [B, H, W(, C)] -> the same shape, ``chain`` applied tile by
+    tile."""
+    H, W = x.shape[1:3]
+    bh, bw, Hp, Wp = _tile_geometry(H, W, bh, bw)
+    xp = _pad_hw(x, 0, Hp - H, 0, Wp - W)
+    out = torch.empty_like(xp)
+    for y0 in range(0, Hp, bh):
+        for x0 in range(0, Wp, bw):
+            out[:, y0:y0 + bh, x0:x0 + bw] = _apply_chain(
+                xp[:, y0:y0 + bh, x0:x0 + bw], chain, pvec, stats, consts)
+    return out[:, :H, :W]
+
+
+def stencil_segment_torch(x, pvec, stats, consts=(), *,
+                          prologue: Tuple[ChainStep, ...],
+                          window_fn: Callable, wstep: ChainStep,
+                          radius: int, pad: str, out_tail: Tuple[int, ...],
+                          bh: int = BH, bw: int = BW):
+    """x [B, H, W(, C)] -> [B, H, W] + out_tail.  The frame is
+    halo-padded once (``pad="wrap"`` cyclic, ``"zero"`` zeros); each
+    tile's [bh+2r, bw+2r] window gets the ``prologue``, then the
+    stage's ``window_fn``."""
+    B, H, W = x.shape[:3]
+    r = radius
+    bh, bw, Hp, Wp = _tile_geometry(H, W, bh, bw)
+    if pad == "wrap":
+        rows = torch.arange(-r, H + r, device=x.device) % H
+        cols = torch.arange(-r, W + r, device=x.device) % W
+        xp = x[:, rows][:, :, cols]
+    else:
+        xp = _pad_hw(x, r, r, r, r)
+    # zero fringe beyond the halo'd frame: it feeds only cropped outputs
+    xp = _pad_hw(xp, 0, Hp - H, 0, Wp - W)
+    zero_mask = pad == "zero" and bool(prologue)
+    out = torch.empty((B, Hp, Wp) + tuple(out_tail), dtype=x.dtype,
+                      device=x.device)
+    wp = _step_params(wstep, pvec)
+    ctx = {"consts": _step_consts(wstep, consts)} if wstep.n_consts else {}
+    for y0 in range(0, Hp, bh):
+        for x0 in range(0, Wp, bw):
+            win = xp[:, y0:y0 + bh + 2 * r, x0:x0 + bw + 2 * r]
+            if prologue:
+                win = _apply_chain(win, prologue, pvec, stats, consts)
+            if zero_mask:
+                # the per-stage path zero-pads the prologue's OUTPUT, so
+                # halo pixels read 0, not prologue(0)
+                yy = torch.arange(y0 - r, y0 + bh + r, device=x.device)
+                xx = torch.arange(x0 - r, x0 + bw + r, device=x.device)
+                ok = (((yy >= 0) & (yy < H))[:, None]
+                      & ((xx >= 0) & (xx < W))[None, :])
+                ok = ok.reshape(ok.shape + (1,) * (win.dim() - 3))
+                win = torch.where(ok, win, 0.0)
+            out[:, y0:y0 + bh, x0:x0 + bw] = window_fn(
+                win, wp, y0=y0, x0=x0, bh=bh, bw=bw, **ctx)
+    return out[:, :H, :W]
+
+
+# ---------------------------------------------------------------------------
+# wrappers of the CUDA kernels
+# ---------------------------------------------------------------------------
+
+def _descriptor(chain, pvec, consts):
+    """The chain as the kernels read it: op codes, param offsets and
+    constant offsets (in floats of the flattened consts) as ctypes
+    arrays, plus the gamma LUT rows [B, 256] if a step needs them."""
+    if len(chain) > MAX_STEPS:
+        raise ValueError(f"isp_fused: {len(chain)} chain steps, at most "
+                         f"{MAX_STEPS}")
+    starts = [0]
+    for c in consts:
+        starts.append(starts[-1] + c.numel())
+    ops, poffs, coffs, lut = [], [], [], None
+    for step in chain:
+        if step.op not in POINTWISE_OPS:
+            raise ValueError(f"isp_fused: chain step {step.names} has no "
+                             f"pointwise device form (op {step.op!r})")
+        ops.append(DEVICE_OPS.index(step.op) + 1)
+        poffs.append(step.offset)
+        coffs.append(starts[step.c_offset])
+        if step.op == "gamma":
+            lut = gamma_lut(pvec[:, step.offset],
+                            device=pvec.device).contiguous()
+    arr = ctypes.c_int * MAX_STEPS
+    return (len(chain), arr(*ops), arr(*poffs), arr(*coffs)), lut, starts
+
+
+def _flat_consts(consts, dev) -> torch.Tensor:
+    if not consts:
+        return torch.zeros(1, dtype=torch.float32, device=dev)
+    return torch.cat([c.reshape(-1) for c in consts]).to(
+        device=dev, dtype=torch.float32).contiguous()
+
+
+def _check_inputs(name, x, pvec, stats):
+    dev = check_f32(name, x, pvec, stats)
+    B = x.shape[0]
+    if x.dim() not in (3, 4) or (x.dim() == 4 and x.shape[3] not in (1, 3)):
+        raise ValueError(f"{name}: expected [B, H, W] or [B, H, W, 1|3], "
+                         f"got {tuple(x.shape)}")
+    for t, what in ((pvec, "pvec"), (stats, "stats")):
+        if t.dim() != 2 or t.shape[0] != B:
+            raise ValueError(f"{name}: {what} must be [{B}, n], got "
+                             f"{tuple(t.shape)}")
+    return dev
+
+
+def pointwise_segment(x, pvec, stats, consts=(), *,
+                      chain: Tuple[ChainStep, ...], bh: int = BH,
+                      bw: int = BW):
+    """x [B, H, W(, C)] float32, pvec [B, P], stats [B, w], consts a
+    tuple of tensors -> the same shape as x."""
+    dev = _check_inputs("pointwise_segment", x, pvec, stats)
+    if dev.type == "cpu":
+        return pointwise_segment_torch(x, pvec, stats, consts, chain=chain,
+                                       bh=bh, bw=bw)
+    (n, ops, poffs, coffs), lut, _ = _descriptor(chain, pvec, consts)
+    B, H, W = x.shape[:3]
+    C = x.shape[3] if x.dim() == 4 else 1
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    flat = _flat_consts(consts, dev)
+    lib = load("isp_fused", _POINTWISE_SIG)
+    with torch.cuda.device(dev):
+        err = lib.isp_pointwise_launch(
+            x.data_ptr(), out.data_ptr(), pvec.data_ptr(), stats.data_ptr(),
+            flat.data_ptr(), 0 if lut is None else lut.data_ptr(),
+            B, H, W, C, pvec.shape[1], stats.shape[1], n, ops, poffs, coffs,
+            stream_of(dev))
+    check_launch("isp_pointwise_segment", err)
+    return out
+
+
+def stencil_segment(x, pvec, stats, consts=(), *,
+                    prologue: Tuple[ChainStep, ...], window_fn: Callable,
+                    wstep: ChainStep, radius: int, pad: str,
+                    out_tail: Tuple[int, ...], bh: int = BH, bw: int = BW):
+    """x [B, H, W(, C)] float32, pvec [B, P], stats [B, w], consts a
+    tuple of tensors -> [B, H, W] + out_tail.  On a CUDA tensor the
+    window op is ``wstep.op``; ``window_fn`` is the plain form."""
+    dev = _check_inputs("stencil_segment", x, pvec, stats)
+    if dev.type == "cpu":
+        return stencil_segment_torch(
+            x, pvec, stats, consts, prologue=prologue, window_fn=window_fn,
+            wstep=wstep, radius=radius, pad=pad, out_tail=out_tail, bh=bh,
+            bw=bw)
+    if wstep.op not in WINDOW_OPS or WINDOW_RADIUS[wstep.op] != radius:
+        raise ValueError(f"stencil_segment: window op {wstep.op!r} with "
+                         f"radius {radius} has no device form")
+    if pad not in ("wrap", "zero") or len(out_tail) > 1:
+        raise ValueError(f"stencil_segment: pad {pad!r}, out_tail "
+                         f"{out_tail}")
+    (n, ops, poffs, coffs), lut, starts = _descriptor(prologue, pvec,
+                                                      consts)
+    B, H, W = x.shape[:3]
+    c_in = x.shape[3] if x.dim() == 4 else 1
+    c_out = out_tail[0] if out_tail else 1
+    out = torch.empty((B, H, W) + tuple(out_tail), dtype=torch.float32,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    flat = _flat_consts(consts, dev)
+    lib = load("isp_fused", _STENCIL_SIG)
+    with torch.cuda.device(dev):
+        err = lib.isp_stencil_launch(
+            x.data_ptr(), out.data_ptr(), pvec.data_ptr(), stats.data_ptr(),
+            flat.data_ptr(), 0 if lut is None else lut.data_ptr(),
+            B, H, W, c_in, c_out, pvec.shape[1], stats.shape[1], n, ops,
+            poffs, coffs, DEVICE_OPS.index(wstep.op) + 1, wstep.offset,
+            starts[wstep.c_offset], radius, int(pad == "zero"),
+            stream_of(dev))
+    check_launch("isp_stencil_segment", err)
+    return out

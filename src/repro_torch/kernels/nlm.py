@@ -3,14 +3,15 @@ The plain version is :func:`repro_torch.isp.nlm.nlm_denoise`, which the
 wrapper takes for CPU tensors; for CUDA tensors it launches the kernel
 or raises.  Like the TPU kernel, the kernel takes the luminance plane
 and the bandwidth ``h`` as inputs, computed here with the plain
-version's own torch ops, on the device and without a host sync."""
+version's own torch ops (``luminance``, ``nlm_bandwidth``), on the device
+and without a host sync."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
-from repro_torch.isp.nlm import nlm_bandwidth, nlm_denoise
+from repro_torch.isp.nlm import luminance, nlm_bandwidth, nlm_denoise
 from repro_torch.kernels.build import (check_f32, check_launch, load,
                                        stream_of)
 
@@ -40,7 +41,7 @@ def nlm(img: torch.Tensor, strength=0.1) -> torch.Tensor:
         raise ValueError(f"nlm: strength must be a scalar or [{B}], got "
                          f"{tuple(h.shape)}")
     h = h.contiguous()
-    lum = chans.mean(dim=-1)
+    lum = luminance(chans)
     out = torch.empty_like(chans)
     if out.numel() == 0:
         return out.reshape(img.shape)

@@ -1,12 +1,13 @@
 """Profile the serving tick on the card: where a tick's time goes.
 
     python -m repro_torch.profile_tick [--ticks 20] [--batch 8] [--backend cuda]
-        [--enc-backend torch|cuda] [--isp-backend torch|cuda]
+        [--enc-backend torch|cuda] [--isp-backend torch|cuda|cuda_fused]
 
 Serves full-width spiking-YOLO (seeded random weights, random voxel
 windows and Bayer frames) through ``CognitiveEngine`` — the SNN layers
 on ``--backend``, the event encoding on ``--enc-backend`` and the ISP on
-``--isp-backend`` (``cuda`` for all three is the all-kernel tick) — and
+``--isp-backend`` (``cuda`` for all three is the all-kernel tick;
+``cuda_fused`` runs the ISP as the fusion plan's segment kernels) — and
 records ``--ticks`` ticks under ``torch.profiler`` after three warm-up
 ticks.
 Prints, per tick: the host wall time, the host time inside each stage
@@ -36,7 +37,7 @@ from repro_torch.serve.cognitive_engine import (CognitiveEngine,
 
 STAGES = ("tick.upload", "tick.encode", "tick.npu", "tick.isp", "tick.fetch")
 # backend name -> the named config that runs on it
-ISP_BY_BACKEND = {"torch": "default", "cuda": "cuda"}
+ISP_BY_BACKEND = {"torch": "default", "cuda": "cuda", "cuda_fused": "fused"}
 ENC_BY_BACKEND = {"torch": "paper_binary", "cuda": "cuda"}
 
 
@@ -57,7 +58,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"))
     ap.add_argument("--enc-backend", default="torch", choices=("cuda", "torch"))
-    ap.add_argument("--isp-backend", default="torch", choices=("cuda", "torch"))
+    ap.add_argument("--isp-backend", default="torch",
+                    choices=tuple(ISP_BY_BACKEND))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -10,7 +10,10 @@ recurrence op for op (equal); the norm kernel's statistics round
 differently, so its spikes may flip only where the plain membrane lies
 within 1e-4 of threshold.  The event voxelization and the demosaic
 are bit-exact (equal); NLM is held at atol 1e-6, its exp and the plain
-version's may differ in the last bit.
+version's may differ in the last bit.  The fused ISP segments replay
+their plain versions op for op (equal for [exposure+dpc], [demosaic] and
+[awb*+gamma]); sharpen's colour matrices are einsums on the plain side,
+summed in another order, and NLM has its exp (atol 1e-6).
 """
 import numpy as np
 import pytest
@@ -18,9 +21,12 @@ import torch
 
 from repro_torch.core.encoding import (OOB_POLICIES, VOXEL_MODES,
                                        EventStream, events_to_voxel_batch)
+from repro_torch.configs.registry import ISP_CONFIGS
 from repro_torch.core.layers import instance_norm_affine, spike_im2col
 from repro_torch.isp.demosaic import demosaic_mhc
+from repro_torch.isp.fuse import compile_plan, segment_call
 from repro_torch.isp.nlm import nlm_denoise
+from repro_torch.isp.stages import control_to_stage_params
 from repro_torch.kernels import build
 from repro_torch.kernels.demosaic import demosaic
 from repro_torch.kernels.event_voxel import event_voxel
@@ -166,6 +172,36 @@ def test_nlm_matches_plain(dev, B, H, W, C):
                                rtol=0)
 
 
+# plan segments that give the plain version's bits
+EXACT_SEGMENTS = ("[exposure+dpc]", "[demosaic]", "[awb*+gamma]")
+
+
+@pytest.mark.parametrize("name", ["fused", "hdr_fused", "fast_preview"])
+@pytest.mark.parametrize("B,H,W", [(8, 64, 64), (2, 37, 53)])
+def test_isp_fused_segments_match_plain(dev, name, B, H, W):
+    """Every segment of the ordering's plan, its kernel against its plain
+    version on the same inputs, per-frame control vectors."""
+    rng = np.random.default_rng(H + len(name))
+    stages = ISP_CONFIGS[name].stages
+    raw = rng.uniform(0, 1, (B, H, W)).astype(np.float32)
+    raw[rng.random((B, H, W)) < 0.02] = 1.0
+    ctrl = torch.tensor(rng.uniform(0, 1, (B, ISP_CONFIGS[name].control_dim))
+                        .astype(np.float32), device=dev)
+    sp = control_to_stage_params(ctrl, stages)
+    x = torch.tensor(raw, device=dev)
+    for ex in compile_plan(stages):
+        assert ex.launches_kernel
+        kernel, plain, args, kw = segment_call(ex, x, sp)
+        got, want = kernel(*args, **kw), plain(*args, **kw)
+        label = ex.segment.describe()
+        if label in EXACT_SEGMENTS:
+            assert torch.equal(got, want), label
+        else:
+            torch.testing.assert_close(got, want, atol=1e-6, rtol=0,
+                                       msg=label)
+        x = want.contiguous()
+
+
 def test_launch_counters(dev):
     build.reset_launches()
     x = torch.ones(5, 64, device=dev)
@@ -179,6 +215,14 @@ def test_launch_counters(dev):
     rgb = demosaic(torch.rand(2, 8, 8, device=dev))
     nlm(rgb, 0.3)
     nlm(rgb.cpu(), 0.3)                                     # plain
+    stages = ISP_CONFIGS["fast_preview"].stages
+    raw = torch.rand(2, 8, 8, device=dev)
+    for ex in compile_plan(stages):         # 2 stencil + 1 pointwise
+        kernel, plain, args, kw = segment_call(ex, raw, None)
+        raw = kernel(*args, **kw)
+        plain(*args, **kw)                  # plain: no launch
     torch.cuda.synchronize()
     assert build.LAUNCHES == {"lif_scan": 1, "spike_matmul": 1,
-                              "event_voxel": 1, "demosaic": 1, "nlm": 1}
+                              "event_voxel": 1, "demosaic": 1, "nlm": 1,
+                              "isp_stencil_segment": 2,
+                              "isp_pointwise_segment": 1}

@@ -30,7 +30,8 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     for m in ("serve.cognitive_engine", "core.cognitive",
-              "kernels.event_voxel", "kernels.demosaic", "kernels.nlm"):
+              "kernels.event_voxel", "kernels.demosaic", "kernels.nlm",
+              "kernels.isp_fused", "isp.fuse"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -85,3 +86,25 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy(tree)
     assert params_from_numpy(tree, device="cpu")["w"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["fused", "hdr_fused"])
+def test_fused_isp_configs_convert(name):
+    """The JAX fused ISP configs map onto "cuda_fused" with the same
+    stages; "pallas_fused" has no port for the SNN and encoding
+    configs (the JAX package has no such backend for them)."""
+    import dataclasses
+
+    from repro.configs import registry as jreg
+    from repro_torch import convert
+    from repro_torch.configs.registry import ISP_CONFIGS
+    cfg = convert.isp_config(jreg.ISP_CONFIGS[name])
+    assert cfg.backend == "cuda_fused"
+    assert cfg.stages == tuple(jreg.ISP_CONFIGS[name].stages)
+    assert cfg == ISP_CONFIGS[name]
+    with pytest.raises(ValueError, match="has no port"):
+        convert.snn_config(dataclasses.replace(
+            jreg.SNN_ARCHS["spiking_yolo"], backend="pallas_fused"))
+    with pytest.raises(ValueError, match="has no port"):
+        convert.encoding_config(dataclasses.replace(
+            jreg.ENCODING_CONFIGS["paper_binary"], backend="pallas_fused"))

@@ -115,8 +115,15 @@ def test_isp_config_conversion(name):
 
 
 def test_fused_isp_backend_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        convert.isp_config(jreg.ISP_CONFIGS["fused"])
+    """The JAX "pallas_fused" backend exists for the ISP only: its ISP
+    configs map onto "cuda_fused", and the SNN and encoding configs,
+    which have no fused backend, stay unported."""
+    cfg = convert.isp_config(jreg.ISP_CONFIGS["fused"])
+    assert cfg == ISP_CONFIGS["fused"]
+    snn = dataclasses.replace(jreg.SNN_ARCHS["spiking_yolo"],
+                              backend="pallas_fused")
+    with pytest.raises(ValueError, match="has no port"):
+        convert.snn_config(snn)
 
 
 def test_legacy_shims_match_jax():
