@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's cognitive serving tick on one NVIDIA GPU and
-hold each hand-written CUDA kernel against its plain PyTorch version.
+"""Drive the PyTorch port's cognitive serving tick on one NVIDIA GPU, on
+the paper's four spiking backbones, and hold each hand-written CUDA
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -32,37 +33,53 @@ Phases (any failure raises and exits non-zero):
              whole fused output against the per-stage "torch" path within
              1e-6; again on an [8, 512, 512] batch with control vectors
              drawn in [0, 1); and the fast_preview ordering fused through
-             control_vector_pipeline_batch, with its launches counted;
+             control_vector_pipeline_batch, with its launches counted.
+             Then the same layer walk for full-width spiking MobileNet,
+             VGG and DenseNet (the paper's other backbones; same voxels):
+             spike_dwconv equal to its plain tap loop on each depthwise
+             layer's input and on a partly silent copy, max_pool equal to
+             its plain version in both gate modes on each pool's input
+             and on a copy with an all-silent frame;
 4. timings — per kernel, device-time medians (CUDA events behind a spin
              kernel, so host launch overhead is not counted) over 30 runs
              of every launch of a tick (kernel, plain version, one
-             torch.matmul where it computes the same function), and the
-             least time the card could take for the same work (bytes at
-             3.35 TB/s, fp32 operations at 67 TFLOP/s, this run's data);
+             PyTorch call where it computes the same function:
+             torch.matmul for the GEMMs, cuDNN's grouped conv on the
+             pre-padded channels-last input for spike_dwconv,
+             F.max_pool2d for max_pool), and the least time the card could
+             take for the same work (bytes at 3.35 TB/s, fp32 operations
+             at 67 TFLOP/s, this run's data), per backbone;
              isp_stencil_segment over the fused default plan's four
              segments, isp_pointwise_segment on fast_preview's
              [awb*+gamma]; plus demosaic, nlm and the fused segments on an
-             [8, 512, 512] batch;
-5. serve   — four CognitiveEngines (full spiking_yolo, batch 8, seeded
-             random weights) answer the same 16 requests, 8 voxel windows
-             and 8 raw event buffers: the all-kernel engine (encoding,
-             SNN and ISP on their kernels), the fused-ISP engine (the
-             same with ISP_CONFIGS["fused"]), the SNN-kernel engine
-             (torch encoding and ISP) and the plain engine.  Each runs
+             [8, 512, 512] batch.  The kernels line takes the NPU rows
+             from spiking-YOLO's tick, spike_dwconv from MobileNet's and
+             max_pool from VGG's plus DenseNet's;
+5. serve   — CognitiveEngines (batch 8, seeded random weights) answer the
+             same 16 requests, 8 voxel windows and 8 raw event buffers.
+             Full spiking_yolo through four: the all-kernel engine
+             (encoding, SNN and ISP on their kernels), the fused-ISP
+             engine (the same with ISP_CONFIGS["fused"]), the SNN-kernel
+             engine (torch encoding and ISP) and the plain engine; then
+             full spiking_mobilenet, spiking_vgg and spiking_densenet,
+             each through an all-kernel and a plain engine.  Each runs
              with the launch counters set to 0 just before it and read
-             just after: the all-kernel engine must show every per-stage
-             kernel's launches per tick, the fused-ISP engine the NPU
-             kernels, event_voxel and exactly 4 isp_stencil_segment (no
-             demosaic, nlm or isp_pointwise_segment), the SNN-kernel engine
-             only the NPU kernels, the plain engine none at all.  Every
-             result is checked, each layer's spikes are held to its plain
-             version on the same inputs, and the all-kernel and fused-ISP
-             results to the plain engine's (raw_pred and control 1e-4,
+             just after, against npu_launches_per_tick per backbone:
+             the all-kernel engines must show every per-stage kernel's
+             launches per tick (MobileNet's spike_dwconv, VGG's and
+             DenseNet's max_pool), the fused-ISP engine the NPU kernels,
+             event_voxel and exactly 4 isp_stencil_segment (no demosaic,
+             nlm or isp_pointwise_segment), the SNN-kernel engine only the
+             NPU kernels, the plain engines none at all, and no
+             spiking-YOLO engine spike_dwconv or max_pool.  Every result
+             is checked, each backbone's layers are held to their plain
+             versions on the same inputs, and each all-kernel engine's
+             results to its plain engine's (raw_pred and control 1e-4,
              rgb 1e-4, printed); then the cognitive loop
              (cognitive_forward on the "cuda" and "fused" ISP configs,
              cognitive_step(use_cuda=True)) against its plain run at the
-             same bars; then the tick latency (p50, p90) of the four
-             engines, in turns;
+             same bars; then the tick latency (p50, p90) of spiking-YOLO's
+             four engines and the three new all-kernel engines, in turns;
 6. report  — one JSON line of per-kernel numbers, the card line, and
              the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -115,8 +132,15 @@ KERNELS = {
                               "src/repro/kernels/isp_fused.py:109"),
     "isp_stencil_segment": ("src/repro_torch/kernels/csrc/isp_fused.cu",
                             "src/repro/kernels/isp_fused.py:145"),
+    "spike_dwconv": ("src/repro_torch/kernels/csrc/spike_dwconv.cu",
+                     "src/repro/kernels/spike_conv.py:172"),
+    "max_pool": ("src/repro_torch/kernels/csrc/max_pool.cu",
+                 "src/repro/kernels/backbone_fuse.py:509"),
 }
-NPU_KERNELS = ("spike_conv", "norm_affine_lif", "lif_scan", "spike_matmul")
+NPU_KERNELS = ("spike_conv", "norm_affine_lif", "lif_scan", "spike_matmul",
+               "spike_dwconv", "max_pool")
+# the paper's other three backbones, served beside spiking-YOLO
+NEW_ARCHS = ("spiking_mobilenet", "spiking_vgg", "spiking_densenet")
 TICK_KERNELS = ("event_voxel", "demosaic", "nlm")
 FUSED_KERNELS = ("isp_pointwise_segment", "isp_stencil_segment")
 # the fused ISP orderings checked: name -> (stages, its ISP config name)
@@ -131,9 +155,45 @@ SEGMENT_OPS = {"exposure": 9, "awb": 24, "gamma": 21, "tonemap": 17,
 
 
 def npu_launches_per_tick(cfg):
-    return {"spike_conv": 2 * cfg.num_stages + 2,
-            "norm_affine_lif": 2 * cfg.num_stages + 1,
-            "lif_scan": 1, "spike_matmul": 1}
+    """Kernel launches of one ``npu_forward`` on the "cuda" backend
+    (tests/test_torch_backbones.py holds this to the code)."""
+    S = cfg.num_stages
+    # the backbone's (convs, firing convs, depthwise convs, pools)
+    conv, fire, dw, pool = {
+        "yolo": (2 * S, 2 * S, 0, 0),
+        "vgg": (2 * S, 2 * S, 0, S),
+        "mobilenet": (S + 1, 2 * S + 1, S, 0),
+        "densenet": (4 * S + 1, 4 * S + 1, 0, S)}[cfg.backbone]
+    # the head: head_conv fires, head_pred reads out
+    return {"spike_conv": conv + 2, "norm_affine_lif": fire + 1,
+            "spike_dwconv": dw, "max_pool": pool, "lif_scan": 1,
+            "spike_matmul": 1}
+
+
+def backbone_walk(cfg, bb, x, conv, pool, cat):
+    """The backbone's layers in the order its apply runs them (the
+    per-layer route): ``conv(name, p, x, stride, depthwise)`` per conv,
+    ``pool(name, x, window)`` per max-pool, DenseNet's concats through
+    ``cat`` (tests/test_torch_backbones.py holds this to the backbones'
+    own apply)."""
+    from repro_torch.core import backbones as BB
+    if cfg.backbone == "densenet":
+        x = conv("stem", bb["stem"], x, 1, False)
+        for s in range(cfg.num_stages):
+            feats = [x]
+            for i in range(BB.DENSE_LAYERS_PER_BLOCK):
+                name = f"b{s}_l{i}"
+                feats.append(conv(name, bb[name], cat(feats), 1, False))
+            x = pool(f"t{s}", conv(f"t{s}", bb[f"t{s}"], cat(feats), 1,
+                                   False), 2)
+        return x
+    specs = {"vgg": BB.vgg_specs, "mobilenet": BB.mobilenet_specs,
+             "yolo": BB.yolo_specs}[cfg.backbone](cfg)
+    for s in specs:
+        x = conv(s.name, bb[s.name], x, s.stride, s.depthwise)
+        if s.pool:
+            x = pool(s.name, x, s.pool)
+    return x
 
 
 def check(cond, msg):
@@ -188,6 +248,25 @@ class KernelStats:
         self.max_abs_err = max(self.max_abs_err, float(err))
         if library_ms is not None:
             self.library_ms = (self.library_ms or 0.0) + library_ms
+
+    def merge(self, other):
+        """Add ``other``'s launches to these."""
+        self.shapes += other.shapes
+        self.ms += other.ms
+        self.plain_ms += other.plain_ms
+        self.bound_ms += other.bound_ms
+        self.bytes_s += other.bytes_s
+        self.ops_s += other.ops_s
+        self.max_abs_err = max(self.max_abs_err, other.max_abs_err)
+        if other.library_ms is not None:
+            self.library_ms = (self.library_ms or 0.0) + other.library_ms
+        return self
+
+    def summary(self):
+        return {"launches": len(self.shapes), "ms": self.ms,
+                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "library_ms": self.library_ms,
+                "max_abs_err": self.max_abs_err}
 
     def row(self, name, launches):
         src, replaces = KERNELS[name]
@@ -256,20 +335,26 @@ def make_requests(cfg, rng):
 # ---------------------------------------------------------------------------
 
 def kernel_phase(params, cfg, vox):
+    """Every NPU kernel of ``cfg``'s forward on the main path's own
+    inputs, layer by layer: held to its plain version and timed."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.core import layers as L
-    from repro_torch.core.backbones import yolo_specs
     from repro_torch.core.lif import lif_scan as lif_plain
     from repro_torch.kernels.lif_scan import lif_scan
+    from repro_torch.kernels.max_pool import max_pool
     from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
+    from repro_torch.kernels.spike_dwconv import (spike_dwconv,
+                                                  tap_occupancy_mask)
     from repro_torch.kernels.spike_matmul import spike_matmul
 
     st = {k: KernelStats() for k in NPU_KERNELS}
     lif_kw = dict(tau=cfg.tau_mem, v_th=cfg.v_threshold, v_reset=cfg.v_reset)
     T, B = vox.shape[:2]
+    gemm_inputs = []
 
-    def conv(p, x, stride, name):
-        """spike_conv (+ norm_affine_lif when p fires) on x's patches."""
+    def gemm(p, x, stride, name):
+        """spike_conv on x's patches -> the conv output [T, B, ...]."""
         kh = p["w"].shape[0]
         xf = L.fold(x)
         patches, (Ho, Wo) = L.spike_im2col(xf, kh, kh, stride)
@@ -293,23 +378,99 @@ def kernel_phase(params, cfg, vox):
         print(f"  spike_conv {name:9s} M={M} K={K} N={N} live tiles "
               f"{int(occ.sum())}/{occ.numel()} max|err| "
               f"{float((y - y_ref).abs().max()):.3g}")
-        return L.unfold(y.reshape(B * T, Ho, Wo, N), T, B), patches, wmat
+        if len(gemm_inputs) < 2:
+            gemm_inputs.append((patches, wmat))
+        return L.unfold(y.reshape(B * T, Ho, Wo, N), T, B)
 
-    x = vox
-    f0_patches = None
-    for s in yolo_specs(cfg):
-        p = params["backbone"][s.name]
-        y5, patches, wmat = conv(p, x, s.stride, s.name)
-        if s.name == "f0":
-            f0_patches = (patches, wmat)
-        x = fire(p, y5, s.name, st, lif_kw)
-    feats = x
-    y5, _, _ = conv(params["head"]["conv"], feats, 1, "head_conv")
+    def dwconv(p, x, stride, name):
+        """spike_dwconv on x, bit-equal to the plain tap loop -> the conv
+        output [T, B, ...]."""
+        w = p["w"]
+        kh, kw = w.shape[:2]
+        xf = L.fold(x).contiguous()
+        y = spike_dwconv(xf, w, stride=stride)
+        y_ref = L.spike_conv(xf, w, stride=stride, depthwise=True)
+        # partly silent: the first half of the frames carry no spike
+        silent = xf.clone()
+        silent[: xf.shape[0] // 2] = 0
+        got_s = spike_dwconv(silent, w, stride=stride)
+        want_s = L.spike_conv(silent, w, stride=stride, depthwise=True)
+        torch.cuda.synchronize()
+        check(torch.equal(y, y_ref), f"spike_dwconv {name} is not bit-exact")
+        check(torch.equal(got_s, want_s),
+              f"spike_dwconv {name} is not bit-exact on a partly silent "
+              f"input")
+        N, H, W, C = xf.shape
+        taps, _ = L._patch_slices(xf, kh, kw, stride)
+        live = sum(int((t != 0).sum()) for t in taps)
+        occ = tap_occupancy_mask(L.dw_patches(xf, kh, kw, stride)[0])
+        occ_s = tap_occupancy_mask(L.dw_patches(silent, kh, kw, stride)[0])
+        # the yardstick: cuDNN's grouped conv on the pre-padded input,
+        # channels-last (TF32 off)
+        plo_h, phi_h, _ = L._same_pads(H, kh, stride)
+        plo_w, phi_w, _ = L._same_pads(W, kw, stride)
+        xp = F.pad(xf, (0, 0, plo_w, phi_w, plo_h, phi_h)).permute(0, 3, 1, 2)
+        wt = w.permute(3, 2, 0, 1).contiguous()
+
+        def library():
+            return F.conv2d(xp, wt, stride=stride, groups=C)
+        lib_err = float((library().permute(0, 2, 3, 1) - y_ref).abs().max())
+        check(lib_err <= 1e-4, f"spike_dwconv {name}: the library conv is "
+              f"{lib_err:.3g} away")
+        st["spike_dwconv"].add(
+            (N, H, W, C, stride),
+            time_ms(lambda: spike_dwconv(xf, w, stride=stride)),
+            time_ms(lambda: L.spike_conv(xf, w, stride=stride,
+                                         depthwise=True)),
+            (xf.numel() + y.numel() + w.numel()) * 4, 2.0 * live, 0.0,
+            library_ms=time_ms(library))
+        print(f"  spike_dwconv {name:7s} [N,H,W,C]={(N, H, W, C)} stride "
+              f"{stride}: bit-exact; live taps {live}/{kh * kw * y.numel()}, "
+              f"silent tap slabs {int((occ == 0).sum())}/{occ.numel()} "
+              f"(partly silent input: {int((occ_s == 0).sum())}, "
+              f"bit-exact)")
+        return L.unfold(y, T, B)
+
+    def conv(name, p, x, stride, depthwise):
+        y5 = (dwconv if depthwise else gemm)(p, x, stride, name)
+        return fire(p, y5, name, st, lif_kw)
+
+    def pool(name, x, window):
+        """max_pool, both gate modes equal to the plain version, also with
+        an all-silent frame; the gated mode is the main path's."""
+        xf = L.fold(x).contiguous()
+        silent = xf.clone()
+        silent[0] = 0
+        for label, inp in (("main path", xf), ("silent frame", silent)):
+            want = L.pool_slices(inp, window)
+            for gated in (True, False):
+                got = max_pool(inp, window=window, gated=gated)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"max_pool {name} ({label}, "
+                      f"gated={gated}) differs from its plain version")
+        y = max_pool(xf, window=window)
+        N, H, W, C = xf.shape
+        ho, wo = H // window, W // window
+        xn = xf.permute(0, 3, 1, 2)                 # channels-last NCHW
+        st["max_pool"].add(
+            (N, H, W, C),
+            time_ms(lambda: max_pool(xf, window=window)),
+            time_ms(lambda: L.pool_slices(xf, window)),
+            (N * ho * wo * window * window * C + y.numel()) * 4,
+            (window * window - 1) * int((y != 0).sum()), 0.0,
+            library_ms=time_ms(lambda: F.max_pool2d(xn, window)))
+        print(f"  max_pool {name:11s} [N,H,W,C]={(N, H, W, C)} window "
+              f"{window}: equal in both gate modes, silent frame included")
+        return L.unfold(y, T, B)
+
+    feats = backbone_walk(cfg, params["backbone"], vox, conv, pool,
+                          lambda fs: torch.cat(fs, dim=-1))
+    y5 = gemm(params["head"]["conv"], feats, 1, "head_conv")
     h = fire(params["head"]["conv"], y5, "head_conv", st, lif_kw)
-    conv(params["head"]["pred"], h, 1, "head_pred")
+    gemm(params["head"]["pred"], h, 1, "head_pred")
 
     # partly silent input: the first half of the frames carry no spike
-    patches, wmat = f0_patches
+    patches, wmat = gemm_inputs[-1]
     silent = patches.clone()
     silent[: silent.shape[0] // 2] = 0
     occ = occupancy_mask(silent)
@@ -653,10 +814,10 @@ def large_isp_line(dev):
 
 def layer_walk(params, cfg, plain_cfg, vox):
     """Every layer of the kernel path on the kernel path's own input,
-    held to the plain layer's currents on the same input."""
+    held to the plain layer's currents on the same input (a pool to the
+    plain pool, equal)."""
     import torch
     from repro_torch.core import layers as L
-    from repro_torch.core.backbones import yolo_specs
     from repro_torch.testing import spike_mismatch
 
     def held(name, got, z):
@@ -667,13 +828,21 @@ def layer_walk(params, cfg, plain_cfg, vox):
         print(f"  layer {name:11s} flipped {res['flipped']} "
               f"(near threshold {res['near']})")
 
-    x = vox
-    for s in yolo_specs(cfg):
-        p = params["backbone"][s.name]
-        out = L.apply_spiking_conv(p, x, cfg, stride=s.stride)
-        held(s.name, out, L.apply_spiking_conv(p, x, plain_cfg,
-                                               stride=s.stride, fire=False))
-        x = out
+    def conv(name, p, x, stride, depthwise):
+        kw = dict(stride=stride, depthwise=depthwise)
+        out = L.apply_spiking_conv(p, x, cfg, **kw)
+        held(name, out, L.apply_spiking_conv(p, x, plain_cfg, fire=False,
+                                             **kw))
+        return out
+
+    def pool(name, x, window):
+        out = L.max_pool(x, window, cfg)
+        check(torch.equal(out, L.max_pool(x, window, plain_cfg)),
+              f"pool after {name} differs from the plain pool")
+        return out
+
+    x = backbone_walk(cfg, params["backbone"], vox, conv, pool,
+                      lambda fs: torch.cat(fs, dim=-1))
     ph = params["head"]["conv"]
     h = L.apply_spiking_conv(ph, x, cfg)
     held("head_conv", h, L.apply_spiking_conv(ph, x, plain_cfg, fire=False))
@@ -720,7 +889,13 @@ def max_diff(a, b, field):
                      .max()) for k in a)
 
 
-def serve_phase(params, cfg, reqs, dev):
+def serve_phase(params, cfg, reqs, dev, archs):
+    """The engines answer the same requests: spiking-YOLO's four, then an
+    all-kernel and a plain engine per arch of ``archs`` (name -> (params,
+    cfg)).  Launch counts per engine, results checked and held to the
+    plain engines, each layer held to its plain version; then the tick
+    latency of spiking-YOLO's engines and the new all-kernel ones, in
+    turns."""
     import torch
     from repro_torch.configs.registry import ENCODING_CONFIGS, ISP_CONFIGS
     from repro_torch.core.encoding import voxel_batch
@@ -732,27 +907,36 @@ def serve_phase(params, cfg, reqs, dev):
         return [PerceptionRequest(rid=r.rid, voxels=r.voxels, bayer=r.bayer,
                                   events=r.events) for r in rs]
 
-    plain_cfg = dataclasses.replace(cfg, backend="torch")
+    def plain(c):
+        return dataclasses.replace(c, backend="torch")
+
+    def all_kernels(p, c, isp="cuda"):
+        return CognitiveEngine(p, c, isp_cfg=ISP_CONFIGS[isp],
+                               enc_cfg=ENCODING_CONFIGS["cuda"], batch=BATCH,
+                               device=dev)
+
+    tick_kernels = dict(event_voxel=1, demosaic=1, nlm=1)
+    npu = npu_launches_per_tick(cfg)
+    # name -> (engine, its kernel launches per tick)
     engines = {
-        "all_kernels": CognitiveEngine(
-            params, cfg, isp_cfg=ISP_CONFIGS["cuda"],
-            enc_cfg=ENCODING_CONFIGS["cuda"], batch=BATCH, device=dev),
-        "fused_isp": CognitiveEngine(
-            params, cfg, isp_cfg=ISP_CONFIGS["fused"],
-            enc_cfg=ENCODING_CONFIGS["cuda"], batch=BATCH, device=dev),
-        "snn_kernels": CognitiveEngine(params, cfg, batch=BATCH, device=dev),
-        "plain": CognitiveEngine(params, plain_cfg, batch=BATCH, device=dev),
+        "all_kernels": (all_kernels(params, cfg), dict(npu, **tick_kernels)),
+        "fused_isp": (all_kernels(params, cfg, isp="fused"),
+                      dict(npu, event_voxel=1, isp_stencil_segment=4)),
+        "snn_kernels": (CognitiveEngine(params, cfg, batch=BATCH,
+                                        device=dev), npu),
+        "plain": (CognitiveEngine(params, plain(cfg), batch=BATCH,
+                                  device=dev), {}),
     }
-    for eng in engines.values():
+    for arch, (p, c) in archs.items():
+        engines[arch] = (all_kernels(p, c),
+                         dict(npu_launches_per_tick(c), **tick_kernels))
+        engines[arch + "_plain"] = (
+            CognitiveEngine(p, plain(c), batch=BATCH, device=dev), {})
+    for eng, _ in engines.values():
         eng.run_to_completion(clone(reqs[BATCH:]))        # warm-up
 
-    npu = npu_launches_per_tick(cfg)
-    want_per_tick = {
-        "all_kernels": dict(npu, event_voxel=1, demosaic=1, nlm=1),
-        "fused_isp": dict(npu, event_voxel=1, isp_stencil_segment=4),
-        "snn_kernels": npu, "plain": {}}
     results, launches = {}, {}
-    for name, eng in engines.items():
+    for name, (eng, per_tick) in engines.items():
         ticks0 = eng.ticks
         build.reset_launches()                      # counts to 0 ...
         done = eng.run_to_completion(clone(reqs))
@@ -762,31 +946,41 @@ def serve_phase(params, cfg, reqs, dev):
         print(f"  {name}: served {len(done)} requests in {ticks} ticks; "
               f"launches {counts}")
         check_results(done, eng.cfg, eng.isp_cfg)
-        want = {k: n * ticks for k, n in want_per_tick[name].items()}
+        want = {k: n * ticks for k, n in per_tick.items() if n}
         check({k: v for k, v in counts.items() if v} == want,
               f"{name}: launches {counts}, want {want} ({ticks} ticks)")
         results[name] = {r.rid: r.result for r in done}
         launches[name] = counts
+    yolo_new = {(n, k): launches[n].get(k, 0) for n in
+                ("all_kernels", "fused_isp", "snn_kernels", "plain")
+                for k in ("spike_dwconv", "max_pool")}
+    check(not any(yolo_new.values()), "a spiking-YOLO engine launched "
+          f"spike_dwconv or max_pool: {yolo_new}")
 
     # each layer held to its plain version on the event-derived batch
     vox = voxel_batch(event_windows(reqs, dev), backend="cuda",
                       time_steps=cfg.time_steps, height=cfg.height,
                       width=cfg.width).contiguous()
-    layer_walk(params, cfg, plain_cfg, vox)
+    for arch, (p, c) in {"spiking_yolo": (params, cfg), **archs}.items():
+        print(f"  {arch}: every layer on the kernel path's own input")
+        layer_walk(p, c, plain(c), vox)
 
-    # end to end against the plain engine
+    # end to end against the plain engines
+    pairs = {"all_kernels": "plain", "fused_isp": "plain",
+             "snn_kernels": "plain", **{a: a + "_plain" for a in archs}}
     for f in ("raw_pred", "control", "rgb"):
-        d = {name: max_diff(results[name], results["plain"], f)
-             for name in ("all_kernels", "fused_isp", "snn_kernels")}
+        d = {name: max_diff(results[name], results[ref], f)
+             for name, ref in pairs.items()}
         print(f"  end-to-end max|kernel - plain| {f}: "
               + ", ".join(f"{k} {v:.3g}" for k, v in d.items()))
-        for name in ("all_kernels", "fused_isp"):
+        for name in ("all_kernels", "fused_isp", *archs):
             check(d[name] <= E2E_TOL, f"{name} {f} differs from plain by "
                   f"{d[name]:.3g}")
 
     # tick latency, the engines in turns on the same batches
-    lat = {name: [] for name in engines}
-    order = list(engines.items())
+    timed = ("all_kernels", "fused_isp", "snn_kernels", "plain", *archs)
+    lat = {name: [] for name in timed}
+    order = [(name, engines[name][0]) for name in timed]
     for i in range(LATENCY_TICKS):
         batch = reqs[(i % 2) * BATCH:(i % 2 + 1) * BATCH]
         k = i % len(order)
@@ -818,7 +1012,7 @@ def cognitive_phase(params, cfg, reqs, dev):
                       width=cfg.width).contiguous()
     bayer = torch.stack([torch.as_tensor(r.bayer) for r in reqs
                          if r.events is not None]).to(dev)
-    npu = npu_launches_per_tick(cfg)
+    npu = {k: n for k, n in npu_launches_per_tick(cfg).items() if n}
     per_stage = dict(npu, demosaic=1, nlm=1)
     runs = {
         "cognitive_forward": (
@@ -894,6 +1088,11 @@ def main() -> int:
     dev = torch.device("cuda")
     cfg = dataclasses.replace(SNN_ARCHS["spiking_yolo"], backend="cuda")
     params = init_npu(torch.Generator().manual_seed(0), cfg, device=dev)
+    archs = {}
+    for arch in NEW_ARCHS:
+        acfg = dataclasses.replace(SNN_ARCHS[arch], backend="cuda")
+        archs[arch] = (init_npu(torch.Generator().manual_seed(0), acfg,
+                                device=dev), acfg)
     reqs = make_requests(cfg, np.random.default_rng(0))
     vox = torch.stack([torch.as_tensor(r.voxels)
                        for r in reqs[:BATCH]], dim=1).to(dev)
@@ -904,29 +1103,52 @@ def main() -> int:
     st.update(tick_kernel_phase(params, cfg, reqs, dev))
     fused_st, preview_counts = fused_isp_phase(params, cfg, reqs, dev)
     st.update(fused_st)
+    arch_st = {"spiking_yolo": {k: st[k] for k in NPU_KERNELS}}
+    for arch, (p, acfg) in archs.items():
+        print(f"  --- {arch} (full width, batch {BATCH}), layer by layer")
+        arch_st[arch] = kernel_phase(p, acfg, vox)
+    # the new kernels' rows: spike_dwconv on MobileNet's forward, max_pool
+    # on VGG's and DenseNet's
+    st["spike_dwconv"] = arch_st["spiking_mobilenet"]["spike_dwconv"]
+    st["max_pool"] = KernelStats().merge(
+        arch_st["spiking_vgg"]["max_pool"]).merge(
+        arch_st["spiking_densenet"]["max_pool"])
     print("[4/6] timings (ms per tick, medians of CUDA-event runs)")
     for name, s in st.items():
         print(f"  {name}: kernel {s.ms:.4f} plain {s.plain_ms:.4f} "
               f"library {s.library_ms} bound {s.bound_ms:.4f} over "
               f"{len(s.shapes)} launches")
+    for arch, sts in arch_st.items():
+        for name, s in sts.items():
+            if s.shapes:
+                print(f"  {arch} {name}: kernel {s.ms:.4f} plain "
+                      f"{s.plain_ms:.4f} library {s.library_ms} bound "
+                      f"{s.bound_ms:.4f} over {len(s.shapes)} launches")
     large_isp_line(dev)
 
-    print("[5/6] serving: CognitiveEngine, full spiking_yolo; the "
-          "cognitive loop")
-    launches, latency = serve_phase(params, cfg, reqs, dev)
+    print("[5/6] serving: CognitiveEngine, full spiking_yolo and "
+          f"{', '.join(NEW_ARCHS)}; the cognitive loop")
+    launches, latency = serve_phase(params, cfg, reqs, dev, archs)
     cognitive_phase(params, cfg, reqs, dev)
 
     # launches from the main path that runs each kernel: the all-kernel
-    # engine, the fused-ISP engine, fast_preview fused
+    # engines, the fused-ISP engine, fast_preview fused
     path_launches = dict(launches["all_kernels"])
     path_launches["isp_stencil_segment"] = \
         launches["fused_isp"]["isp_stencil_segment"]
     path_launches["isp_pointwise_segment"] = \
         preview_counts["isp_pointwise_segment"]
+    path_launches["spike_dwconv"] = \
+        launches["spiking_mobilenet"]["spike_dwconv"]
+    path_launches["max_pool"] = (launches["spiking_vgg"]["max_pool"]
+                                 + launches["spiking_densenet"]["max_pool"])
     rows = [st[k].row(k, path_launches[k]) for k in KERNELS]
     print("[6/6] report")
     print(json.dumps({"serve": {"batch": BATCH, "requests": REQUESTS,
                                 "tick_latency": latency}}))
+    print(json.dumps({"arch_kernels": {
+        arch: {k: s.summary() for k, s in sts.items() if s.shapes}
+        for arch, sts in arch_st.items()}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

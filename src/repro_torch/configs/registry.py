@@ -1,5 +1,5 @@
 """Named configurations of the port, copied from the JAX package's
-``repro.configs.registry``: the paper's spiking-YOLO architecture, the
+``repro.configs.registry``: the paper's four spiking architectures, the
 ISP orderings and the event encodings.  The JAX ``"pallas"`` entries
 are ``"cuda"`` here, its ``"pallas_fused"`` ones ``"cuda_fused"``."""
 from __future__ import annotations
@@ -10,9 +10,14 @@ from typing import Dict
 from repro_torch.configs.base import (DEFAULT_ISP_STAGES, EncodingConfig,
                                       ISPConfig, SNNConfig)
 
-# The other three paper backbones (vgg, densenet, mobilenet) come with
-# the depthwise and max-pool ports.
 SNN_ARCHS: Dict[str, SNNConfig] = {
+    "spiking_vgg": SNNConfig(name="spiking_vgg", backbone="vgg",
+                             base_channels=32, num_stages=4),
+    "spiking_densenet": SNNConfig(name="spiking_densenet", backbone="densenet",
+                                  base_channels=24, num_stages=3),
+    "spiking_mobilenet": SNNConfig(name="spiking_mobilenet",
+                                   backbone="mobilenet",
+                                   base_channels=32, num_stages=4),
     "spiking_yolo": SNNConfig(name="spiking_yolo", backbone="yolo",
                               base_channels=32, num_stages=4),
 }

@@ -1,22 +1,24 @@
-"""Spiking layers (multi-step mode): conv and dense + LIF, the PyTorch
-counterpart of ``repro.core.layers``.
+"""Spiking layers (multi-step mode): conv, depthwise conv and dense +
+LIF, and max-pool, the PyTorch counterpart of ``repro.core.layers``.
 
 Layout: activations are [T, B, H, W, C]; a conv runs on the batch-major
 fold [B*T, H, W, C] (NHWC) with HWIO weights, exactly as the reference.
 Each conv lowers to the spike-im2col patch matrix and a matmul that
 accumulates K in 128-wide canonical blocks (``blocked_matmul``); the
 instance norm is the population variance over (T, HW) per (b, c), under
-``rsqrt(var + 1e-6)``.
+``rsqrt(var + 1e-6)``.  A depthwise conv ([kh, kw, 1, C] weights)
+accumulates its taps in order, ``acc + x_t * w[t]`` from +0.0, as the
+reference's tap loop.
 
 Backend dispatch (``SNNConfig.backend``): ``"torch"`` computes the plain
 formulation here; ``"cuda"`` routes a firing conv through
 ``repro_torch.kernels.ops.spike_conv_lif_op`` (gated spike-conv kernel +
-fused norm/affine/LIF kernel), a non-firing conv through
-``spike_conv_op``, dense firing through ``lif_scan_op`` and a
-spike-input dense through ``spike_matmul_op``.  On CPU tensors those ops
-take their kernels' plain versions, so both backends compute the same
-function.  Depthwise convs and max-pool come with the mobilenet/vgg
-slice.
+fused norm/affine/LIF kernel), a firing depthwise conv through
+``spike_dwconv_op`` then ``norm_affine_lif_op``, a non-firing conv
+through ``spike_conv_op``, dense firing through ``lif_scan_op``, a
+spike-input dense through ``spike_matmul_op`` and a max-pool through
+``max_pool_op``.  On CPU tensors those ops take their kernels' plain
+versions, so both backends compute the same function.
 """
 from __future__ import annotations
 
@@ -61,8 +63,13 @@ def conv_init(gen: torch.Generator, shape) -> torch.Tensor:
 
 
 def init_spiking_conv(gen: torch.Generator, cin: int, cout: int, *,
-                      kernel: int = 3):
-    return {"w": conv_init(gen, (kernel, kernel, cin, cout)),
+                      kernel: int = 3, depthwise: bool = False):
+    """HWIO weights [k, k, cin, cout] with per-channel scale/bias; a
+    depthwise conv has [k, k, 1, cin] and ``cin`` channels out."""
+    if depthwise:
+        cout = cin
+    shape = (kernel, kernel, 1 if depthwise else cin, cout)
+    return {"w": conv_init(gen, shape),
             "scale": torch.ones(cout), "bias": torch.zeros(cout)}
 
 
@@ -116,11 +123,30 @@ def spike_im2col(xf: torch.Tensor, kh: int, kw: int, stride: int = 1):
     return p.reshape(N * Ho * Wo, kh * kw * C), (Ho, Wo)
 
 
-def spike_conv(xf: torch.Tensor, w: torch.Tensor, *,
-               stride: int = 1) -> torch.Tensor:
-    """Plain conv in the kernel's formulation: xf [N, H, W, C], w HWIO
-    [kh, kw, cin, cout] -> [N, Ho, Wo, cout], SAME padding."""
+def dw_patches(xf: torch.Tensor, kh: int, kw: int, stride: int = 1):
+    """Depthwise form of the patches: [N*Ho*Wo, kh*kw, C] (channels stay
+    per tap)."""
+    taps, (Ho, Wo) = _patch_slices(xf, kh, kw, stride)
+    N, _, _, C = xf.shape
+    p = torch.stack(taps, dim=3)
+    return p.reshape(N * Ho * Wo, kh * kw, C), (Ho, Wo)
+
+
+def spike_conv(xf: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+               depthwise: bool = False) -> torch.Tensor:
+    """Plain conv in the kernels' formulation: xf [N, H, W, C], w HWIO
+    [kh, kw, cin, cout] (depthwise: [kh, kw, 1, C]) -> [N, Ho, Wo, cout],
+    SAME padding.  Depthwise sums its taps in (kh, kw)-major order from
+    +0.0, one multiply and one add per tap."""
     kh, kw = w.shape[:2]
+    if depthwise:
+        taps, (Ho, Wo) = _patch_slices(xf, kh, kw, stride)
+        wf = w.reshape(kh * kw, -1)
+        acc = torch.zeros((xf.shape[0], Ho, Wo, xf.shape[-1]),
+                          dtype=torch.float32, device=xf.device)
+        for t, xt in enumerate(taps):
+            acc = acc + xt * wf[t]
+        return acc
     patches, (Ho, Wo) = spike_im2col(xf, kh, kw, stride)
     wmat = w.reshape(kh * kw * w.shape[2], w.shape[3])
     return blocked_matmul(patches, wmat).reshape(xf.shape[0], Ho, Wo, -1)
@@ -148,34 +174,43 @@ def unfold(y: torch.Tensor, T: int, B: int) -> torch.Tensor:
 
 
 def apply_spiking_conv(p, x, cfg: SNNConfig, *, stride: int = 1,
-                       fire: bool = True, tape=None,
-                       tag: Optional[str] = None):
-    """x: [T, B, H, W, C] -> conv, instance norm, affine, then spikes
-    [T, B, H', W', C'] (or, with ``fire=False``, the normalised analog
-    currents of a readout)."""
+                       depthwise: bool = False, fire: bool = True,
+                       tape=None, tag: Optional[str] = None):
+    """x: [T, B, H, W, C] -> conv (depthwise with ``depthwise``),
+    instance norm, affine, then spikes [T, B, H', W', C'] (or, with
+    ``fire=False``, the normalised analog currents of a readout)."""
     T, B = x.shape[:2]
     use_kernels = _check_backend(cfg)
     xf = fold(x)
-    if use_kernels and fire:
+    if use_kernels and fire and not depthwise:
         from repro_torch.kernels.ops import spike_conv_lif_op
         out = spike_conv_lif_op(xf, p["w"], p["scale"], p["bias"], T=T,
                                 B=B, stride=stride, tau=cfg.tau_mem,
                                 v_th=cfg.v_threshold, v_reset=cfg.v_reset)
-        if tape is not None:
-            tape.record(tag or f"conv{len(tape.records)}", out)
-        return out
+        return _record(tape, tag, out)
     if use_kernels:
-        from repro_torch.kernels.ops import spike_conv_op
-        y = spike_conv_op(xf, p["w"], stride=stride)
+        from repro_torch.kernels.ops import spike_conv_op, spike_dwconv_op
+        op = spike_dwconv_op if depthwise else spike_conv_op
+        y = unfold(op(xf, p["w"], stride=stride), T, B)
+        if fire:
+            # the depthwise epilogue: the fused norm+affine+LIF kernel
+            from repro_torch.kernels.ops import norm_affine_lif_op
+            out = norm_affine_lif_op(y, p["scale"], p["bias"],
+                                     tau=cfg.tau_mem, v_th=cfg.v_threshold,
+                                     v_reset=cfg.v_reset)
+            return _record(tape, tag, out)
     else:
-        y = spike_conv(xf, p["w"], stride=stride)
-    _, Ho, Wo, Co = y.shape
-    y = unfold(y, T, B)
+        y = unfold(spike_conv(xf, p["w"], stride=stride,
+                              depthwise=depthwise), T, B)
+    _, _, Ho, Wo, Co = y.shape
     y = instance_norm_affine(y.reshape(T, B, Ho * Wo, Co), p["scale"],
                              p["bias"]).reshape(y.shape)
     if not fire:
         return y
-    out = _fire(y, cfg)
+    return _record(tape, tag, _fire(y, cfg))
+
+
+def _record(tape, tag: Optional[str], out: torch.Tensor) -> torch.Tensor:
     if tape is not None:
         tape.record(tag or f"conv{len(tape.records)}", out)
     return out
@@ -200,3 +235,33 @@ def apply_spiking_dense(p, x, cfg: SNNConfig, *, fire: bool = True,
     if tape is not None:
         tape.record(tag or f"dense{len(tape.records)}", out)
     return out
+
+
+def pool_slices(xf: torch.Tensor, window: int) -> torch.Tensor:
+    """Plain max-pool of xf [N, H, W, C] -> [N, H//window, W//window, C]:
+    the elementwise max of the window's strided slices, taken in
+    (row, column) order (VALID, stride = window; a ragged tail is
+    dropped)."""
+    _, H, W, _ = xf.shape
+    ho, wo = H // window, W // window
+    out = None
+    for di in range(window):
+        for dj in range(window):
+            s = xf[:, di:ho * window:window, dj:wo * window:window, :]
+            out = s if out is None else torch.maximum(out, s)
+    return out
+
+
+def max_pool(x: torch.Tensor, window: int = 2,
+             cfg: Optional[SNNConfig] = None) -> torch.Tensor:
+    """x: [T, B, H, W, C] -> [T, B, H//window, W//window, C] on the
+    batch-major fold; through the gated pooling kernel
+    (``max_pool_op``) under a ``"cuda"`` cfg."""
+    T, B = x.shape[:2]
+    xf = fold(x)
+    if cfg is not None and _check_backend(cfg):
+        from repro_torch.kernels.ops import max_pool_op
+        y = max_pool_op(xf, window=window)
+    else:
+        y = pool_slices(xf, window)
+    return unfold(y, T, B)

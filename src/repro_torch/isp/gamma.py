@@ -14,6 +14,17 @@ _RGB2YCBCR = torch.tensor([[0.299, 0.587, 0.114],
                            [-0.168736, -0.331264, 0.5],
                            [0.5, -0.418688, -0.081312]], dtype=torch.float32)
 _YCC_OFFSET = torch.tensor([0.0, 0.5, 0.5], dtype=torch.float32)
+_YCBCR_INV = torch.linalg.inv(_RGB2YCBCR)
+
+
+@functools.lru_cache(maxsize=None)
+def _ycc_consts(device=None):
+    """(the BT.601 matrix, its inverse, the chroma offset) on ``device``,
+    copied there once per device (constants: callers do not modify
+    them), so a tick copies nothing from the host for them.  The inverse
+    is taken once, in float32 on the host."""
+    return tuple(c.to(device) for c in (_RGB2YCBCR, _YCBCR_INV,
+                                        _YCC_OFFSET))
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,13 +63,13 @@ def apply_gamma(rgb: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
 
 
 def rgb_to_ycbcr(rgb: torch.Tensor) -> torch.Tensor:
-    m = _RGB2YCBCR.to(rgb.device)
-    return torch.einsum("...c,dc->...d", rgb, m) + _YCC_OFFSET.to(rgb.device)
+    m, _, off = _ycc_consts(rgb.device)
+    return torch.einsum("...c,dc->...d", rgb, m) + off
 
 
 def ycbcr_to_rgb(ycc: torch.Tensor) -> torch.Tensor:
-    ycc = ycc - _YCC_OFFSET.to(ycc.device)
-    inv = torch.linalg.inv(_RGB2YCBCR).to(ycc.device)
+    _, inv, off = _ycc_consts(ycc.device)
+    ycc = ycc - off
     return torch.clamp(torch.einsum("...c,dc->...d", ycc, inv), 0.0, 1.0)
 
 
@@ -77,7 +88,7 @@ SHARPEN_RADIUS = 1   # 5-point cross blur on the luma plane
 
 # The array constants of the windowed form, passed to the fused segment
 # as inputs: the BT.601 matrix, the chroma offset and its inverse.
-SHARPEN_CONSTS = (_RGB2YCBCR, _YCC_OFFSET, torch.linalg.inv(_RGB2YCBCR))
+SHARPEN_CONSTS = (_RGB2YCBCR, _YCC_OFFSET, _YCBCR_INV)
 
 
 def sharpen_window(win: torch.Tensor, p, *, bh: int, bw: int,

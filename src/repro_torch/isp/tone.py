@@ -2,12 +2,20 @@
 ``repro.isp.tone`` (registry extensions, not in the default ordering)."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.isp._util import bcast
 from repro_torch.isp.gamma import _RGB2YCBCR
 
 _LUMA = _RGB2YCBCR[0]                                    # BT.601 luma row
+
+
+@functools.lru_cache(maxsize=None)
+def _luma_row(device=None) -> torch.Tensor:
+    """The luma row on ``device``, copied there once per device."""
+    return _LUMA.to(device)
 
 
 def reinhard_tonemap(rgb: torch.Tensor, strength) -> torch.Tensor:
@@ -18,16 +26,16 @@ def reinhard_tonemap(rgb: torch.Tensor, strength) -> torch.Tensor:
 
 
 def _luma(rgb: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
-    """rgb [..., 3] . row [3] summed left to right, [..., 1] (an order
-    the fused CUDA kernel replays; an einsum's GEMM sums in its own)."""
-    row = row.to(rgb.device)
+    """rgb [..., 3] . row [3] (on rgb's device) summed left to right,
+    [..., 1] (an order the fused CUDA kernel replays; an einsum's GEMM
+    sums in its own)."""
     return (rgb[..., 0] * row[0] + rgb[..., 1] * row[1]
             + rgb[..., 2] * row[2])[..., None]
 
 
 def apply_saturation(rgb: torch.Tensor, saturation) -> torch.Tensor:
     """Luma-preserving saturation: 1 is identity, 0 greyscale."""
-    lum = _luma(rgb, _LUMA)
+    lum = _luma(rgb, _luma_row(rgb.device))
     return torch.clamp(lum + bcast(saturation, rgb) * (rgb - lum), 0.0, 1.0)
 
 

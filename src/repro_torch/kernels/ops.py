@@ -15,7 +15,9 @@ import torch
 
 from repro_torch.core.layers import spike_im2col, unfold
 from repro_torch.kernels.lif_scan import lif_scan, norm_affine_lif
+from repro_torch.kernels.max_pool import max_pool
 from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
+from repro_torch.kernels.spike_dwconv import spike_dwconv
 from repro_torch.kernels.spike_matmul import spike_matmul
 
 
@@ -30,6 +32,21 @@ def spike_conv_op(xf: torch.Tensor, w: torch.Tensor, *,
     wmat = w.reshape(kh * kw * w.shape[2], w.shape[3]).contiguous()
     y = spike_conv(patches, wmat, occupancy_mask(patches))
     return y.reshape(xf.shape[0], Ho, Wo, -1)
+
+
+def spike_dwconv_op(xf: torch.Tensor, w: torch.Tensor, *,
+                    stride: int = 1) -> torch.Tensor:
+    """Activity-gated depthwise conv.  xf [N, H, W, C] folded spikes, w
+    [kh, kw, 1, C] -> [N, Ho, Wo, C], SAME padding; the kernel reads xf
+    itself (no patch tensor)."""
+    return spike_dwconv(xf.contiguous(), w.contiguous(), stride=stride)
+
+
+def max_pool_op(xf: torch.Tensor, *, window: int = 2,
+                gated: bool = True) -> torch.Tensor:
+    """Gated max-pool of a folded [N, H, W, C] spike tensor ->
+    [N, H//window, W//window, C], VALID, stride = window."""
+    return max_pool(xf.contiguous(), window=window, gated=gated)
 
 
 def norm_affine_lif_op(y: torch.Tensor, scale, bias, *, tau: float = 2.0,

@@ -1,10 +1,13 @@
 """Profile the serving tick on the card: where a tick's time goes.
 
-    python -m repro_torch.profile_tick [--ticks 20] [--batch 8] [--backend cuda]
-        [--enc-backend torch|cuda] [--isp-backend torch|cuda|cuda_fused]
+    python -m repro_torch.profile_tick [--arch spiking_yolo] [--ticks 20]
+        [--batch 8] [--backend cuda] [--enc-backend torch|cuda]
+        [--isp-backend torch|cuda|cuda_fused]
 
-Serves full-width spiking-YOLO (seeded random weights, random voxel
-windows and Bayer frames) through ``CognitiveEngine`` — the SNN layers
+Serves one of the paper's four backbones at full width (``--arch``, a
+name of ``SNN_ARCHS``: spiking_yolo, spiking_vgg, spiking_mobilenet or
+spiking_densenet; seeded random weights, random voxel windows and Bayer
+frames) through ``CognitiveEngine`` — the SNN layers
 on ``--backend``, the event encoding on ``--enc-backend`` and the ISP on
 ``--isp-backend`` (``cuda`` for all three is the all-kernel tick;
 ``cuda_fused`` runs the ISP as the fusion plan's segment kernels) — and
@@ -54,6 +57,8 @@ def _requests(cfg, batch, rng):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="spiking_yolo",
+                    choices=sorted(SNN_ARCHS))
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"))
@@ -65,7 +70,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_tick: needs a CUDA device")
 
-    cfg = dataclasses.replace(SNN_ARCHS["spiking_yolo"], backend=args.backend)
+    cfg = dataclasses.replace(SNN_ARCHS[args.arch], backend=args.backend)
     params = init_npu(torch.Generator().manual_seed(args.seed), cfg)
     eng = CognitiveEngine(
         params, cfg, batch=args.batch,
@@ -106,9 +111,9 @@ def main(argv=None) -> int:
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / n / 1e3)
     wall_ms = total_s / n * 1e3
-    print(f"backend {args.backend} (encoding {args.enc_backend}, ISP "
-          f"{args.isp_backend}), batch {args.batch}, {n} ticks, "
-          f"{torch.cuda.get_device_name(0)}")
+    print(f"{args.arch}, backend {args.backend} (encoding "
+          f"{args.enc_backend}, ISP {args.isp_backend}), batch "
+          f"{args.batch}, {n} ticks, {torch.cuda.get_device_name(0)}")
     print(f"tick wall p50 {statistics.median(walls) * 1e3:.3f} ms; "
           f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
           f"({len(dev) / n:.0f} device ops per tick; {attributed_ms:.3f} ms "
@@ -119,8 +124,9 @@ def main(argv=None) -> int:
     for name, ms in top:
         print(f"  device {ms:8.4f} ms  {name[:90]}")
     print(json.dumps({
-        "backend": args.backend, "enc_backend": args.enc_backend,
-        "isp_backend": args.isp_backend, "batch": args.batch, "ticks": n,
+        "arch": args.arch, "backend": args.backend,
+        "enc_backend": args.enc_backend, "isp_backend": args.isp_backend,
+        "batch": args.batch, "ticks": n,
         "device": torch.cuda.get_device_name(0),
         "tick_wall_p50_ms": statistics.median(walls) * 1e3,
         "wall_ms_per_tick": wall_ms, "device_busy_ms_per_tick": busy_ms,

@@ -13,7 +13,10 @@ are bit-exact (equal); NLM is held at atol 1e-6, its exp and the plain
 version's may differ in the last bit.  The fused ISP segments replay
 their plain versions op for op (equal for [exposure+dpc], [demosaic] and
 [awb*+gamma]); sharpen's colour matrices are einsums on the plain side,
-summed in another order, and NLM has its exp (atol 1e-6).
+summed in another order, and NLM has its exp (atol 1e-6).  The
+depthwise conv replays the plain tap loop's roundings (equal, on spikes
+and on real values) and the max-pool has no rounding (equal, both gate
+modes).
 """
 import numpy as np
 import pytest
@@ -22,7 +25,8 @@ import torch
 from repro_torch.core.encoding import (OOB_POLICIES, VOXEL_MODES,
                                        EventStream, events_to_voxel_batch)
 from repro_torch.configs.registry import ISP_CONFIGS
-from repro_torch.core.layers import instance_norm_affine, spike_im2col
+from repro_torch.core.layers import (instance_norm_affine, pool_slices,
+                                     spike_conv as conv_plain, spike_im2col)
 from repro_torch.isp.demosaic import demosaic_mhc
 from repro_torch.isp.fuse import compile_plan, segment_call
 from repro_torch.isp.nlm import nlm_denoise
@@ -31,8 +35,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.demosaic import demosaic
 from repro_torch.kernels.event_voxel import event_voxel
 from repro_torch.kernels.lif_scan import lif_scan, norm_affine_lif
+from repro_torch.kernels.max_pool import max_pool
 from repro_torch.kernels.nlm import nlm
 from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
+from repro_torch.kernels.spike_dwconv import spike_dwconv
 from repro_torch.kernels.spike_matmul import spike_matmul
 from repro_torch.testing import spike_mismatch
 
@@ -103,6 +109,51 @@ def test_spike_conv_matches_plain(dev, case):
     got = spike_conv(patches, wmat, occ)
     want = spike_conv(patches.cpu(), wmat.cpu(), occ.cpu())
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+
+
+# (N, H, W, C, stride, density, silent frames)
+DW_CASES = {
+    "mobilenet_dw0": (40, 64, 64, 32, 2, 0.2, 0),
+    "odd_ragged": (3, 17, 15, 33, 2, 0.3, 0),
+    "stride1_wide": (4, 9, 10, 256, 1, 0.1, 0),
+    "partly_silent": (6, 16, 16, 24, 2, 0.3, 4),
+    "all_silent": (2, 8, 8, 8, 1, 0.0, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DW_CASES))
+def test_spike_dwconv_bitexact(dev, case):
+    n, h, w_, c, stride, dens, silent = DW_CASES[case]
+    rng = np.random.default_rng(len(case) + c)
+    w = torch.tensor(rng.normal(0, 0.5, (3, 3, 1, c)).astype(np.float32),
+                     device=dev)
+    spikes = _spikes(rng, (n, h, w_, c), dens, silent).to(dev)
+    real = torch.tensor(rng.normal(0, 1, (n, h, w_, c)).astype(np.float32),
+                        device=dev)
+    for x in (spikes, real):
+        got = spike_dwconv(x, w, stride=stride)
+        want = conv_plain(x, w, stride=stride, depthwise=True)
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), conv_plain(x.cpu(), w.cpu(),
+                                                 stride=stride,
+                                                 depthwise=True))
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("shape,density", [((40, 32, 32, 64), 0.2),
+                                           ((3, 9, 7, 33), 0.3),
+                                           ((5, 16, 16, 66), 0.0),
+                                           ((4, 8, 8, 24), 1.0)])
+def test_max_pool_matches_plain(dev, shape, density, gated):
+    rng = np.random.default_rng(shape[3])
+    x = _spikes(rng, shape, density, silent_rows=1).to(dev)
+    assert torch.equal(max_pool(x, window=2, gated=gated), pool_slices(x, 2))
+    real = torch.tensor(rng.normal(0, 1, shape).astype(np.float32),
+                        device=dev)
+    assert torch.equal(max_pool(real, window=2, gated=gated),
+                       pool_slices(real, 2))
+    assert torch.equal(max_pool(real, window=3, gated=gated),
+                       pool_slices(real, 3))
 
 
 @pytest.mark.parametrize("M,K,N,density", [(40, 64, 8, 0.3), (40, 64, 8, 0.0),
@@ -221,8 +272,15 @@ def test_launch_counters(dev):
         kernel, plain, args, kw = segment_call(ex, raw, None)
         raw = kernel(*args, **kw)
         plain(*args, **kw)                  # plain: no launch
+    xf = torch.ones(2, 8, 8, 4, device=dev)
+    spike_dwconv(xf, torch.ones(3, 3, 1, 4, device=dev), stride=2)
+    spike_dwconv(xf.cpu(), torch.ones(3, 3, 1, 4), stride=2)   # plain
+    max_pool(xf, gated=True)
+    max_pool(xf, gated=False)
+    max_pool(xf.cpu())                                      # plain
     torch.cuda.synchronize()
     assert build.LAUNCHES == {"lif_scan": 1, "spike_matmul": 1,
                               "event_voxel": 1, "demosaic": 1, "nlm": 1,
                               "isp_stencil_segment": 2,
-                              "isp_pointwise_segment": 1}
+                              "isp_pointwise_segment": 1,
+                              "spike_dwconv": 1, "max_pool": 2}

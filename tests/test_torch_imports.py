@@ -31,7 +31,8 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     for m in ("serve.cognitive_engine", "core.cognitive",
               "kernels.event_voxel", "kernels.demosaic", "kernels.nlm",
-              "kernels.isp_fused", "isp.fuse"):
+              "kernels.isp_fused", "isp.fuse", "kernels.spike_dwconv",
+              "kernels.max_pool", "core.backbones"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

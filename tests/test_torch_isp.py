@@ -114,6 +114,46 @@ def test_demosaic_constants_pinned():
                                   np.asarray(jnp.linspace(0.0, 1.0, 256)))
 
 
+def test_ycbcr_and_luma_constants_built_once_per_device(monkeypatch):
+    """rgb_to_ycbcr, ycbcr_to_rgb and apply_saturation take their
+    constants from a per-device cache: built once per device (no
+    inverse and no host copy per call), with the bits of the per-call
+    forms they replace."""
+    from repro_torch.isp import tone
+    rng = np.random.default_rng(9)
+    rgb = torch.tensor(rng.uniform(0, 1, (2, 8, 8, 3)).astype(np.float32))
+    m, off = gamma._RGB2YCBCR, gamma._YCC_OFFSET
+    inv = torch.linalg.inv(m)
+    want_ycc = torch.einsum("...c,dc->...d", rgb, m) + off
+    want_rgb = torch.clamp(torch.einsum("...c,dc->...d", want_ycc - off,
+                                        inv), 0.0, 1.0)
+    lum = (rgb[..., 0] * m[0, 0] + rgb[..., 1] * m[0, 1]
+           + rgb[..., 2] * m[0, 2])[..., None]
+    want_sat = torch.clamp(lum + 0.7 * (rgb - lum), 0.0, 1.0)
+
+    gamma._ycc_consts.cache_clear()
+    tone._luma_row.cache_clear()
+    got = [gamma.rgb_to_ycbcr(rgb), gamma.ycbcr_to_rgb(want_ycc),
+           tone.apply_saturation(rgb, 0.7)]
+    assert gamma._ycc_consts.cache_info().misses == 1
+    assert tone._luma_row.cache_info().misses == 1
+
+    def no_inverse(*a, **k):
+        raise AssertionError("inverse taken again")
+    monkeypatch.setattr(torch.linalg, "inv", no_inverse)
+    for _ in range(3):
+        got = [gamma.rgb_to_ycbcr(rgb), gamma.ycbcr_to_rgb(want_ycc),
+               tone.apply_saturation(rgb, 0.7)]
+    assert gamma._ycc_consts.cache_info().misses == 1
+    assert gamma._ycc_consts.cache_info().hits == 7
+    assert tone._luma_row.cache_info().misses == 1
+    for g, w in zip(got, (want_ycc, want_rgb, want_sat)):
+        assert torch.equal(g, w)
+    assert gamma._ycc_consts(rgb.device) is gamma._ycc_consts(rgb.device)
+    np.testing.assert_array_equal(gamma._ycc_consts(rgb.device)[1].numpy(),
+                                  gamma.SHARPEN_CONSTS[2].numpy())
+
+
 def test_stage_order_and_params_are_checked():
     with pytest.raises(ValueError):
         stages.run_stages(torch.zeros(1, 8, 8), None, ("gamma", "demosaic"))
