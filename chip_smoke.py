@@ -18,10 +18,17 @@ Phases (any failure raises and exits non-zero):
              spike_matmul allclose atol=1e-4 rtol=1e-5, lif_scan equal,
              norm_affine_lif spikes equal except where the plain membrane
              lies within 1e-4 of v_th; spike_conv also on a partly silent
-             patch matrix so the tile skip runs.  Then the all-kernel
+             patch matrix so the tile skip runs; on every firing conv
+             the fused spike_conv_lif under each gate ("mask", "inline",
+             "none") on the layer's own patches and on a copy whose first
+             half of the batch is silent, its spikes equal to the per-op
+             kernel pair's and its plain version's except where the
+             per-op membrane lies within 1e-4 of v_th (flips and the
+             band's size printed).  Then the all-kernel
              tick's own encode and ISP inputs: event_voxel equal to its
              plain version in every mode x oob policy on the 8 event
-             windows of the request set, and the ISP walked stage by
+             windows of the request set, and again with NaN, +-inf and
+             +-1e10 timestamps, and the ISP walked stage by
              stage with the stage params of the kernel NPU's control
              vector: demosaic equal, nlm within 1e-6 (max |err| printed).
              Then the fused ISP backend ("cuda_fused") on the same frames,
@@ -34,8 +41,9 @@ Phases (any failure raises and exits non-zero):
              1e-6; again on an [8, 512, 512] batch with control vectors
              drawn in [0, 1); and the fast_preview ordering fused through
              control_vector_pipeline_batch, with its launches counted.
-             Then the same layer walk for full-width spiking MobileNet,
-             VGG and DenseNet (the paper's other backbones; same voxels):
+             Then the same layer walk (spike_conv_lif included) for
+             full-width spiking MobileNet, VGG and DenseNet (the paper's
+             other backbones; same voxels):
              spike_dwconv equal to its plain tap loop on each depthwise
              layer's input and on a partly silent copy, max_pool equal to
              its plain version in both gate modes on each pool's input
@@ -46,23 +54,34 @@ Phases (any failure raises and exits non-zero):
              PyTorch call where it computes the same function:
              torch.matmul for the GEMMs, cuDNN's grouped conv on the
              pre-padded channels-last input for spike_dwconv,
-             F.max_pool2d for max_pool), and the least time the card could
+             F.max_pool2d for max_pool; none for spike_conv_lif, printed
+             beside the per-op kernel pair's time instead), and the least
+             time the card could
              take for the same work (bytes at 3.35 TB/s, fp32 operations
              at 67 TFLOP/s, this run's data), per backbone;
              isp_stencil_segment over the fused default plan's four
              segments, isp_pointwise_segment on fast_preview's
              [awb*+gamma]; plus demosaic, nlm and the fused segments on an
              [8, 512, 512] batch.  The kernels line takes the NPU rows
-             from spiking-YOLO's tick, spike_dwconv from MobileNet's and
-             max_pool from VGG's plus DenseNet's;
-5. serve   — CognitiveEngines (batch 8, seeded random weights) answer the
+             from spiking-YOLO's tick (spike_conv_lif at every firing conv,
+             as its forced-fused tick runs it), spike_dwconv from
+             MobileNet's and max_pool from VGG's plus DenseNet's;
+5. serve   — first the launch table: per arch one eager npu_forward at
+             batch 8 under tune.tuning with the "smoke" sweep policy,
+             every conv_lif key printed with its winner, its us and the
+             default's, and the host time of one eager launch.  Then
+             CognitiveEngines (batch 8, seeded random weights) answer the
              same 16 requests, 8 voxel windows and 8 raw event buffers.
              Full spiking_yolo through four: the all-kernel engine
              (encoding, SNN and ISP on their kernels), the fused-ISP
              engine (the same with ISP_CONFIGS["fused"]), the SNN-kernel
              engine (torch encoding and ISP) and the plain engine; then
              full spiking_mobilenet, spiking_vgg and spiking_densenet,
-             each through an all-kernel and a plain engine.  Each runs
+             each through an all-kernel and a plain engine; and per arch
+             an all-kernel engine built under a forced-fused table (every
+             firing non-depthwise conv on spike_conv_lif: 9 YOLO, 9 VGG,
+             6 MobileNet, 14 DenseNet launches a tick) and one under the
+             swept table.  Each runs
              with the launch counters set to 0 just before it and read
              just after, against npu_launches_per_tick per backbone:
              the all-kernel engines must show every per-stage kernel's
@@ -79,7 +98,8 @@ Phases (any failure raises and exits non-zero):
              (cognitive_forward on the "cuda" and "fused" ISP configs,
              cognitive_step(use_cuda=True)) against its plain run at the
              same bars; then the tick latency (p50, p90) of spiking-YOLO's
-             four engines and the three new all-kernel engines, in turns;
+             four engines and every other all-kernel engine (untuned,
+             forced-fused, swept), in turns;
 6. report  — one JSON line of per-kernel numbers, the card line, and
              the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -116,6 +136,8 @@ SPIN_CYCLES_PER_S = 2e9         # ~ the H100's SM clock, for the spin kernel
 KERNELS = {
     "spike_conv": ("src/repro_torch/kernels/csrc/spike_conv.cu",
                    "src/repro/kernels/spike_conv.py:126"),
+    "spike_conv_lif": ("src/repro_torch/kernels/csrc/spike_conv_lif.cu",
+                       "src/repro/kernels/spike_conv.py:260"),
     "norm_affine_lif": ("src/repro_torch/kernels/csrc/norm_affine_lif.cu",
                         "src/repro/kernels/lif_scan.py:142"),
     "lif_scan": ("src/repro_torch/kernels/csrc/lif_scan.cu",
@@ -137,8 +159,10 @@ KERNELS = {
     "max_pool": ("src/repro_torch/kernels/csrc/max_pool.cu",
                  "src/repro/kernels/backbone_fuse.py:509"),
 }
-NPU_KERNELS = ("spike_conv", "norm_affine_lif", "lif_scan", "spike_matmul",
-               "spike_dwconv", "max_pool")
+NPU_KERNELS = ("spike_conv", "spike_conv_lif", "norm_affine_lif", "lif_scan",
+               "spike_matmul", "spike_dwconv", "max_pool")
+# timestamps the reference bins by XLA's saturating float -> int32 cast
+NONFINITE_T = (float("nan"), float("inf"), float("-inf"), 1e10, -1e10)
 # the paper's other three backbones, served beside spiking-YOLO
 NEW_ARCHS = ("spiking_mobilenet", "spiking_vgg", "spiking_densenet")
 TICK_KERNELS = ("event_voxel", "demosaic", "nlm")
@@ -154,9 +178,11 @@ SEGMENT_OPS = {"exposure": 9, "awb": 24, "gamma": 21, "tonemap": 17,
                "ccm": 20, "dpc": 48, "demosaic": 44, "sharpen": 46}
 
 
-def npu_launches_per_tick(cfg):
-    """Kernel launches of one ``npu_forward`` on the "cuda" backend
-    (tests/test_torch_backbones.py holds this to the code)."""
+def npu_launches_per_tick(cfg, fused=0):
+    """Kernel launches of one ``npu_forward`` on the "cuda" backend, with
+    ``fused`` of its firing non-depthwise convs on the fused conv->LIF
+    kernel and the rest on the per-op pair (tests/test_torch_backbones.py
+    and tests/test_torch_conv_lif.py hold this to the code)."""
     S = cfg.num_stages
     # the backbone's (convs, firing convs, depthwise convs, pools)
     conv, fire, dw, pool = {
@@ -165,9 +191,46 @@ def npu_launches_per_tick(cfg):
         "mobilenet": (S + 1, 2 * S + 1, S, 0),
         "densenet": (4 * S + 1, 4 * S + 1, 0, S)}[cfg.backbone]
     # the head: head_conv fires, head_pred reads out
-    return {"spike_conv": conv + 2, "norm_affine_lif": fire + 1,
-            "spike_dwconv": dw, "max_pool": pool, "lif_scan": 1,
-            "spike_matmul": 1}
+    out = {"spike_conv": conv + 2 - fused, "norm_affine_lif": fire + 1 - fused,
+           "spike_dwconv": dw, "max_pool": pool, "lif_scan": 1,
+           "spike_matmul": 1}
+    if fused:
+        out["spike_conv_lif"] = fused
+    return out
+
+
+def conv_lif_dims(params, cfg, batch):
+    """The launch-table dims (T, B, HW, K, N) of every firing
+    non-depthwise conv of one forward, in order (the backbone's, then
+    head_conv): each one ``conv_lif`` dispatch."""
+    dims = []
+
+    def conv(name, p, x, stride, depthwise):
+        T, B, H, W, _ = x
+        kh, kw, cin, cout = p["w"].shape
+        Ho, Wo = -(-H // stride), -(-W // stride)
+        if not depthwise:
+            dims.append(dict(T=T, B=B, HW=Ho * Wo, K=kh * kw * cin, N=cout))
+        return (T, B, Ho, Wo, cout)
+
+    def pool(name, x, window):
+        return x[:2] + (x[2] // window, x[3] // window, x[4])
+
+    x = backbone_walk(cfg, params["backbone"],
+                      (cfg.time_steps, batch, cfg.height, cfg.width,
+                       cfg.in_channels), conv, pool,
+                      lambda fs: fs[0][:4] + (sum(f[4] for f in fs),))
+    conv("head_conv", params["head"]["conv"], x, 1, False)
+    return dims
+
+
+def fused_layers(params, cfg, batch, table):
+    """How many firing non-depthwise convs of one forward ``table``
+    routes to the fused kernel."""
+    from repro_torch.kernels import tune
+    return sum(bool(c and c.fused) for c in (
+        table.config_for(tune.shape_key("conv_lif", **d))
+        for d in conv_lif_dims(params, cfg, batch)))
 
 
 def backbone_walk(cfg, bb, x, conv, pool, cat):
@@ -234,11 +297,15 @@ class KernelStats:
         self.ms = self.plain_ms = self.bound_ms = 0.0
         self.bytes_s = self.ops_s = 0.0
         self.library_ms = None
+        self.per_op_ms = None       # spike_conv_lif: the per-op kernel pair
         self.max_abs_err = 0.0
         self.shapes = []
 
-    def add(self, shape, ms, plain_ms, nbytes, nops, err, library_ms=None):
+    def add(self, shape, ms, plain_ms, nbytes, nops, err, library_ms=None,
+            per_op_ms=None):
         self.shapes.append(shape)
+        if per_op_ms is not None:
+            self.per_op_ms = (self.per_op_ms or 0.0) + per_op_ms
         self.ms += ms
         self.plain_ms += plain_ms
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_FLOPS * 1e3
@@ -263,10 +330,13 @@ class KernelStats:
         return self
 
     def summary(self):
-        return {"launches": len(self.shapes), "ms": self.ms,
-                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-                "library_ms": self.library_ms,
-                "max_abs_err": self.max_abs_err}
+        out = {"launches": len(self.shapes), "ms": self.ms,
+               "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+               "library_ms": self.library_ms,
+               "max_abs_err": self.max_abs_err}
+        if self.per_op_ms is not None:
+            out["per_op_ms"] = self.per_op_ms
+        return out
 
     def row(self, name, launches):
         src, replaces = KERNELS[name]
@@ -352,6 +422,7 @@ def kernel_phase(params, cfg, vox):
     lif_kw = dict(tau=cfg.tau_mem, v_th=cfg.v_threshold, v_reset=cfg.v_reset)
     T, B = vox.shape[:2]
     gemm_inputs = []
+    last = {}                   # the latest conv's patches, wmat and output
 
     def gemm(p, x, stride, name):
         """spike_conv on x's patches -> the conv output [T, B, ...]."""
@@ -380,6 +451,7 @@ def kernel_phase(params, cfg, vox):
               f"{float((y - y_ref).abs().max()):.3g}")
         if len(gemm_inputs) < 2:
             gemm_inputs.append((patches, wmat))
+        last.update(patches=patches, wmat=wmat, y=y)
         return L.unfold(y.reshape(B * T, Ho, Wo, N), T, B)
 
     def dwconv(p, x, stride, name):
@@ -433,7 +505,10 @@ def kernel_phase(params, cfg, vox):
 
     def conv(name, p, x, stride, depthwise):
         y5 = (dwconv if depthwise else gemm)(p, x, stride, name)
-        return fire(p, y5, name, st, lif_kw)
+        s5 = fire(p, y5, name, st, lif_kw)
+        if not depthwise:
+            fused_check(p, last, s5, name, st, lif_kw)
+        return s5
 
     def pool(name, x, window):
         """max_pool, both gate modes equal to the plain version, also with
@@ -465,8 +540,7 @@ def kernel_phase(params, cfg, vox):
 
     feats = backbone_walk(cfg, params["backbone"], vox, conv, pool,
                           lambda fs: torch.cat(fs, dim=-1))
-    y5 = gemm(params["head"]["conv"], feats, 1, "head_conv")
-    h = fire(params["head"]["conv"], y5, "head_conv", st, lif_kw)
+    h = conv("head_conv", params["head"]["conv"], feats, 1, False)
     gemm(params["head"]["pred"], h, 1, "head_pred")
 
     # partly silent input: the first half of the frames carry no spike
@@ -552,6 +626,83 @@ def fire(p, y5, name, st, lif_kw):
           f"rate {float(s_k.mean()):.3f} flipped {res['flipped']} "
           f"(near threshold {res['near']})")
     return s_k.reshape(T, B, Ho, Wo, C)
+
+
+def fused_check(p, last, s_pair, name, st, lif_kw):
+    """spike_conv_lif on the layer's own patch matrix, under every gate,
+    and again with the first half of the batch silent: held to the
+    per-op kernel pair (s_pair, its currents from the spike_conv
+    kernel's output) and to its plain version by the near-threshold
+    rule; then timed (gate "mask", the widest channel slice) beside the
+    plain version and the per-op pair."""
+    import torch
+    from repro_torch.core.layers import instance_norm_affine
+    from repro_torch.kernels.lif_scan import norm_affine_lif
+    from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
+    from repro_torch.kernels.spike_conv_lif import (GATES,
+                                                    slab_occupancy_mask,
+                                                    slice_widths,
+                                                    spike_conv_lif,
+                                                    spike_conv_lif_plain)
+    from repro_torch.testing import spike_mismatch
+    patches, wmat, y = last["patches"], last["wmat"], last["y"]
+    T, B, Ho, Wo, N = s_pair.shape
+    HW, (M, K) = Ho * Wo, patches.shape
+    sc, bi = p["scale"], p["bias"]
+    bn = slice_widths(T * HW, N)[0]
+    kw = dict(T=T, B=B, HW=HW, **lif_kw)
+
+    def pair(x):
+        """The per-op kernel pair on patch matrix x: (spikes, currents)."""
+        y4 = spike_conv(x, wmat, occupancy_mask(x)).reshape(
+            B, T, HW, N).transpose(0, 1).contiguous()
+        return norm_affine_lif(y4, sc, bi, **lif_kw), \
+            instance_norm_affine(y4, sc, bi)
+
+    silent = patches.clone()
+    silent[: M // 2] = 0
+    occ_s = slab_occupancy_mask(silent.reshape(B, T * HW, K))
+    check(int((occ_s == 0).sum()) > 0, f"spike_conv_lif {name}: no silent "
+          f"tile in the partly silent check")
+    y4 = y.reshape(B, T, HW, N).transpose(0, 1).contiguous()
+    runs = {"main path": (patches, s_pair.reshape(T, B, HW, N),
+                          instance_norm_affine(y4, sc, bi)),
+            "partly silent": (silent, *pair(silent))}
+    flips, band, equal, err = {}, {}, True, 0.0
+    for label, (x, s_ref, z) in runs.items():
+        plain = spike_conv_lif_plain(x, wmat, sc, bi, **kw)
+        res_p = spike_mismatch(z, plain, tol=NEAR_TOL, **lif_kw)
+        check(res_p["far"] == 0, f"spike_conv_lif {name} ({label}): its "
+              f"plain version differs away from threshold: {res_p}")
+        for gate in GATES:
+            got = spike_conv_lif(x, wmat, sc, bi, gate=gate, bn=bn, **kw)
+            torch.cuda.synchronize()
+            res = spike_mismatch(z, got, tol=NEAR_TOL, **lif_kw)
+            check(res["far"] == 0, f"spike_conv_lif {name} ({label}, gate "
+                  f"{gate}): {res['far']} spikes differ from the per-op "
+                  f"pair away from threshold")
+            flips[f"{label}/{gate}"] = int((got != s_ref).any(dim=0).sum())
+            band[label] = res["near"]
+            equal = equal and torch.equal(got, s_ref)
+            err = max(err, float((got - plain).abs().max()))
+    occ = slab_occupancy_mask(patches.reshape(B, T * HW, K))
+    live = sum(live_tile_elems(occ[b], T * HW, K) for b in range(B))
+    occ_pair = occupancy_mask(patches)
+    ms = time_ms(lambda: spike_conv_lif(patches, wmat, sc, bi, bn=bn,
+                                        occ=occ, **kw))
+    plain_ms = time_ms(lambda: spike_conv_lif_plain(patches, wmat, sc, bi,
+                                                    **kw))
+    pair_ms = time_ms(lambda: norm_affine_lif(
+        spike_conv(patches, wmat, occ_pair).reshape(B, T, HW, N)
+        .transpose(0, 1).contiguous(), sc, bi, **lif_kw))
+    st["spike_conv_lif"].add(
+        (T, B, HW, K, N, bn), ms, plain_ms,
+        live * 4 + (K * N + M * N + occ.numel() + 2 * N) * 4,
+        2.0 * N * live, err, per_op_ms=pair_ms)
+    print(f"  spike_conv_lif {name:9s} [T,B,HW,K,N]={(T, B, HW, K, N)} "
+          f"bn {bn}: bit-equal to the per-op pair: {equal}; flips per "
+          f"input/gate {flips}; near-threshold band {band}; ms kernel "
+          f"{ms:.4f} plain {plain_ms:.4f} per-op pair {pair_ms:.4f}")
 
 
 def event_windows(reqs, dev):
@@ -726,6 +877,22 @@ def tick_kernel_phase(params, cfg, reqs, dev):
         B * N * 17 + grid * 4, 10 * B * N + grid, 0.0)
     print(f"  event_voxel [B,N]=({B},{N}) {live} live events: bit-exact in "
           f"{len(VOXEL_MODES) * len(OOB_POLICIES)} mode x oob cases")
+    # non-finite and huge timestamps: the kernel saturates as the plain
+    # version does (NaN -> bin 0; +inf -> past the last bin; -inf -> before
+    # the first), each of them on 4 events of every window
+    t = evs.t.clone()
+    for i, v in enumerate(NONFINITE_T):
+        t[:, 4 * i:4 * i + 4] = v
+    odd = evs._replace(t=t, valid=torch.ones_like(evs.valid))
+    for mode in VOXEL_MODES:
+        for oob in OOB_POLICIES:
+            got = event_voxel(odd, mode=mode, oob=oob, **kw)
+            want = events_to_voxel_batch(odd, mode=mode, oob=oob, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"event_voxel {mode}/{oob} is not "
+                  f"bit-exact with non-finite timestamps")
+    print(f"  event_voxel with timestamps {NONFINITE_T}: bit-exact in every "
+          f"mode x oob case")
 
     # the ISP stage by stage, with the kernel NPU's control on these windows
     isp_cfg = ISP_CONFIGS["cuda"]
@@ -809,8 +976,52 @@ def large_isp_line(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the engines
+# phase 5: the launch table swept on the card, then the engines
 # ---------------------------------------------------------------------------
+
+def sweep_phase(all_archs, vox):
+    """Per arch, one eager ``npu_forward`` at batch 8 on the request
+    set's voxels under ``tune.tuning`` with the smoke sweep policy: each
+    firing non-depthwise conv's shape is timed on its own inputs.
+    Prints every key with its winner, its µs and the default's, and the
+    host cost of one eager launch (the roofline's LAUNCH_S).  Returns
+    arch -> (swept table, the forced-fused table over the same keys)."""
+    import torch
+    from repro_torch.configs.registry import get_tune_config
+    from repro_torch.core.npu import npu_forward
+    from repro_torch.kernels import ops, tune
+    from repro_torch.kernels.lif_scan import lif_scan
+    tables = {}
+    for arch, (p, c) in all_archs.items():
+        with tune.tuning(tune.TuningTable(), get_tune_config("smoke")) as t:
+            npu_forward(p, vox, c)
+        torch.cuda.synchronize()
+        keys = [tune.shape_key("conv_lif", **d)
+                for d in conv_lif_dims(p, c, vox.shape[1])]
+        check(set(t.entries) == set(keys), f"{arch}: swept keys "
+              f"{sorted(t.entries)} != the forward's {sorted(set(keys))}")
+        fused = [k for k, e in t.entries.items() if e["fused"]]
+        print(f"  {arch}: swept {len(t.entries)} conv_lif shapes; fused at "
+              f"{len(fused)}: {fused}")
+        for k, e in t.entries.items():
+            print(f"    {k}: {'fused' if e['fused'] else 'per-op'} gate "
+                  f"{e['gate']} bn {e['bn']}: {e['us']} us (default "
+                  f"{e['default_us']} us)")
+        tables[arch] = (t, ops.fused_conv_lif_table(keys))
+    x = torch.ones((1, 32), device=vox.device)
+    for _ in range(10):
+        lif_scan(x)
+    torch.cuda.synchronize()
+    n = 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        lif_scan(x)
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    print(f"  launch overhead: {host_us:.2f} us of host time per eager "
+          f"lif_scan launch ({n} in a row)")
+    return tables
+
 
 def layer_walk(params, cfg, plain_cfg, vox):
     """Every layer of the kernel path on the kernel path's own input,
@@ -889,17 +1100,19 @@ def max_diff(a, b, field):
                      .max()) for k in a)
 
 
-def serve_phase(params, cfg, reqs, dev, archs):
+def serve_phase(params, cfg, reqs, dev, archs, tables):
     """The engines answer the same requests: spiking-YOLO's four, then an
     all-kernel and a plain engine per arch of ``archs`` (name -> (params,
-    cfg)).  Launch counts per engine, results checked and held to the
-    plain engines, each layer held to its plain version; then the tick
-    latency of spiking-YOLO's engines and the new all-kernel ones, in
-    turns."""
+    cfg)), and per arch (spiking-YOLO's engines named "all_kernels_*")
+    an all-kernel engine built under its forced-fused table and one under
+    its swept table (``tables``).  Launch counts per engine, results
+    checked and held to the plain engines, each layer held to its plain
+    version; then the tick latency of every all-kernel engine and
+    spiking-YOLO's others, in turns."""
     import torch
     from repro_torch.configs.registry import ENCODING_CONFIGS, ISP_CONFIGS
     from repro_torch.core.encoding import voxel_batch
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, tune
     from repro_torch.serve.cognitive_engine import (CognitiveEngine,
                                                     PerceptionRequest)
 
@@ -932,6 +1145,19 @@ def serve_phase(params, cfg, reqs, dev, archs):
                          dict(npu_launches_per_tick(c), **tick_kernels))
         engines[arch + "_plain"] = (
             CognitiveEngine(p, plain(c), batch=BATCH, device=dev), {})
+    # the launch table's engines: each snapshots the table active at
+    # construction
+    tabled = []
+    for arch, (p, c) in {"spiking_yolo": (params, cfg), **archs}.items():
+        base = "all_kernels" if arch == "spiking_yolo" else arch
+        swept, forced = tables[arch]
+        for kind, table in (("fused", forced), ("swept", swept)):
+            with tune.pinned(table):
+                eng = all_kernels(p, c)
+            n = fused_layers(p, c, BATCH, table)
+            engines[f"{base}_{kind}"] = (eng, dict(
+                npu_launches_per_tick(c, fused=n), **tick_kernels))
+            tabled.append(f"{base}_{kind}")
     for eng, _ in engines.values():
         eng.run_to_completion(clone(reqs[BATCH:]))        # warm-up
 
@@ -966,19 +1192,22 @@ def serve_phase(params, cfg, reqs, dev, archs):
         layer_walk(p, c, plain(c), vox)
 
     # end to end against the plain engines
+    plain_of = {"all_kernels": "plain", **{a: a + "_plain" for a in archs}}
     pairs = {"all_kernels": "plain", "fused_isp": "plain",
-             "snn_kernels": "plain", **{a: a + "_plain" for a in archs}}
+             "snn_kernels": "plain", **{a: a + "_plain" for a in archs},
+             **{n: plain_of[n.rsplit("_", 1)[0]] for n in tabled}}
     for f in ("raw_pred", "control", "rgb"):
         d = {name: max_diff(results[name], results[ref], f)
              for name, ref in pairs.items()}
         print(f"  end-to-end max|kernel - plain| {f}: "
               + ", ".join(f"{k} {v:.3g}" for k, v in d.items()))
-        for name in ("all_kernels", "fused_isp", *archs):
+        for name in ("all_kernels", "fused_isp", *archs, *tabled):
             check(d[name] <= E2E_TOL, f"{name} {f} differs from plain by "
                   f"{d[name]:.3g}")
 
     # tick latency, the engines in turns on the same batches
-    timed = ("all_kernels", "fused_isp", "snn_kernels", "plain", *archs)
+    timed = ("all_kernels", "fused_isp", "snn_kernels", "plain", *archs,
+             *tabled)
     lat = {name: [] for name in timed}
     order = [(name, engines[name][0]) for name in timed]
     for i in range(LATENCY_TICKS):
@@ -1117,22 +1346,28 @@ def main() -> int:
     for name, s in st.items():
         print(f"  {name}: kernel {s.ms:.4f} plain {s.plain_ms:.4f} "
               f"library {s.library_ms} bound {s.bound_ms:.4f} over "
-              f"{len(s.shapes)} launches")
+              f"{len(s.shapes)} launches"
+              + (f" (per-op pair {s.per_op_ms:.4f})" if s.per_op_ms else ""))
     for arch, sts in arch_st.items():
         for name, s in sts.items():
             if s.shapes:
                 print(f"  {arch} {name}: kernel {s.ms:.4f} plain "
                       f"{s.plain_ms:.4f} library {s.library_ms} bound "
-                      f"{s.bound_ms:.4f} over {len(s.shapes)} launches")
+                      f"{s.bound_ms:.4f} over {len(s.shapes)} launches"
+                      + (f" (per-op pair {s.per_op_ms:.4f})"
+                         if s.per_op_ms else ""))
     large_isp_line(dev)
 
-    print("[5/6] serving: CognitiveEngine, full spiking_yolo and "
+    print("[5/6] the launch table swept on the card (smoke policy, batch "
+          f"{BATCH}); serving: CognitiveEngine, full spiking_yolo and "
           f"{', '.join(NEW_ARCHS)}; the cognitive loop")
-    launches, latency = serve_phase(params, cfg, reqs, dev, archs)
+    tables = sweep_phase({"spiking_yolo": (params, cfg), **archs}, vox)
+    launches, latency = serve_phase(params, cfg, reqs, dev, archs, tables)
     cognitive_phase(params, cfg, reqs, dev)
 
     # launches from the main path that runs each kernel: the all-kernel
-    # engines, the fused-ISP engine, fast_preview fused
+    # engines, the fused-ISP engine, fast_preview fused, spiking-YOLO's
+    # forced-fused engine
     path_launches = dict(launches["all_kernels"])
     path_launches["isp_stencil_segment"] = \
         launches["fused_isp"]["isp_stencil_segment"]
@@ -1142,6 +1377,8 @@ def main() -> int:
         launches["spiking_mobilenet"]["spike_dwconv"]
     path_launches["max_pool"] = (launches["spiking_vgg"]["max_pool"]
                                  + launches["spiking_densenet"]["max_pool"])
+    path_launches["spike_conv_lif"] = \
+        launches["all_kernels_fused"]["spike_conv_lif"]
     rows = [st[k].row(k, path_launches[k]) for k in KERNELS]
     print("[6/6] report")
     print(json.dumps({"serve": {"batch": BATCH, "requests": REQUESTS,

@@ -1,8 +1,9 @@
-"""Config dataclasses of the serving tick, copied from the JAX package's
-``repro.configs.base`` (field names and defaults unchanged) with the
-port's backend names: ``"torch"`` for the plain PyTorch path and
-``"cuda"`` for the hand-written kernels.  ``repro_torch.convert`` maps
-the JAX names (``"jnp"`` / ``"pallas"``) onto these.
+"""Config dataclasses of the serving tick and the kernel autotuner,
+copied from the JAX package's ``repro.configs.base`` (field names and
+defaults unchanged) with the port's backend names: ``"torch"`` for
+the plain PyTorch path and ``"cuda"`` for the hand-written kernels.
+``repro_torch.convert`` maps the JAX names (``"jnp"`` / ``"pallas"``)
+onto these.
 """
 from __future__ import annotations
 
@@ -73,3 +74,15 @@ class SNNConfig:
     num_anchors: int = 2
     backend: str = "torch"
     control_dim: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class TuneConfig:
+    """One launch-table sweep policy (``repro_torch.kernels.tune``): the
+    candidates of a shape are ranked by the roofline estimate, and only
+    the ``prune_to`` most promising (plus the untuned default) are timed,
+    ``reps`` times each after a warm-up call."""
+    name: str = "default"
+    reps: int = 5                   # timed repetitions per candidate
+    prune_to: int = 8               # candidates timed after the ranking
+    max_candidates: int = 64        # cap on the enumerated space

@@ -1,14 +1,15 @@
 """Named configurations of the port, copied from the JAX package's
 ``repro.configs.registry``: the paper's four spiking architectures, the
-ISP orderings and the event encodings.  The JAX ``"pallas"`` entries
-are ``"cuda"`` here, its ``"pallas_fused"`` ones ``"cuda_fused"``."""
+ISP orderings, the event encodings and the autotuner's sweep policies.
+The JAX ``"pallas"`` entries are ``"cuda"`` here, its ``"pallas_fused"``
+ones ``"cuda_fused"``."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import (DEFAULT_ISP_STAGES, EncodingConfig,
-                                      ISPConfig, SNNConfig)
+                                      ISPConfig, SNNConfig, TuneConfig)
 
 SNN_ARCHS: Dict[str, SNNConfig] = {
     "spiking_vgg": SNNConfig(name="spiking_vgg", backbone="vgg",
@@ -68,3 +69,16 @@ ENCODING_CONFIGS: Dict[str, EncodingConfig] = {
                                     oob="drop", event_capacity=256),
 }
 
+
+TUNE_CONFIGS: Dict[str, TuneConfig] = {
+    # full sweep: every legal candidate ranked, the top 8 timed
+    "default": TuneConfig(name="default"),
+    # a bounded sweep: fewer reps, harder pruning (a valid table, less
+    # exhaustively searched)
+    "smoke": TuneConfig(name="smoke", reps=2, prune_to=4,
+                        max_candidates=16),
+}
+
+
+def get_tune_config(name: str) -> TuneConfig:
+    return TUNE_CONFIGS[name]

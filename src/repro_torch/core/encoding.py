@@ -76,6 +76,16 @@ def check_oob(oob: str) -> None:
         raise ValueError(f"oob must be one of {OOB_POLICIES}, got {oob!r}")
 
 
+def saturate_int32(q: torch.Tensor) -> torch.Tensor:
+    """Float bins -> int64, as the reference's float32 -> int32 cast
+    under XLA: NaN -> 0, and +-inf or a value beyond the int32 range ->
+    that range's end.  A plain ``.to(int64)`` is undefined for NaN and
+    inf (the CPU gives INT64_MIN)."""
+    q = torch.where(torch.isnan(q), torch.zeros_like(q), q)
+    q = q.clamp(-2.0 ** 31, 2.0 ** 31)          # both ends exact in f32
+    return q.to(torch.int64).clamp(-2 ** 31, 2 ** 31 - 1)
+
+
 def events_to_voxel_batch(evs: EventStream, *, time_steps: int,
                           height: int, width: int, window: float = 1.0,
                           binary: bool = True, mode: Optional[str] = None,
@@ -88,7 +98,7 @@ def events_to_voxel_batch(evs: EventStream, *, time_steps: int,
     # divide by a float32 tensor, not a Python scalar: on a CUDA tensor
     # torch turns division by a scalar into a multiply by its reciprocal
     div = torch.full((), window, dtype=torch.float32, device=evs.t.device)
-    tbin = torch.floor(evs.t / div * time_steps).to(torch.int64)
+    tbin = saturate_int32(torch.floor(evs.t / div * time_steps))
     x, y, p = (a.to(torch.int64) for a in (evs.x, evs.y, evs.p))
     ok = (evs.valid & (x >= 0) & (x < width) & (y >= 0) & (y < height)
           & (p >= 0) & (p < 2))

@@ -34,6 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # kernel library name -> its translation unit
 SOURCES = {
     "spike_conv": "spike_conv.cu",
+    "spike_conv_lif": "spike_conv_lif.cu",
     "spike_dwconv": "spike_dwconv.cu",
     "max_pool": "max_pool.cu",
     "spike_matmul": "spike_matmul.cu",

@@ -21,8 +21,10 @@
 // Exactness: adding 1.0 to counts below 2^24 is exact in any order, so
 // the atomics leave the same counts as the plain scatter.  The bin is
 // floor((t / window) * T), divided first and multiplied second in
-// float32 with round-to-nearest intrinsics, cast to a 64-bit int as the
-// plain version's .to(int64) does on the card; invalid events and
+// float32 with round-to-nearest intrinsics, then saturated to the int32
+// range as the plain version's saturate_int32 (NaN -> 0, +-inf and
+// values beyond the range -> its ends, the reference's XLA cast), tested
+// explicitly so nothing rests on how cvt treats NaN; invalid events and
 // out-of-range x/y/p are dropped before any index is formed; the drop
 // policy is applied before the clamp.
 #include <cuda_runtime.h>
@@ -59,8 +61,13 @@ __global__ void event_voxel_kernel(const float* __restrict__ t,
     const int xi = x[e], yi = y[e], pi = p[e];
     if (xi < 0 || xi >= W || yi < 0 || yi >= H || pi < 0 || pi >= 2)
       continue;
-    long long bin =
-        (long long)floorf(__fmul_rn(__fdiv_rn(t[e], window), (float)T));
+    const float q = floorf(__fmul_rn(__fdiv_rn(t[e], window), (float)T));
+    // saturate as XLA's float -> int32 cast: NaN -> 0, beyond the
+    // int32 range (inf included) -> its ends; no float->int cvt of NaN
+    long long bin = isnan(q) ? 0LL
+                    : q >= 2147483648.f ? 2147483647LL
+                    : q < -2147483648.f ? -2147483648LL
+                    : (long long)q;
     if (drop && (bin < 0 || bin >= T)) continue;
     bin = bin < 0 ? 0 : (bin > T - 1 ? T - 1 : bin);
     if (bin != tb) continue;

@@ -1,6 +1,8 @@
 // Tiled fp32 GEMM on CUDA cores with a per-tile activity gate, shared by
-// the spike-conv kernel (precomputed occupancy mask) and the spike-matmul
-// kernel (in-kernel all-zero check).
+// the spike-conv kernel (precomputed occupancy mask or in-kernel check)
+// and the spike-matmul kernel (in-kernel all-zero check); the fused
+// conv->LIF kernel (spike_conv_lif.cu) keeps its block constants and
+// accumulation order.
 //
 //   C[M, N] = A[M, K] @ B[K, N]     row-major, fp32 in, fp32 out
 //
@@ -31,7 +33,9 @@ constexpr int kKBlock = 128;     // canonical accumulation block
 constexpr int kMaskBM = 128;     // occupancy-mask row granularity
 constexpr int kThreads = 256;    // 16 x 16 threads, 4x4 outputs each
 
-enum GateMode { kGateMask = 0, kGateInline = 1 };
+// activity gate of a (row tile, K block): a precomputed occupancy bit,
+// an in-kernel any() over the tile, or none (every tile computed)
+enum GateMode { kGateMask = 0, kGateInline = 1, kGateNone = 2 };
 
 template <int GATE>
 __global__ void __launch_bounds__(kThreads)

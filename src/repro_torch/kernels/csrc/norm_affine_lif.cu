@@ -20,19 +20,20 @@
 // consecutive channels of one row, so every load and store is one 128-byte
 // line.
 //
-// Rounding: the sums accumulate in double, then round once to float, so
-// the statistics are at least as accurate as the plain version's float
-// reductions; normalise, affine and LIF use round-to-nearest intrinsics in
-// the plain version's order (no FMA contraction).  Spikes can therefore
+// Rounding (lif_common.cuh, shared with the fused spike_conv_lif.cu): the
+// sums accumulate in double, then round once to float, so the statistics
+// are at least as accurate as the plain version's float reductions;
+// normalise, affine and LIF use round-to-nearest intrinsics in the plain
+// version's order (no FMA contraction).  Spikes can therefore
 // differ from the plain version only where its membrane lies within a few
 // ulp of the threshold.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lif_common.cuh"
 
 namespace {
 
+using repro::kRowClasses;
 constexpr int kLanes = 32;   // channels per block (threadIdx.x)
-constexpr int kRows = 32;    // row strides per block (threadIdx.y)
+constexpr int kRows = kRowClasses;   // row strides per block (threadIdx.y)
 
 __global__ void __launch_bounds__(kLanes * kRows)
 norm_affine_lif_kernel(const float* __restrict__ y,
@@ -59,29 +60,20 @@ norm_affine_lif_kernel(const float* __restrict__ y,
     for (int64_t i = row; i < rows; i += kRows) acc += (double)y[at(i)];
   red[row][lane] = acc;
   __syncthreads();
-  if (row == 0) {
-    double s = 0.0;
-    for (int r = 0; r < kRows; ++r) s += red[r][lane];
-    s_mu[lane] = (float)(s / (double)rows);
-  }
+  if (row == 0) s_mu[lane] = repro::mean_of(
+      repro::class_total(&red[0][lane], kLanes + 1), rows);
   __syncthreads();
   const float mu = s_mu[lane];
 
   // pass 2: variance of the centred values
   acc = 0.0;
   if (live)
-    for (int64_t i = row; i < rows; i += kRows) {
-      const float d = __fsub_rn(y[at(i)], mu);
-      acc += (double)__fmul_rn(d, d);
-    }
+    for (int64_t i = row; i < rows; i += kRows)
+      acc += repro::sq_dev(y[at(i)], mu);
   red[row][lane] = acc;
   __syncthreads();
-  if (row == 0) {
-    double s = 0.0;
-    for (int r = 0; r < kRows; ++r) s += red[r][lane];
-    const float var = (float)(s / (double)rows);
-    s_r[lane] = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
-  }
+  if (row == 0) s_r[lane] = repro::inv_std(
+      repro::class_total(&red[0][lane], kLanes + 1), rows, eps);
   __syncthreads();
   if (!live) return;
   const float r = s_r[lane], sc = scale[c], bi = bias[c];
@@ -91,13 +83,8 @@ norm_affine_lif_kernel(const float* __restrict__ y,
     float u = v_reset;
     for (int t = 0; t < T; ++t) {
       const int64_t idx = (((int64_t)t * B + b) * HW + hw) * C + c;
-      float z = __fmul_rn(__fsub_rn(y[idx], mu), r);
-      z = __fadd_rn(__fmul_rn(z, sc), bi);
-      u = __fadd_rn(__fadd_rn(__fmul_rn(decay, __fsub_rn(u, v_reset)),
-                              v_reset), z);
-      const float s = (__fsub_rn(u, v_th) >= 0.f) ? 1.f : 0.f;
-      u = __fadd_rn(__fmul_rn(u, __fsub_rn(1.f, s)), __fmul_rn(v_reset, s));
-      out[idx] = s;
+      out[idx] = repro::norm_lif_step(y[idx], mu, r, sc, bi, decay, v_th,
+                                      v_reset, u);
     }
   }
 }

@@ -5,13 +5,16 @@ matrix: the plain version and the wrapper of its CUDA kernel
 ``occupancy_mask`` is one plain torch reduction per call: one int32 per
 (128-row, 128-K) tile of the patch matrix, 1 where the tile holds a
 spike.  The kernel skips the loads and multiply-adds of every tile whose
-bit is 0.  A skipped tile's contribution is exact zeros, so the plain
-version (``blocked_matmul``, canonical 128-wide K blocks) is the same
-function with or without the mask.
+bit is 0 (the ``"mask"`` gate; an all-ones mask is ``"none"``), or,
+given no mask, checks each tile itself (``"inline"``).  A skipped
+tile's contribution is exact zeros, so the plain version
+(``blocked_matmul``, canonical 128-wide K blocks) is the same function
+under every gate.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +27,8 @@ from repro_torch.kernels.build import (check_f32, check_launch, load,
 _SIG = ("spike_conv_launch",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p])
+         ctypes.c_int, ctypes.c_void_p])
+_GATE_MASK, _GATE_INLINE = 0, 1         # gated_gemm.cuh GateMode
 
 # gridDim.y of the 64-row tiles
 _MAX_M = 65535 * 64
@@ -43,9 +47,11 @@ def occupancy_mask(patches: torch.Tensor, *, bm: int = DEFAULT_BM,
 
 
 def spike_conv(patches: torch.Tensor, wmat: torch.Tensor,
-               occ: torch.Tensor) -> torch.Tensor:
+               occ: Optional[torch.Tensor]) -> torch.Tensor:
     """patches [M, K] spike patch matrix, wmat [K, N], occ the patches'
-    ``occupancy_mask`` -> patches @ wmat [M, N] float32."""
+    ``occupancy_mask`` (an all-ones mask computes every tile; None
+    checks each tile in the kernel instead) -> patches @ wmat [M, N]
+    float32."""
     if patches.dim() != 2 or wmat.dim() != 2 \
             or patches.shape[1] != wmat.shape[0]:
         raise ValueError(f"spike_conv: shapes {tuple(patches.shape)} @ "
@@ -53,13 +59,14 @@ def spike_conv(patches: torch.Tensor, wmat: torch.Tensor,
     M, K = patches.shape
     N = wmat.shape[1]
     want = (-(-M // DEFAULT_BM), -(-K // DEFAULT_BK))
-    if occ.dtype != torch.int32 or tuple(occ.shape) != want:
-        raise ValueError(f"spike_conv: occ must be int32 {want}, got "
-                         f"{occ.dtype} {tuple(occ.shape)}")
     dev = check_f32("spike_conv", patches, wmat)
-    if occ.device != dev or not occ.is_contiguous():
-        raise ValueError("spike_conv: occ must be contiguous on the "
-                         "patches' device")
+    if occ is not None:
+        if occ.dtype != torch.int32 or tuple(occ.shape) != want:
+            raise ValueError(f"spike_conv: occ must be int32 {want}, got "
+                             f"{occ.dtype} {tuple(occ.shape)}")
+        if occ.device != dev or not occ.is_contiguous():
+            raise ValueError("spike_conv: occ must be contiguous on the "
+                             "patches' device")
     if dev.type == "cpu":
         return blocked_matmul(patches, wmat)
     if M > _MAX_M:
@@ -72,7 +79,9 @@ def spike_conv(patches: torch.Tensor, wmat: torch.Tensor,
     lib = load("spike_conv", _SIG)
     with torch.cuda.device(dev):
         err = lib.spike_conv_launch(
-            patches.data_ptr(), wmat.data_ptr(), occ.data_ptr(), want[1],
-            out.data_ptr(), M, K, N, stream_of(dev))
+            patches.data_ptr(), wmat.data_ptr(),
+            0 if occ is None else occ.data_ptr(), want[1], out.data_ptr(),
+            M, K, N, _GATE_INLINE if occ is None else _GATE_MASK,
+            stream_of(dev))
     check_launch("spike_conv", err)
     return out

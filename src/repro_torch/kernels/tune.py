@@ -1,0 +1,400 @@
+"""Shape-keyed launch table: measured launch configs per (op, shape) —
+the counterpart of ``repro.kernels.tune`` for the port's kernels.
+
+For each (op, layer shape) a sweep times the launch choices the port's
+kernels really take against the layer's own inputs and keeps the winner
+in a table.  Today one op has choices: ``conv_lif``, a whole firing conv
+layer, runs either the fused kernel (``spike_conv_lif``, under its gate
+and channel-slice width ``bn``) or the per-op pair (``spike_conv`` then
+``norm_affine_lif``, under the conv's gate).  Every other op resolves to
+its one default until its kernels take launch choices.
+
+How a sweep is bounded: the candidates of a shape are ranked by the
+roofline estimate (``repro_torch.launch.roofline``, H100 figures), and
+only the ``TuneConfig.prune_to`` first (plus the untuned default, always)
+are timed: a warm-up call, then the minimum over ``reps`` calls, each
+between two ``torch.cuda.synchronize()`` on the card.
+
+Dispatch (``repro_torch.kernels.ops``): the port is eager, so every call
+has concrete inputs.  ``dispatch`` resolves a shape key through an
+epoch-keyed cache (a dict lookup on a hit; no file access); under
+``tuning()`` the first call at an untuned key sweeps on the live
+activations, records the winner with its µs and the default's, and bumps
+the epoch.
+
+The table a resolve reads: the ``tuning()`` context's > ``set_table``'s
+(or ``pinned``'s) > the file named by ``REPRO_TORCH_TUNE_TABLE`` > a
+packaged ``tuned_defaults.json`` beside this module, if present > the
+untuned defaults.  ``off()`` forces the defaults.  The port keeps its own
+chain: it reads none of the JAX package's tables or variables, whose
+winners were timed on a TPU.
+
+Versioning: a table carries ``schema`` (file format) and
+``kernels_version`` (the kernels its times are valid for).  ``load``
+empties a table on either mismatch; the port's ``kernels_version`` is a
+string no JAX table (an int there) can match.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import json
+import math
+import os
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import TuneConfig
+from repro_torch.configs.registry import get_tune_config
+from repro_torch.kernels.blocks import DEFAULT_BK, DEFAULT_BM, DEFAULT_BN
+from repro_torch.kernels.spike_conv_lif import slice_widths
+from repro_torch.launch.roofline import SMS, kernel_launch_estimate
+
+TUNE_SCHEMA_VERSION = 1
+# the port's kernels: bump when their numerics or launch semantics change
+KERNELS_VERSION = "h100-1"
+ENV_VAR = "REPRO_TORCH_TUNE_TABLE"
+DEFAULT_TABLE_PATH = os.path.join(os.path.dirname(__file__),
+                                  "tuned_defaults.json")
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchConfig:
+    """One launch decision: tile shapes, gate mode, fusion variant.  For
+    the fused ``conv_lif`` kernel ``bn`` is its channels per block."""
+    bm: int = DEFAULT_BM
+    bn: int = DEFAULT_BN
+    bk: int = DEFAULT_BK
+    gate: str = "mask"              # "mask" | "inline" | "none"
+    fused: bool = False
+
+
+# What ``off()`` and an untuned key resolve to: the per-op composition,
+# so fusion is a measured choice, never a silent default.
+_OP_DEFAULTS: Dict[str, LaunchConfig] = {
+    "conv_lif": LaunchConfig(fused=False),
+    "backbone_seg": LaunchConfig(fused=False),
+}
+
+
+def default_config(op: str) -> LaunchConfig:
+    return _OP_DEFAULTS.get(op, LaunchConfig())
+
+
+def shape_key(op: str, **dims) -> str:
+    """Stable table key, e.g. ``"conv_lif|B2,HW1024,K18,N8,T3"`` (the
+    reference's format)."""
+    return op + "|" + ",".join(f"{k}{v}" for k, v in sorted(dims.items()))
+
+
+def parse_key(key: str) -> Tuple[str, Dict[str, int]]:
+    """The (op, dims) of a ``shape_key`` whose dims are integers."""
+    op, _, rest = key.partition("|")
+    dims = {}
+    for part in rest.split(",") if rest else ():
+        i = len(part.rstrip("0123456789"))
+        dims[part[:i]] = int(part[i:])
+    return op, dims
+
+
+class TuningTable:
+    """key -> winning LaunchConfig, with its measured µs and the untuned
+    default's µs, so each entry records its own speedup."""
+
+    def __init__(self, entries: Optional[Dict[str, Dict]] = None):
+        self.entries: Dict[str, Dict] = dict(entries or {})
+
+    def config_for(self, key: str) -> Optional[LaunchConfig]:
+        e = self.entries.get(key)
+        if e is None:
+            return None
+        return LaunchConfig(bm=int(e["bm"]), bn=int(e["bn"]),
+                            bk=int(e["bk"]), gate=str(e["gate"]),
+                            fused=bool(e["fused"]))
+
+    def record(self, key: str, cfg: LaunchConfig, us: float,
+               default_us: float) -> None:
+        self.entries[key] = dict(dataclasses.asdict(cfg), us=round(us, 3),
+                                 default_us=round(default_us, 3))
+
+    def to_json(self) -> Dict:
+        return {"schema": TUNE_SCHEMA_VERSION,
+                "kernels_version": KERNELS_VERSION,
+                "entries": self.entries}
+
+    def save(self, path: str) -> None:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(self.to_json(), f, indent=2, sort_keys=True)
+            f.write("\n")
+
+    @classmethod
+    def load(cls, path: str) -> "TuningTable":
+        """Load a table; a schema or kernels_version mismatch empties it
+        wholesale."""
+        with open(path) as f:
+            data = json.load(f)
+        if (data.get("schema") != TUNE_SCHEMA_VERSION
+                or data.get("kernels_version") != KERNELS_VERSION):
+            return cls()
+        return cls(data.get("entries", {}))
+
+
+# ---------------------------------------------------------------------------
+# The active table (module state; every change bumps the epoch, so the
+# resolve cache never serves an entry of a table no longer active)
+# ---------------------------------------------------------------------------
+
+_UNSET = object()                   # fall through to the env/packaged chain
+_OFF = object()                     # force the untuned defaults
+_explicit = _UNSET
+_epoch = 0
+
+
+@dataclasses.dataclass
+class _TuneContext:
+    table: TuningTable
+    cfg: TuneConfig
+
+
+_tune_ctx: Optional[_TuneContext] = None
+_FILE_CACHE: Dict[str, tuple] = {}  # path -> (mtime, TuningTable)
+
+
+def _bump_epoch() -> None:
+    global _epoch
+    _epoch += 1
+
+
+def _load_table_file(path: str) -> Optional[TuningTable]:
+    try:
+        mtime = os.path.getmtime(path)
+    except OSError:
+        return None
+    hit = _FILE_CACHE.get(path)
+    if hit is not None and hit[0] == mtime:
+        return hit[1]
+    try:
+        table = TuningTable.load(path)
+    except (OSError, ValueError, KeyError, AttributeError):
+        return None
+    _FILE_CACHE[path] = (mtime, table)
+    return table
+
+
+def active_table() -> Optional[TuningTable]:
+    """The table a resolve reads now, or None for the untuned defaults."""
+    if _tune_ctx is not None:
+        return _tune_ctx.table
+    if _explicit is _OFF:
+        return None
+    if _explicit is not _UNSET:
+        return _explicit
+    env = os.environ.get(ENV_VAR)
+    if env:
+        return _load_table_file(env)
+    return _load_table_file(DEFAULT_TABLE_PATH)
+
+
+def chain_is_untuned() -> bool:
+    """True when no ``tuning``, ``set_table``, ``pinned`` or ``off``
+    holds: resolves read the env/packaged chain."""
+    return _tune_ctx is None and _explicit is _UNSET
+
+
+def set_table(table: Optional[TuningTable]) -> None:
+    """Install ``table`` as the active table (``None``: back to the
+    env/packaged chain).  The next resolve reads it.  An engine built
+    before keeps its own snapshot."""
+    global _explicit
+    _explicit = table if table is not None else _UNSET
+    _bump_epoch()
+
+
+def reset() -> None:
+    """Drop every ``set_table`` and tuning context: the untuned chain."""
+    global _explicit, _tune_ctx
+    _explicit, _tune_ctx = _UNSET, None
+    _bump_epoch()
+
+
+@contextlib.contextmanager
+def _holding(explicit, ctx):
+    global _explicit, _tune_ctx
+    prev, prev_ctx = _explicit, _tune_ctx
+    _explicit, _tune_ctx = explicit, ctx
+    _bump_epoch()
+    try:
+        yield
+    finally:
+        _explicit, _tune_ctx = prev, prev_ctx
+        _bump_epoch()
+
+
+def off():
+    """Force the untuned defaults for the block."""
+    return _holding(_OFF, None)
+
+
+@contextlib.contextmanager
+def pinned(table: Optional[TuningTable]):
+    """Resolve through ``table`` for the block, whatever else is set
+    (``None``: change nothing).  The engine runs each tick pinned to the
+    snapshot it took at construction."""
+    if table is None:
+        yield
+        return
+    with _holding(table, None):
+        yield
+
+
+@contextlib.contextmanager
+def tuning(table: Optional[TuningTable] = None,
+           tune_cfg: Optional[TuneConfig] = None):
+    """Sweep on first dispatch: while active, the first call of an op at
+    a key not yet in ``table`` times the candidates on that call's
+    inputs and records the winner.  Yields the table (save it to keep
+    it).  ``tune_cfg`` defaults to ``TUNE_CONFIGS["default"]``."""
+    global _tune_ctx
+    t = table if table is not None else TuningTable()
+    prev = _tune_ctx
+    _tune_ctx = _TuneContext(t, tune_cfg or get_tune_config("default"))
+    _bump_epoch()
+    try:
+        yield t
+    finally:
+        _tune_ctx = prev
+        _bump_epoch()
+
+
+def tuning_active() -> bool:
+    return _tune_ctx is not None
+
+
+def resolve(op: str, key: str) -> LaunchConfig:
+    return _resolve_cached(op, key, _epoch)
+
+
+@functools.lru_cache(maxsize=4096)
+def _resolve_cached(op: str, key: str, epoch: int) -> LaunchConfig:
+    table = active_table()
+    cfg = table.config_for(key) if table is not None else None
+    return cfg if cfg is not None else default_config(op)
+
+
+# ---------------------------------------------------------------------------
+# Candidates and their estimate
+# ---------------------------------------------------------------------------
+
+_CONV_GATES = ("mask", "inline", "none")
+_FUSED_WIDTHS = 3           # the widest slice widths that fit, per gate
+_MASK_OPS = 4               # device ops of the plain occupancy reduction
+
+
+def candidates(op: str, dims: Dict[str, int],
+               tune_cfg: TuneConfig) -> List[LaunchConfig]:
+    """The launch configs the port's kernels take at (op, shape): never
+    one that cannot launch there.  Capped at ``max_candidates``."""
+    out: List[LaunchConfig] = []
+    if op == "conv_lif":
+        widths = slice_widths(dims["T"] * dims["HW"], dims["N"])
+        for gate in _CONV_GATES:
+            for w in widths[:_FUSED_WIDTHS]:
+                out.append(LaunchConfig(bn=w, gate=gate, fused=True))
+        for gate in _CONV_GATES:
+            out.append(LaunchConfig(gate=gate, fused=False))
+    else:
+        out.append(default_config(op))
+    return out[:tune_cfg.max_candidates]
+
+
+def estimate(op: str, dims: Dict[str, int], cfg: LaunchConfig,
+             live: float = 1.0) -> float:
+    """Roofline estimate (seconds) used to RANK candidates; ``live`` is
+    the live-activation fraction of the inputs, which the gates skip."""
+    if op != "conv_lif":
+        return kernel_launch_estimate(0.0, 0.0, 1)
+    B, M = dims["B"], dims["B"] * dims["T"] * dims["HW"]
+    K, N = dims["K"], dims["N"]
+    frac = live if cfg.gate != "none" else 1.0
+    flops = 2.0 * M * K * N * frac
+    mask_ops = _MASK_OPS if cfg.gate == "mask" else 0
+    if cfg.fused:
+        # every channel slice re-reads its batch element's patch slab,
+        # and B * slices blocks may leave SMs idle
+        slices = math.ceil(N / cfg.bn)
+        reads = slices * (2 if cfg.gate == "inline" else 1)
+        nbytes = 4.0 * (M * K * frac * reads + B * slices * K * cfg.bn
+                        + M * N)
+        flops *= max(1.0, SMS / (B * slices))
+        launches = 1 + mask_ops
+    else:
+        # the conv output: written, copied to [T, B, HW, N], read three
+        # times by the epilogue; inline re-checks per 64-column tile
+        reads = 1 + (math.ceil(N / 64) if cfg.gate == "inline" else 0)
+        nbytes = 4.0 * (M * K * frac * reads + K * N + 7 * M * N)
+        launches = 3 + mask_ops
+    return kernel_launch_estimate(flops, nbytes, launches)
+
+
+# ---------------------------------------------------------------------------
+# Measurement and the sweep
+# ---------------------------------------------------------------------------
+
+def _wait(out) -> None:
+    if isinstance(out, torch.Tensor) and out.is_cuda:
+        torch.cuda.synchronize(out.device)
+
+
+def measure(runner: Callable[[LaunchConfig], object], cfg: LaunchConfig,
+            reps: int) -> float:
+    """Minimum over ``reps`` calls of ``runner(cfg)`` (µs), after one
+    warm-up call; on the card each call is timed from an idle device to
+    its result (host launch cost included).  A candidate that raises is
+    a fault, not a loser: the error propagates."""
+    _wait(runner(cfg))
+    best = float("inf")
+    for _ in range(max(1, reps)):
+        t0 = time.perf_counter()
+        _wait(runner(cfg))
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e6
+
+
+def _sweep(op: str, dims: Dict[str, int],
+           runner: Callable[[LaunchConfig], object], tune_cfg: TuneConfig,
+           live: float):
+    ranked = sorted(candidates(op, dims, tune_cfg),
+                    key=lambda c: estimate(op, dims, c, live))
+    short = ranked[:max(1, tune_cfg.prune_to)]
+    dflt = default_config(op)
+    if dflt not in short:
+        short.append(dflt)          # the baseline is always measured
+    best_cfg, best_us, default_us = dflt, float("inf"), float("inf")
+    for c in short:
+        us = measure(runner, c, tune_cfg.reps)
+        if c == dflt:
+            default_us = us
+        if us < best_us:
+            best_cfg, best_us = c, us
+    return best_cfg, best_us, default_us
+
+
+def dispatch(op: str, dims: Dict[str, int],
+             runner: Optional[Callable[[LaunchConfig], object]] = None, *,
+             live: float = 1.0) -> LaunchConfig:
+    """The launch config of (op, shape).  Under ``tuning()``, with a
+    ``runner`` and an untuned key, sweep on the caller's inputs first
+    and record the winner."""
+    key = shape_key(op, **dims)
+    ctx = _tune_ctx
+    if (ctx is not None and runner is not None
+            and key not in ctx.table.entries):
+        cfg, us, default_us = _sweep(op, dims, runner, ctx.cfg, live)
+        ctx.table.record(key, cfg, us, default_us)
+        _bump_epoch()               # the resolve cache must see the entry
+        return cfg
+    return resolve(op, key)

@@ -3,6 +3,7 @@
     python -m repro_torch.profile_tick [--arch spiking_yolo] [--ticks 20]
         [--batch 8] [--backend cuda] [--enc-backend torch|cuda]
         [--isp-backend torch|cuda|cuda_fused]
+        [--tune-table PATH | --sweep-to PATH]
 
 Serves one of the paper's four backbones at full width (``--arch``, a
 name of ``SNN_ARCHS``: spiking_yolo, spiking_vgg, spiking_mobilenet or
@@ -12,7 +13,12 @@ on ``--backend``, the event encoding on ``--enc-backend`` and the ISP on
 ``--isp-backend`` (``cuda`` for all three is the all-kernel tick;
 ``cuda_fused`` runs the ISP as the fusion plan's segment kernels) — and
 records ``--ticks`` ticks under ``torch.profiler`` after three warm-up
-ticks.
+ticks.  ``--tune-table`` loads a launch table (``TuningTable.save``'s
+JSON) that the engine snapshots; ``--sweep-to`` first sweeps one on the
+tick's own voxels (one eager ``npu_forward`` under ``tune.tuning``, the
+"smoke" policy), saves it there and profiles with it; with neither the
+engine takes the active chain (``REPRO_TORCH_TUNE_TABLE``, else the
+untuned per-op route).
 Prints, per tick: the host wall time, the host time inside each stage
 span (``tick.upload``/``encode``/``npu``/``isp``/``fetch``, set by
 ``EngineCore``), the device busy time (the sum of kernel and copy times)
@@ -33,8 +39,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import (ENCODING_CONFIGS, ISP_CONFIGS,
-                                         SNN_ARCHS)
-from repro_torch.core.npu import init_npu
+                                         SNN_ARCHS, get_tune_config)
+from repro_torch.core.npu import init_npu, npu_forward
+from repro_torch.kernels import tune
 from repro_torch.serve.cognitive_engine import (CognitiveEngine,
                                                 PerceptionRequest)
 
@@ -66,17 +73,41 @@ def main(argv=None) -> int:
     ap.add_argument("--isp-backend", default="torch",
                     choices=tuple(ISP_BY_BACKEND))
     ap.add_argument("--seed", type=int, default=0)
+    tables = ap.add_mutually_exclusive_group()
+    tables.add_argument("--tune-table", default=None,
+                        help="launch table JSON for the engine to snapshot")
+    tables.add_argument("--sweep-to", default=None,
+                        help="sweep a launch table on the tick's voxels, "
+                             "save it here and serve with it")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_tick: needs a CUDA device")
+    table = None
+    if args.tune_table is not None:
+        table = tune.TuningTable.load(args.tune_table)
+        if not table.entries:
+            raise SystemExit(f"profile_tick: {args.tune_table} holds no "
+                             f"entry for these kernels (empty, or another "
+                             f"schema/kernels_version)")
 
     cfg = dataclasses.replace(SNN_ARCHS[args.arch], backend=args.backend)
     params = init_npu(torch.Generator().manual_seed(args.seed), cfg)
-    eng = CognitiveEngine(
-        params, cfg, batch=args.batch,
-        isp_cfg=ISP_CONFIGS[ISP_BY_BACKEND[args.isp_backend]],
-        enc_cfg=ENCODING_CONFIGS[ENC_BY_BACKEND[args.enc_backend]])
     reqs = _requests(cfg, args.batch, np.random.default_rng(args.seed))
+    if args.sweep_to is not None:
+        vox = torch.tensor(np.stack([r.voxels for r in reqs], axis=1),
+                           device="cuda")
+        with tune.tuning(tune.TuningTable(),
+                         get_tune_config("smoke")) as table:
+            npu_forward(params, vox, cfg)
+        table.save(args.sweep_to)
+        fused = sorted(k for k, e in table.entries.items() if e["fused"])
+        print(f"swept {len(table.entries)} shapes into {args.sweep_to}; "
+              f"fused at {fused}")
+    with tune.pinned(table):             # the engine snapshots it
+        eng = CognitiveEngine(
+            params, cfg, batch=args.batch,
+            isp_cfg=ISP_CONFIGS[ISP_BY_BACKEND[args.isp_backend]],
+            enc_cfg=ENCODING_CONFIGS[ENC_BY_BACKEND[args.enc_backend]])
 
     def tick():
         for r in reqs:
@@ -125,6 +156,7 @@ def main(argv=None) -> int:
         print(f"  device {ms:8.4f} ms  {name[:90]}")
     print(json.dumps({
         "arch": args.arch, "backend": args.backend,
+        "tune_table": args.tune_table or args.sweep_to,
         "enc_backend": args.enc_backend, "isp_backend": args.isp_backend,
         "batch": args.batch, "ticks": n,
         "device": torch.cuda.get_device_name(0),

@@ -6,10 +6,13 @@ engine's device, each stage on the backend its config names
 (``EncodingConfig``, ``SNNConfig``, ``ISPConfig``): ONE host->device
 copy of the staging bank (the bank is one contiguous, pinned buffer),
 the tick's kernels on the current stream, and ONE device->host copy of
-every output packed into a single flat tensor.  No mesh and no launch table in this slice; CUDA graphs
-for the tick are later work.  ``torch.profiler`` spans ``tick.upload``,
-``tick.encode``, ``tick.npu``, ``tick.isp`` and ``tick.fetch`` mark the
-stages (``python -m repro_torch.profile_tick`` reads them).
+every output packed into a single flat tensor.  The engine snapshots the
+launch table once at construction (``tune_table``) and runs every tick
+pinned to it, so a later ``tune.set_table`` never reaches a built
+engine.  One device, no mesh; CUDA graphs for the tick are later work.
+``torch.profiler`` spans ``tick.upload``, ``tick.encode``, ``tick.npu``,
+``tick.isp`` and ``tick.fetch`` mark the stages (``python -m
+repro_torch.profile_tick`` reads them).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from repro_torch.isp.pipeline import (control_vector_pipeline_batch,
                                       legacy_control_permutation)
 from repro_torch.isp.stages import BACKENDS as ISP_BACKENDS
 from repro_torch.isp.stages import control_to_stage_params
+from repro_torch.kernels import tune
 
 
 class EngineCore:
@@ -37,7 +41,8 @@ class EngineCore:
                  frame_hw: Optional[tuple] = None,
                  control_order: str = "pipeline",
                  enc_cfg: Optional[EncodingConfig] = None,
-                 collect_sparsity: bool = False, device="cuda"):
+                 collect_sparsity: bool = False, device="cuda",
+                 tune_table="active"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.isp_cfg = isp_cfg if isp_cfg is not None else ISPConfig()
@@ -72,6 +77,16 @@ class EngineCore:
                                      device=self.device)
         self.collect_sparsity = bool(collect_sparsity)
         self.params = params_to(npu_params, self.device)
+        # The launch table every tick resolves through: "active" snapshots
+        # the table active now (an empty one, the untuned defaults, when
+        # none is), an explicit TuningTable pins that one (an empty table
+        # pins the per-op route), None follows the live chain.
+        if isinstance(tune_table, str):
+            if tune_table != "active":
+                raise ValueError(f"tune_table must be 'active', a "
+                                 f"TuningTable or None, got {tune_table!r}")
+            tune_table = tune.active_table() or tune.TuningTable()
+        self.tune_table: Optional[tune.TuningTable] = tune_table
 
     # ------------------------------------------------------------------
     def _encode(self, events):
@@ -87,19 +102,21 @@ class EngineCore:
     def step(self, voxels, bayer, events, from_events):
         """The tick on device tensors -> (NPUOutput, rgb [B, H, W, 3],
         stage params {stage: {param: [B]}})."""
-        if self.cfg.in_channels == 2:
-            with record_function("tick.encode"):
-                enc = self._encode(events)
-                voxels = torch.where(
-                    from_events[None, :, None, None, None], enc, voxels)
-        with record_function("tick.npu"):
-            out = npu_forward(self.params, voxels, self.cfg,
-                              collect_sparsity=self.collect_sparsity)
-        ctrl = out.control[:, self.perm] if self.perm is not None \
-            else out.control[:, :self.isp_cfg.control_dim]
-        with record_function("tick.isp"):
-            rgb = control_vector_pipeline_batch(bayer, ctrl, self.isp_cfg)
-            sp = control_to_stage_params(ctrl, self.isp_cfg.stages)
+        with tune.pinned(self.tune_table):
+            if self.cfg.in_channels == 2:
+                with record_function("tick.encode"):
+                    enc = self._encode(events)
+                    voxels = torch.where(
+                        from_events[None, :, None, None, None], enc, voxels)
+            with record_function("tick.npu"):
+                out = npu_forward(self.params, voxels, self.cfg,
+                                  collect_sparsity=self.collect_sparsity)
+            ctrl = out.control[:, self.perm] if self.perm is not None \
+                else out.control[:, :self.isp_cfg.control_dim]
+            with record_function("tick.isp"):
+                rgb = control_vector_pipeline_batch(bayer, ctrl,
+                                                    self.isp_cfg)
+                sp = control_to_stage_params(ctrl, self.isp_cfg.stages)
         return out, rgb, sp
 
     def upload(self, bank):

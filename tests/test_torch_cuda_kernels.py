@@ -16,7 +16,10 @@ their plain versions op for op (equal for [exposure+dpc], [demosaic] and
 summed in another order, and NLM has its exp (atol 1e-6).  The
 depthwise conv replays the plain tap loop's roundings (equal, on spikes
 and on real values) and the max-pool has no rounding (equal, both gate
-modes).
+modes).  The fused conv->LIF kernel sums its conv as spike_conv and its
+statistics as norm_affine_lif do, so its spikes are held to the per-op
+kernel pair and to its plain version by the near-threshold rule (1e-4),
+under every gate and channel-slice width.
 """
 import numpy as np
 import pytest
@@ -38,6 +41,8 @@ from repro_torch.kernels.lif_scan import lif_scan, norm_affine_lif
 from repro_torch.kernels.max_pool import max_pool
 from repro_torch.kernels.nlm import nlm
 from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
+from repro_torch.kernels.spike_conv_lif import (GATES, slice_widths,
+                                                spike_conv_lif)
 from repro_torch.kernels.spike_dwconv import spike_dwconv
 from repro_torch.kernels.spike_matmul import spike_matmul
 from repro_torch.testing import spike_mismatch
@@ -109,6 +114,63 @@ def test_spike_conv_matches_plain(dev, case):
     got = spike_conv(patches, wmat, occ)
     want = spike_conv(patches.cpu(), wmat.cpu(), occ.cpu())
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+
+
+def test_spike_conv_inline_gate_matches_plain(dev):
+    n, h, w_, cin, cout, k, stride, dens, silent = CONV_CASES["partly_silent"]
+    rng = np.random.default_rng(5)
+    xf = _spikes(rng, (n, h, w_, cin), dens, silent).to(dev)
+    w = torch.tensor(rng.normal(0, 1, (k, k, cin, cout)).astype(np.float32),
+                     device=dev)
+    patches, _ = spike_im2col(xf, k, k, stride)
+    wmat = w.reshape(-1, cout).contiguous()
+    got = spike_conv(patches, wmat, None)
+    assert torch.equal(got, spike_conv(patches, wmat, occupancy_mask(patches)))
+    torch.testing.assert_close(got.cpu(), spike_conv(
+        patches.cpu(), wmat.cpu(), None), atol=1e-4, rtol=1e-5)
+
+
+# (T, B, H, W, cin, cout, stride, density, silent frames)
+CONV_LIF_CASES = {
+    "yolo_d0": (5, 8, 64, 64, 2, 32, 2, 0.1, 0),
+    "ragged_rows_k": (3, 3, 13, 11, 20, 24, 2, 0.3, 0),
+    "wide_channels": (5, 2, 8, 8, 64, 256, 1, 0.2, 0),
+    "partly_silent": (5, 4, 16, 16, 32, 64, 1, 0.3, 10),
+    "all_silent": (3, 2, 8, 8, 4, 8, 1, 0.0, 0),
+}
+
+
+@pytest.mark.parametrize("gate", GATES)
+@pytest.mark.parametrize("case", sorted(CONV_LIF_CASES))
+def test_spike_conv_lif_matches_per_op_pair_and_plain(dev, case, gate):
+    T, B, h, w_, cin, cout, stride, dens, silent = CONV_LIF_CASES[case]
+    rng = np.random.default_rng(len(case) + cout)
+    xf = _spikes(rng, (B * T, h, w_, cin), dens, silent).to(dev)
+    w = torch.tensor(rng.normal(0, 1, (3, 3, cin, cout)).astype(np.float32),
+                     device=dev)
+    scale = torch.tensor(rng.normal(1, 0.2, cout).astype(np.float32),
+                         device=dev)
+    bias = torch.tensor(rng.normal(0, 0.2, cout).astype(np.float32),
+                        device=dev)
+    patches, (Ho, Wo) = spike_im2col(xf, 3, 3, stride)
+    wmat = w.reshape(-1, cout).contiguous()
+    HW = Ho * Wo
+    # the per-op kernel pair on the same patches, and its currents
+    y = spike_conv(patches, wmat, occupancy_mask(patches))
+    y4 = y.reshape(B, T, HW, cout).transpose(0, 1).contiguous()
+    pair = norm_affine_lif(y4, scale, bias)
+    z = instance_norm_affine(y4, scale, bias)
+    for bn in slice_widths(T * HW, cout)[:2]:
+        got = spike_conv_lif(patches, wmat, scale, bias, T=T, B=B, HW=HW,
+                             gate=gate, bn=bn)
+        res = spike_mismatch(z, got, tol=1e-4)
+        assert res["far"] == 0, (bn, res)
+        assert spike_mismatch(z, pair, tol=1e-4)["far"] == 0
+        plain = spike_conv_lif(patches.cpu(), wmat.cpu(), scale.cpu(),
+                               bias.cpu(), T=T, B=B, HW=HW, bn=bn)
+        zp = instance_norm_affine(y4.cpu(), scale.cpu(), bias.cpu())
+        assert spike_mismatch(zp, plain, tol=1e-4)["far"] == 0
+        assert spike_mismatch(zp, got, tol=1e-4)["far"] == 0
 
 
 # (N, H, W, C, stride, density, silent frames)
@@ -278,8 +340,14 @@ def test_launch_counters(dev):
     max_pool(xf, gated=True)
     max_pool(xf, gated=False)
     max_pool(xf.cpu())                                      # plain
+    p = torch.ones(2 * 3 * 4, 9, device=dev)
+    one = torch.ones(4, device=dev)
+    spike_conv_lif(p, torch.ones(9, 4, device=dev), one, one, T=3, B=2, HW=4)
+    spike_conv_lif(p.cpu(), torch.ones(9, 4), one.cpu(), one.cpu(), T=3,
+                   B=2, HW=4)                               # plain
     torch.cuda.synchronize()
     assert build.LAUNCHES == {"lif_scan": 1, "spike_matmul": 1,
+                              "spike_conv_lif": 1,
                               "event_voxel": 1, "demosaic": 1, "nlm": 1,
                               "isp_stencil_segment": 2,
                               "isp_pointwise_segment": 1,

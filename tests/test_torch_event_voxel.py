@@ -252,3 +252,31 @@ def test_invalid_args_rejected():
         event_voxel(EventStream(*(a[0] for a in ev)), **kw)
     with pytest.raises(ValueError, match="budget"):
         budget_events(ev, 0)
+
+
+# timestamps the reference bins by XLA's saturating float32 -> int32 cast
+NONFINITE_T = (np.nan, np.inf, -np.inf, 1e10, -1e10, 3e9, -3e9)
+
+
+@pytest.mark.parametrize("mode", VOXEL_MODES)
+@pytest.mark.parametrize("oob", OOB_POLICIES)
+def test_nonfinite_timestamps_match_jax(mode, oob):
+    """NaN bins to 0, +inf and values past the int32 range to its top
+    and -inf to its bottom, as the reference's cast: under ``drop`` a
+    NaN event is kept in bin 0, under ``clip`` a +inf event lands in
+    bin T-1 (a plain int64 cast gives INT64_MIN for all three)."""
+    t, x, y, p, valid = _leaves(40 + VOXEL_MODES.index(mode), n=64,
+                                oob=False)
+    for i, v in enumerate(NONFINITE_T):
+        t[:, 3 * i:3 * i + 3] = v
+    leaves = (t, x, y, p, np.ones_like(valid))
+    got = _kernel(leaves, mode=mode, oob=oob)
+    np.testing.assert_array_equal(got, _jax_grid(leaves, mode=mode, oob=oob))
+    # each special timestamp alone, so its own bin is pinned
+    for v in NONFINITE_T:
+        one = (np.full((1, 1), v, np.float32), np.zeros((1, 1), np.int32),
+               np.zeros((1, 1), np.int32), np.ones((1, 1), np.int32),
+               np.ones((1, 1), bool))
+        np.testing.assert_array_equal(_kernel(one, mode=mode, oob=oob),
+                                      _jax_grid(one, mode=mode, oob=oob),
+                                      err_msg=str(v))

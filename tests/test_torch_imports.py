@@ -1,7 +1,8 @@
 """The port's boundary: ``repro_torch`` and ``chip_smoke.py`` import
 nothing of JAX and nothing of the JAX package ``repro`` (the machine
-with the card has no JAX), and the entry points do not fall back to the
-CPU when no card is present."""
+with the card has no JAX), the launch table reads none of the JAX
+package's tables, and the entry points do not fall back to the CPU when
+no card is present."""
 import os
 import pkgutil
 import re
@@ -32,7 +33,8 @@ def test_every_module_imports_without_jax_or_repro():
     for m in ("serve.cognitive_engine", "core.cognitive",
               "kernels.event_voxel", "kernels.demosaic", "kernels.nlm",
               "kernels.isp_fused", "isp.fuse", "kernels.spike_dwconv",
-              "kernels.max_pool", "core.backbones"):
+              "kernels.max_pool", "core.backbones", "kernels.tune",
+              "kernels.spike_conv_lif", "launch.roofline"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -55,6 +57,21 @@ def test_sources_have_no_jax_or_repro_imports():
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, (f, hits)
+
+
+def test_port_reads_no_jax_tuning_table():
+    """The port's launch table has its own chain: no source of the port
+    names the JAX package's table variable or its packaged table."""
+    jax_var = "REPRO_" + "TUNE_TABLE"
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        text = f.read_text()
+        assert jax_var not in text, f
+        assert "repro/kernels/tuned_defaults" not in text, f
+        assert '"repro", "kernels"' not in text, f
+    from repro_torch.kernels import tune
+    assert tune.ENV_VAR == "REPRO_TORCH_TUNE_TABLE"
+    assert Path(tune.DEFAULT_TABLE_PATH).parent == PKG / "kernels"
 
 
 @pytest.mark.parametrize("line,bad", [
