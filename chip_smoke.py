@@ -47,15 +47,24 @@ Phases (any failure raises and exits non-zero):
              spike_dwconv equal to its plain tap loop on each depthwise
              layer's input and on a partly silent copy, max_pool equal to
              its plain version in both gate modes on each pool's input
-             and on a copy with an all-silent frame;
+             and on a copy with an all-silent frame.  Each arch's segment
+             plan at the default budget is printed, and every
+             fused-route segment (YOLO 2, MobileNet 2, VGG 1, DenseNet 1)
+             runs through backbone_segment on the walk's own input to it,
+             under "inline" and "none" at cluster sizes 16 and 8, and
+             again with half the batch silent: bit-equal to the
+             per-layer kernel route each time, and each layer of the
+             route held to the plain layer on its own input by the
+             near-threshold rule (flips and band printed);
 4. timings — per kernel, device-time medians (CUDA events behind a spin
              kernel, so host launch overhead is not counted) over 30 runs
              of every launch of a tick (kernel, plain version, one
              PyTorch call where it computes the same function:
              torch.matmul for the GEMMs, cuDNN's grouped conv on the
              pre-padded channels-last input for spike_dwconv,
-             F.max_pool2d for max_pool; none for spike_conv_lif, printed
-             beside the per-op kernel pair's time instead), and the least
+             F.max_pool2d for max_pool; none for spike_conv_lif and
+             backbone_segment, printed beside the per-op kernel pair's
+             and the per-layer kernel route's time instead), and the least
              time the card could
              take for the same work (bytes at 3.35 TB/s, fp32 operations
              at 67 TFLOP/s, this run's data), per backbone;
@@ -65,10 +74,14 @@ Phases (any failure raises and exits non-zero):
              [8, 512, 512] batch.  The kernels line takes the NPU rows
              from spiking-YOLO's tick (spike_conv_lif at every firing conv,
              as its forced-fused tick runs it), spike_dwconv from
-             MobileNet's and max_pool from VGG's plus DenseNet's;
+             MobileNet's, max_pool from VGG's plus DenseNet's and
+             backbone_segment from the four archs' fused-route segments
+             (gate "inline", cluster 8: the forced-segment tick's; its
+             operations bound from the MACs this input needs);
 5. serve   — first the launch table: per arch one eager npu_forward at
              batch 8 under tune.tuning with the "smoke" sweep policy,
-             every conv_lif key printed with its winner, its us and the
+             every conv_lif and backbone_seg key printed with its
+             winner, its us and the
              default's, and the host time of one eager launch.  Then
              CognitiveEngines (batch 8, seeded random weights) answer the
              same 16 requests, 8 voxel windows and 8 raw event buffers.
@@ -80,8 +93,10 @@ Phases (any failure raises and exits non-zero):
              each through an all-kernel and a plain engine; and per arch
              an all-kernel engine built under a forced-fused table (every
              firing non-depthwise conv on spike_conv_lif: 9 YOLO, 9 VGG,
-             6 MobileNet, 14 DenseNet launches a tick) and one under the
-             swept table.  Each runs
+             6 MobileNet, 14 DenseNet launches a tick), one under the
+             swept table and one under a forced-segment table (every
+             fused-route segment on backbone_segment, its layers
+             launching nothing else).  Each runs
              with the launch counters set to 0 just before it and read
              just after, against npu_launches_per_tick per backbone:
              the all-kernel engines must show every per-stage kernel's
@@ -99,7 +114,7 @@ Phases (any failure raises and exits non-zero):
              cognitive_step(use_cuda=True)) against its plain run at the
              same bars; then the tick latency (p50, p90) of spiking-YOLO's
              four engines and every other all-kernel engine (untuned,
-             forced-fused, swept), in turns;
+             forced-fused, swept, forced-segment), in turns;
 6. report  — one JSON line of per-kernel numbers, the card line, and
              the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -158,9 +173,14 @@ KERNELS = {
                      "src/repro/kernels/spike_conv.py:172"),
     "max_pool": ("src/repro_torch/kernels/csrc/max_pool.cu",
                  "src/repro/kernels/backbone_fuse.py:509"),
+    "backbone_segment": ("src/repro_torch/kernels/csrc/backbone_segment.cu",
+                         "src/repro/kernels/backbone_fuse.py:423"),
 }
 NPU_KERNELS = ("spike_conv", "spike_conv_lif", "norm_affine_lif", "lif_scan",
-               "spike_matmul", "spike_dwconv", "max_pool")
+               "spike_matmul", "spike_dwconv", "max_pool", "backbone_segment")
+# fused-route segments per forward at the planner's default budget
+SEGMENTS_PER_TICK = {"spiking_yolo": 2, "spiking_mobilenet": 2,
+                     "spiking_vgg": 1, "spiking_densenet": 1}
 # timestamps the reference bins by XLA's saturating float -> int32 cast
 NONFINITE_T = (float("nan"), float("inf"), float("-inf"), 1e10, -1e10)
 # the paper's other three backbones, served beside spiking-YOLO
@@ -178,11 +198,14 @@ SEGMENT_OPS = {"exposure": 9, "awb": 24, "gamma": 21, "tonemap": 17,
                "ccm": 20, "dpc": 48, "demosaic": 44, "sharpen": 46}
 
 
-def npu_launches_per_tick(cfg, fused=0):
+def npu_launches_per_tick(cfg, fused=0, segments=()):
     """Kernel launches of one ``npu_forward`` on the "cuda" backend, with
-    ``fused`` of its firing non-depthwise convs on the fused conv->LIF
-    kernel and the rest on the per-op pair (tests/test_torch_backbones.py
-    and tests/test_torch_conv_lif.py hold this to the code)."""
+    the backbone ``segments`` (``Segment``s) on the backbone_segment
+    kernel, one launch each, and ``fused`` of the firing non-depthwise
+    convs outside them on the fused conv->LIF kernel, the rest on the
+    per-op pair (tests/test_torch_backbones.py,
+    tests/test_torch_conv_lif.py and tests/test_torch_backbone_fuse.py
+    hold this to the code)."""
     S = cfg.num_stages
     # the backbone's (convs, firing convs, depthwise convs, pools)
     conv, fire, dw, pool = {
@@ -196,20 +219,28 @@ def npu_launches_per_tick(cfg, fused=0):
            "spike_matmul": 1}
     if fused:
         out["spike_conv_lif"] = fused
+    for seg in segments:
+        # the segment's layers launch nothing but the segment kernel
+        out["backbone_segment"] = out.get("backbone_segment", 0) + 1
+        for s in seg.layers:
+            out["spike_dwconv" if s.depthwise else "spike_conv"] -= 1
+            out["norm_affine_lif"] -= 1
+            out["max_pool"] -= bool(s.pool)
     return out
 
 
-def conv_lif_dims(params, cfg, batch):
+def conv_lif_dims(params, cfg, batch, skip=()):
     """The launch-table dims (T, B, HW, K, N) of every firing
     non-depthwise conv of one forward, in order (the backbone's, then
-    head_conv): each one ``conv_lif`` dispatch."""
+    head_conv): each one ``conv_lif`` dispatch; the layers named in
+    ``skip`` left out."""
     dims = []
 
     def conv(name, p, x, stride, depthwise):
         T, B, H, W, _ = x
         kh, kw, cin, cout = p["w"].shape
         Ho, Wo = -(-H // stride), -(-W // stride)
-        if not depthwise:
+        if not depthwise and name not in skip:
             dims.append(dict(T=T, B=B, HW=Ho * Wo, K=kh * kw * cin, N=cout))
         return (T, B, Ho, Wo, cout)
 
@@ -224,13 +255,28 @@ def conv_lif_dims(params, cfg, batch):
     return dims
 
 
+def fused_segments(cfg, batch, table):
+    """The fused-route backbone segments of one forward that ``table``
+    routes to the backbone_segment kernel."""
+    from repro_torch.core.backbones import fused_route_segments
+    out = []
+    for seg, _, key in fused_route_segments(cfg, batch):
+        c = table.config_for(key)
+        if c is not None and c.fused:
+            out.append(seg)
+    return out
+
+
 def fused_layers(params, cfg, batch, table):
     """How many firing non-depthwise convs of one forward ``table``
-    routes to the fused kernel."""
+    routes to the fused conv->LIF kernel (outside the segments it routes
+    to the segment kernel)."""
     from repro_torch.kernels import tune
+    inside = {s.name for seg in fused_segments(cfg, batch, table)
+              for s in seg.layers}
     return sum(bool(c and c.fused) for c in (
         table.config_for(tune.shape_key("conv_lif", **d))
-        for d in conv_lif_dims(params, cfg, batch)))
+        for d in conv_lif_dims(params, cfg, batch, skip=inside)))
 
 
 def backbone_walk(cfg, bb, x, conv, pool, cat):
@@ -327,6 +373,8 @@ class KernelStats:
         self.max_abs_err = max(self.max_abs_err, other.max_abs_err)
         if other.library_ms is not None:
             self.library_ms = (self.library_ms or 0.0) + other.library_ms
+        if other.per_op_ms is not None:
+            self.per_op_ms = (self.per_op_ms or 0.0) + other.per_op_ms
         return self
 
     def summary(self):
@@ -418,11 +466,15 @@ def kernel_phase(params, cfg, vox):
                                                   tap_occupancy_mask)
     from repro_torch.kernels.spike_matmul import spike_matmul
 
+    from repro_torch.core.backbones import fused_route_segments
+
     st = {k: KernelStats() for k in NPU_KERNELS}
     lif_kw = dict(tau=cfg.tau_mem, v_th=cfg.v_threshold, v_reset=cfg.v_reset)
     T, B = vox.shape[:2]
     gemm_inputs = []
     last = {}                   # the latest conv's patches, wmat and output
+    routes = fused_route_segments(cfg, B)
+    seg_inputs = {seg.layers[0].name: None for seg, _, _ in routes}
 
     def gemm(p, x, stride, name):
         """spike_conv on x's patches -> the conv output [T, B, ...]."""
@@ -504,6 +556,8 @@ def kernel_phase(params, cfg, vox):
         return L.unfold(y, T, B)
 
     def conv(name, p, x, stride, depthwise):
+        if name in seg_inputs:
+            seg_inputs[name] = x.contiguous()
         y5 = (dwconv if depthwise else gemm)(p, x, stride, name)
         s5 = fire(p, y5, name, st, lif_kw)
         if not depthwise:
@@ -597,7 +651,105 @@ def kernel_phase(params, cfg, vox):
         time_ms(lambda: L.blocked_matmul(hx, po["w"])),
         (M * K + K * N + M * N) * 4, 2.0 * N * live, max(errs),
         library_ms=time_ms(lambda: torch.matmul(hx, po["w"])))
+    for seg, _, _ in routes:
+        segment_check(params["backbone"], cfg, seg,
+                      seg_inputs[seg.layers[0].name], st, lif_kw)
     return st
+
+
+def segment_check(bb, cfg, seg, x, st, lif_kw):
+    """One fused-route segment on the layer walk's own input x: the
+    backbone_segment kernel under both gates and each cluster size,
+    bit-equal to the per-layer kernel route, also with half the batch
+    silent; each layer of the route held to the plain layer on the
+    route's own input by the near-threshold rule; then timed beside its
+    plain version and the per-layer route."""
+    import torch
+    from repro_torch.core.layers import _patch_slices, fold, \
+        instance_norm_affine
+    from repro_torch.kernels import ops, tune
+    from repro_torch.kernels.backbone_fuse import (segment_edge_elems,
+                                                   segment_macs)
+    from repro_torch.kernels.backbone_segment import (
+        DEFAULT_CLUSTER, GATES, backbone_segment, backbone_segment_plain,
+        segment_layer_plain, segment_operands)
+    from repro_torch.kernels.tune import SEGMENT_CLUSTERS
+    from repro_torch.testing import spike_mismatch
+    specs = tuple(s.anon() for s in seg.layers)
+    params = tuple((bb[s.name]["w"], bb[s.name]["scale"], bb[s.name]["bias"])
+                   for s in seg.layers)
+    flat = segment_operands(params, specs)
+    T, B, H, W, _ = x.shape
+    silent = x.clone()
+    silent[:, : B // 2] = 0
+    check(bool((silent != 0).any()), f"{seg.describe()}: the partly silent "
+          f"input has no spike")
+
+    def route(inp):
+        with tune.off():
+            return ops._seg_unfused(inp, params, specs, lif_kw)
+
+    runs = 0
+    for label, inp in (("walk", x), ("partly silent", silent)):
+        want = route(inp)
+        for gate in GATES:
+            for cs in SEGMENT_CLUSTERS:
+                got = backbone_segment(inp, flat, specs=specs, gate=gate,
+                                       cluster=cs, **lif_kw)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"backbone_segment "
+                      f"{seg.describe()} ({label}, gate {gate}, cluster "
+                      f"{cs}): {int((got != want).sum())} spikes differ from "
+                      f"the per-layer kernel route")
+                runs += 1
+    # each layer of the route on its own input against the plain layer;
+    # the live MACs of this input (zero activations skipped) for the bound
+    cur, near, flips, live_macs = x, [], [], 0
+    with tune.off():
+        for i, (p, s) in enumerate(zip(params, specs)):
+            s0 = dataclasses.replace(s, pool=0)
+            pre = ops._seg_unfused(cur, (p,), (s0,), lif_kw)
+            y4, _ = segment_layer_plain(cur.contiguous(), flat[3 * i], s0)
+            z = instance_norm_affine(y4, p[1], p[2])
+            res = spike_mismatch(z, pre.reshape(z.shape), tol=NEAR_TOL,
+                                 **lif_kw)
+            check(res["far"] == 0, f"{seg.describe()} layer {i}: "
+                  f"{res['far']} spikes differ from the plain layer away "
+                  f"from threshold")
+            near.append(res["near"])
+            flips.append(res["flipped"])
+            taps, _ = _patch_slices(fold(cur), s.kernel, s.kernel, s.stride)
+            nz = sum(int((t != 0).sum()) for t in taps)
+            live_macs += nz if s.depthwise else nz * s.cout
+            cur = ops._seg_unfused(cur, (p,), (s,), lif_kw)
+    kernel = backbone_segment(x, flat, specs=specs, cluster=DEFAULT_CLUSTER,
+                              **lif_kw)
+    plain = backbone_segment_plain(x, flat, specs=specs, **lif_kw)
+    torch.cuda.synchronize()
+    err = float((kernel - plain).abs().max())
+    differ = int((kernel != plain).sum())
+    kw = dict(H=H, W=W, T=T, B=B)
+    ms = time_ms(lambda: backbone_segment(x, flat, specs=specs,
+                                          cluster=DEFAULT_CLUSTER, **lif_kw))
+    ms_c = {f"{g}/{cs}": time_ms(lambda: backbone_segment(
+        x, flat, specs=specs, gate=g, cluster=cs, **lif_kw))
+        for g in GATES for cs in SEGMENT_CLUSTERS}
+    plain_ms = time_ms(lambda: backbone_segment_plain(x, flat, specs=specs,
+                                                      **lif_kw))
+    route_ms = time_ms(lambda: route(x))
+    st["backbone_segment"].add(
+        (seg.describe(),) + tuple(x.shape), ms, plain_ms,
+        4 * segment_edge_elems(specs, **kw), 2.0 * live_macs, err,
+        per_op_ms=route_ms)
+    print(f"  backbone_segment {seg.describe()} in {tuple(x.shape)} -> "
+          f"{tuple(kernel.shape)}: bit-equal to the per-layer kernel route "
+          f"in {runs} input/gate/cluster runs; layer-by-layer vs "
+          f"plain flips {flips}, near-threshold band {near}; whole-chain "
+          f"plain differs at {differ} of {kernel.numel()}; MACs dense "
+          f"{segment_macs(specs, **kw)} live {live_macs}; ms kernel "
+          f"(inline, cluster {DEFAULT_CLUSTER}) {ms:.4f}, by gate/cluster "
+          f"{ms_c}, plain {plain_ms:.4f}, per-layer route "
+          f"{route_ms:.4f}")
 
 
 def fire(p, y5, name, st, lif_kw):
@@ -982,12 +1134,15 @@ def large_isp_line(dev):
 def sweep_phase(all_archs, vox):
     """Per arch, one eager ``npu_forward`` at batch 8 on the request
     set's voxels under ``tune.tuning`` with the smoke sweep policy: each
-    firing non-depthwise conv's shape is timed on its own inputs.
-    Prints every key with its winner, its µs and the default's, and the
-    host cost of one eager launch (the roofline's LAUNCH_S).  Returns
-    arch -> (swept table, the forced-fused table over the same keys)."""
+    firing non-depthwise conv's shape and each fused-route backbone
+    segment's is timed on its own inputs.  Prints every key with its
+    winner, its µs and the default's, and the host cost of one eager
+    launch (the roofline's LAUNCH_S).  Returns arch -> (swept table, the
+    forced-fused table over its conv_lif keys, the forced-segment table
+    over its backbone_seg keys)."""
     import torch
     from repro_torch.configs.registry import get_tune_config
+    from repro_torch.core.backbones import fused_route_segments
     from repro_torch.core.npu import npu_forward
     from repro_torch.kernels import ops, tune
     from repro_torch.kernels.lif_scan import lif_scan
@@ -998,16 +1153,20 @@ def sweep_phase(all_archs, vox):
         torch.cuda.synchronize()
         keys = [tune.shape_key("conv_lif", **d)
                 for d in conv_lif_dims(p, c, vox.shape[1])]
-        check(set(t.entries) == set(keys), f"{arch}: swept keys "
-              f"{sorted(t.entries)} != the forward's {sorted(set(keys))}")
+        seg_keys = [k for _, _, k in fused_route_segments(c, vox.shape[1])]
+        check(set(t.entries) == set(keys) | set(seg_keys), f"{arch}: swept "
+              f"keys {sorted(t.entries)} != the forward's "
+              f"{sorted(set(keys) | set(seg_keys))}")
         fused = [k for k, e in t.entries.items() if e["fused"]]
-        print(f"  {arch}: swept {len(t.entries)} conv_lif shapes; fused at "
-              f"{len(fused)}: {fused}")
+        print(f"  {arch}: swept {len(keys)} conv_lif and {len(seg_keys)} "
+              f"backbone_seg shapes; fused at {len(fused)}: {fused}")
         for k, e in t.entries.items():
-            print(f"    {k}: {'fused' if e['fused'] else 'per-op'} gate "
-                  f"{e['gate']} bn {e['bn']}: {e['us']} us (default "
-                  f"{e['default_us']} us)")
-        tables[arch] = (t, ops.fused_conv_lif_table(keys))
+            route = ("per-layer" if k in seg_keys else "per-op") \
+                if not e["fused"] else "fused"
+            print(f"    {k}: {route} gate {e['gate']} bm {e['bm']} bn "
+                  f"{e['bn']}: {e['us']} us (default {e['default_us']} us)")
+        tables[arch] = (t, ops.fused_conv_lif_table(keys),
+                        ops.fused_segment_table(seg_keys))
     x = torch.ones((1, 32), device=vox.device)
     for _ in range(10):
         lif_scan(x)
@@ -1104,8 +1263,10 @@ def serve_phase(params, cfg, reqs, dev, archs, tables):
     """The engines answer the same requests: spiking-YOLO's four, then an
     all-kernel and a plain engine per arch of ``archs`` (name -> (params,
     cfg)), and per arch (spiking-YOLO's engines named "all_kernels_*")
-    an all-kernel engine built under its forced-fused table and one under
-    its swept table (``tables``).  Launch counts per engine, results
+    an all-kernel engine built under its forced-fused table, one under
+    its swept table and one under its forced-segment table (``tables``;
+    every fused-route segment on backbone_segment).  Launch counts per
+    engine, results
     checked and held to the plain engines, each layer held to its plain
     version; then the tick latency of every all-kernel engine and
     spiking-YOLO's others, in turns."""
@@ -1150,13 +1311,19 @@ def serve_phase(params, cfg, reqs, dev, archs, tables):
     tabled = []
     for arch, (p, c) in {"spiking_yolo": (params, cfg), **archs}.items():
         base = "all_kernels" if arch == "spiking_yolo" else arch
-        swept, forced = tables[arch]
-        for kind, table in (("fused", forced), ("swept", swept)):
+        swept, forced, segment = tables[arch]
+        n_seg = len(fused_segments(c, BATCH, segment))
+        check(n_seg == SEGMENTS_PER_TICK[arch], f"{arch}: the forced-segment "
+              f"table routes {n_seg} segments, want "
+              f"{SEGMENTS_PER_TICK[arch]}")
+        for kind, table in (("fused", forced), ("swept", swept),
+                            ("segment", segment)):
             with tune.pinned(table):
                 eng = all_kernels(p, c)
-            n = fused_layers(p, c, BATCH, table)
-            engines[f"{base}_{kind}"] = (eng, dict(
-                npu_launches_per_tick(c, fused=n), **tick_kernels))
+            per_tick = npu_launches_per_tick(
+                c, fused=fused_layers(p, c, BATCH, table),
+                segments=fused_segments(c, BATCH, table))
+            engines[f"{base}_{kind}"] = (eng, dict(per_tick, **tick_kernels))
             tabled.append(f"{base}_{kind}")
     for eng, _ in engines.values():
         eng.run_to_completion(clone(reqs[BATCH:]))        # warm-up
@@ -1326,8 +1493,17 @@ def main() -> int:
     vox = torch.stack([torch.as_tensor(r.voxels)
                        for r in reqs[:BATCH]], dim=1).to(dev)
 
+    from repro_torch.core.backbones import fused_route_segments, layer_runs
+    from repro_torch.kernels.backbone_fuse import describe_plan
     print("[3/6] per-kernel parity on the main path's inputs "
-          f"(batch {BATCH})")
+          f"(batch {BATCH}); segment plans at the default budget:")
+    for arch, (_, c) in {"spiking_yolo": (params, cfg), **archs}.items():
+        plans = " | ".join(describe_plan(sp, H=h, W=w, T=c.time_steps)
+                           for sp, h, w in layer_runs(c))
+        n_seg = len(fused_route_segments(c, BATCH))
+        print(f"  {arch}: {plans}  ({n_seg} on the fused route)")
+        check(n_seg == SEGMENTS_PER_TICK[arch], f"{arch}: {n_seg} fused-route "
+              f"segments, want {SEGMENTS_PER_TICK[arch]}")
     st = kernel_phase(params, cfg, vox)
     st.update(tick_kernel_phase(params, cfg, reqs, dev))
     fused_st, preview_counts = fused_isp_phase(params, cfg, reqs, dev)
@@ -1342,6 +1518,10 @@ def main() -> int:
     st["max_pool"] = KernelStats().merge(
         arch_st["spiking_vgg"]["max_pool"]).merge(
         arch_st["spiking_densenet"]["max_pool"])
+    # the segment kernel's row: every fused-route segment of the four archs
+    st["backbone_segment"] = KernelStats()
+    for sts in arch_st.values():
+        st["backbone_segment"].merge(sts["backbone_segment"])
     print("[4/6] timings (ms per tick, medians of CUDA-event runs)")
     for name, s in st.items():
         print(f"  {name}: kernel {s.ms:.4f} plain {s.plain_ms:.4f} "
@@ -1379,6 +1559,9 @@ def main() -> int:
                                  + launches["spiking_densenet"]["max_pool"])
     path_launches["spike_conv_lif"] = \
         launches["all_kernels_fused"]["spike_conv_lif"]
+    path_launches["backbone_segment"] = sum(
+        launches[n].get("backbone_segment", 0) for n in
+        ("all_kernels_segment", *(a + "_segment" for a in archs)))
     rows = [st[k].row(k, path_launches[k]) for k in KERNELS]
     print("[6/6] report")
     print(json.dumps({"serve": {"batch": BATCH, "requests": REQUESTS,

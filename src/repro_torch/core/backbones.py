@@ -4,37 +4,35 @@
 All take a voxel grid [T, B, H, W, 2] and return features
 [T, B, H/2^stages, W/2^stages, C_out]; an optional ``tape``
 (``repro_torch.core.sparsity.SparsityTape``) records per-layer spike
-rates under the reference's tags.  Layers run one at a time, each
-through its own backend dispatch (the reference's per-layer route,
-``_run_per_layer``); DenseNet's concats are plain ``torch.cat``, as the
-reference leaves them to XLA.
+rates under the reference's tags.
+
+Each backbone's linear layer run is declared as a tuple of
+``LayerSpec`` (``repro_torch.kernels.backbone_fuse``, re-exported here)
+and executed through ``_run_layers``: on the ``"cuda"`` backend (f32,
+no tape) the segment planner cuts the run into segments and each
+fusible segment of more than one layer, or of one layer with a pool,
+goes through ``repro_torch.kernels.ops.backbone_segment_op``, where the
+launch table picks the ``backbone_segment`` kernel or the per-layer
+route.  Every other case (the ``"torch"`` backend, a sparsity tape
+recording, non-f32 activations) runs the per-layer route
+(``_run_per_layer``: each layer through its own backend dispatch).
+DenseNet's concats are plain ``torch.cat``, as the reference leaves
+them to XLA; only its linear pieces, the 1x1 transition and its pool,
+go through the planner.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import torch
 
 from repro_torch.configs.base import SNNConfig
-from repro_torch.core.layers import (apply_spiking_conv, init_spiking_conv,
-                                     max_pool)
+from repro_torch.core.layers import (_check_backend, apply_spiking_conv,
+                                     init_spiking_conv, max_pool)
+# LayerSpec lives with the planner; imported from here it still works
+from repro_torch.kernels.backbone_fuse import LayerSpec, plan_segments
 
 DENSE_LAYERS_PER_BLOCK = 3
-
-
-@dataclasses.dataclass(frozen=True)
-class LayerSpec:
-    """One spiking conv layer of a linear backbone run (a copy of
-    ``repro.kernels.backbone_fuse.LayerSpec``): a max-pool of ``pool``
-    follows it when ``pool`` is non-zero."""
-    name: str
-    kernel: int = 3
-    stride: int = 1
-    depthwise: bool = False
-    cin: int = 0
-    cout: int = 0
-    pool: int = 0
 
 
 def _stage_channels(cfg: SNNConfig) -> List[int]:
@@ -59,6 +57,29 @@ def _run_per_layer(p, x, cfg: SNNConfig, specs, tape=None):
     return x
 
 
+def _run_layers(p, x, cfg: SNNConfig, specs, tape=None):
+    """A linear run of layers, fused across layer boundaries where the
+    planner allows.  The per-layer route whenever fusion cannot apply
+    (the "torch" backend, a tape recording, non-f32 activations)."""
+    if (not _check_backend(cfg) or tape is not None
+            or x.dtype != torch.float32):
+        return _run_per_layer(p, x, cfg, specs, tape)
+    from repro_torch.kernels.ops import backbone_segment_op
+    T, B, H, W, _ = x.shape
+    for seg in plan_segments(specs, H=H, W=W, T=T, dtype=x.dtype):
+        if seg.fused_route:
+            params = tuple((p[s.name]["w"], p[s.name]["scale"],
+                            p[s.name]["bias"]) for s in seg.layers)
+            # anonymous specs: the table key carries only shape facts,
+            # so same-shaped segments share one entry
+            x = backbone_segment_op(
+                x, params, specs=tuple(s.anon() for s in seg.layers),
+                tau=cfg.tau_mem, v_th=cfg.v_threshold, v_reset=cfg.v_reset)
+        else:
+            x = _run_per_layer(p, x, cfg, seg.layers, tape)
+    return x
+
+
 # --------------------------------------------------------------------- VGG
 
 def vgg_specs(cfg: SNNConfig) -> Tuple[LayerSpec, ...]:
@@ -76,7 +97,7 @@ def init_vgg(gen: torch.Generator, cfg: SNNConfig):
 
 
 def apply_vgg(p, x, cfg: SNNConfig, tape=None):
-    return _run_per_layer(p, x, cfg, vgg_specs(cfg), tape=tape)
+    return _run_layers(p, x, cfg, vgg_specs(cfg), tape=tape)
 
 
 # ---------------------------------------------------------------- DenseNet
@@ -113,12 +134,18 @@ def apply_densenet(p, x, cfg: SNNConfig,
                 tag=f"b{s}_l{l}"))
         x = torch.cat(feats, dim=-1)
         cin += layers_per_block * cfg.base_channels
-        # the block's linear tail: 1x1 transition, then a 2x2 max-pool
-        x = _run_per_layer(p, x, cfg, (LayerSpec(
-            name=f"t{s}", kernel=1, cin=cin, cout=cin // 2, pool=2),),
-            tape=tape)
+        # the block's linear tail, the piece the planner can take (a
+        # concat input has several consumers and stays per-layer)
+        x = _run_layers(p, x, cfg, densenet_transition(s, cin), tape=tape)
         cin = cin // 2
     return x
+
+
+def densenet_transition(stage: int, cin: int) -> Tuple[LayerSpec, ...]:
+    """A dense block's tail: a 1x1 transition halving its ``cin``
+    channels, then a 2x2 max-pool."""
+    return (LayerSpec(name=f"t{stage}", kernel=1, cin=cin, cout=cin // 2,
+                      pool=2),)
 
 
 # --------------------------------------------------------------- MobileNet
@@ -142,7 +169,7 @@ def init_mobilenet(gen: torch.Generator, cfg: SNNConfig):
 
 
 def apply_mobilenet(p, x, cfg: SNNConfig, tape=None):
-    return _run_per_layer(p, x, cfg, mobilenet_specs(cfg), tape=tape)
+    return _run_layers(p, x, cfg, mobilenet_specs(cfg), tape=tape)
 
 
 # -------------------------------------------------------------------- YOLO
@@ -163,7 +190,44 @@ def init_yolo_backbone(gen: torch.Generator, cfg: SNNConfig):
 
 
 def apply_yolo_backbone(p, x, cfg: SNNConfig, tape=None):
-    return _run_per_layer(p, x, cfg, yolo_specs(cfg), tape=tape)
+    return _run_layers(p, x, cfg, yolo_specs(cfg), tape=tape)
+
+
+def layer_runs(cfg: SNNConfig) -> List[Tuple[Tuple[LayerSpec, ...], int,
+                                             int]]:
+    """The linear runs one forward sends through ``_run_layers``, each
+    with its input extent (H, W): the whole backbone for VGG, MobileNet
+    and YOLO, each transition for DenseNet."""
+    if cfg.backbone != "densenet":
+        specs = {"vgg": vgg_specs, "mobilenet": mobilenet_specs,
+                 "yolo": yolo_specs}[cfg.backbone](cfg)
+        return [(specs, cfg.height, cfg.width)]
+    runs, cin = [], cfg.base_channels
+    for s in range(cfg.num_stages):
+        cin += DENSE_LAYERS_PER_BLOCK * cfg.base_channels
+        runs.append((densenet_transition(s, cin), cfg.height >> s,
+                     cfg.width >> s))
+        cin //= 2
+    return runs
+
+
+def fused_route_segments(cfg: SNNConfig, batch: int):
+    """Every segment one forward at ``batch`` sends to
+    ``backbone_segment_op`` (planned at the default budget), in order:
+    (segment, its input extent (h, w), its ``backbone_seg`` table key)."""
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.backbone_fuse import plan_inputs
+    from repro_torch.kernels.ops import segment_dims
+    out, T = [], cfg.time_steps
+    for specs, H, W in layer_runs(cfg):
+        plan = plan_segments(specs, H=H, W=W, T=T)
+        for seg, (h, w) in zip(plan, plan_inputs(plan, H=H, W=W)):
+            if seg.fused_route:
+                dims = segment_dims(tuple(s.anon() for s in seg.layers), T=T,
+                                    B=batch, H=h, W=w)
+                out.append((seg, (h, w), tune.shape_key("backbone_seg",
+                                                        **dims)))
+    return out
 
 
 BACKBONES = {

@@ -4,6 +4,8 @@ fused conv->norm->LIF layer), ``spike_dwconv`` (gated depthwise conv),
 ``max_pool`` (gated spike pooling), ``spike_matmul`` (tile-skip GEMM),
 ``lif_scan`` and ``norm_affine_lif`` (the NPU), ``event_voxel`` (DVS
 encoding), ``demosaic`` and ``nlm`` (the ISP), ``isp_fused`` (the fused
-ISP's pointwise and stencil segments).  ``build`` compiles ``csrc/``
-with ``nvcc`` at first use; ``ops`` dispatches the spiking layers onto
-them, through the launch table of ``tune`` for a firing conv layer."""
+ISP's pointwise and stencil segments), ``backbone_segment`` (a planned
+run of spiking conv layers in one launch; its planner is
+``backbone_fuse``).  ``build`` compiles ``csrc/`` with ``nvcc`` at first
+use; ``ops`` dispatches the spiking layers onto them, through the launch
+table of ``tune`` for a firing conv layer and a backbone segment."""

@@ -44,6 +44,7 @@ SOURCES = {
     "demosaic": "demosaic.cu",
     "nlm": "nlm.cu",
     "isp_fused": "isp_fused.cu",
+    "backbone_segment": "backbone_segment.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -24,12 +24,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "spike_mac.cuh"
+
 namespace repro {
 
 constexpr int kBM = 64;          // output rows per block
 constexpr int kBN = 64;          // output cols per block
 constexpr int kBKS = 16;         // K slice staged in shared memory
-constexpr int kKBlock = 128;     // canonical accumulation block
+constexpr int kKBlock = kCanonicalK;  // canonical accumulation block
 constexpr int kMaskBM = 128;     // occupancy-mask row granularity
 constexpr int kThreads = 256;    // 16 x 16 threads, 4x4 outputs each
 
@@ -102,14 +104,15 @@ gated_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
+          for (int j = 0; j < 4; ++j)
+            part[i][j] = kblock_fma(a[i], b[j], part[i][j]);
       }
       __syncthreads();
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
+      for (int j = 0; j < 4; ++j) acc[i][j] = kblock_add(acc[i][j], part[i][j]);
   }
 
 #pragma unroll

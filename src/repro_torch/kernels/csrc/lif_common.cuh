@@ -1,7 +1,8 @@
 // The instance-norm statistics and the normalise + affine + LIF step,
-// shared by the per-op epilogue (norm_affine_lif.cu) and the fused
-// conv->LIF kernel (spike_conv_lif.cu), so the two give the same spikes
-// from the same conv output.
+// shared by the per-op epilogue (norm_affine_lif.cu), the fused
+// conv->LIF kernel (spike_conv_lif.cu) and the fused backbone segment
+// (backbone_segment.cu), so all three give the same spikes from the same
+// conv output.
 //
 // Statistics of one (b, c) over its rows i = t*HW + hw: each of
 // kRowClasses classes (i mod kRowClasses) sums its rows in increasing i
@@ -23,6 +24,15 @@ __device__ __forceinline__ double class_total(const double* cls,
                                               int stride) {
   double s = 0.0;
   for (int r = 0; r < kRowClasses; ++r) s += cls[r * stride];
+  return s;
+}
+
+// the same total of class sums that other blocks of a thread-block
+// cluster wrote to global memory: read from L2 (__ldcg), past an SM's L1
+__device__ __forceinline__ double class_total_l2(const double* cls,
+                                                 int stride) {
+  double s = 0.0;
+  for (int r = 0; r < kRowClasses; ++r) s += __ldcg(cls + r * stride);
   return s;
 }
 

@@ -184,12 +184,12 @@ spike_conv_lif_kernel(const float* __restrict__ P,
           const float w = Bs[kk * NC + n];
 #pragma unroll
           for (int i = 0; i < TM; ++i)
-            part[i] = fmaf(As[kk * LDA + g * TM + i], w, part[i]);
+            part[i] = repro::kblock_fma(As[kk * LDA + g * TM + i], w, part[i]);
         }
         __syncthreads();
       }
 #pragma unroll
-      for (int i = 0; i < TM; ++i) cur[i] = __fadd_rn(cur[i], part[i]);
+      for (int i = 0; i < TM; ++i) cur[i] = repro::kblock_add(cur[i], part[i]);
     }
 #pragma unroll
     for (int i = 0; i < TM; ++i) {

@@ -24,9 +24,12 @@
 //
 // Rounding: taps accumulate in order t = i*kw + j from +0.0, one
 // round-to-nearest multiply and one add each (__fmul_rn/__fadd_rn, no FMA
-// contraction), as the plain tap loop does: equal bits on any input.
+// contraction; spike_mac.cuh dw_tap), as the plain tap loop does: equal
+// bits on any input.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "spike_mac.cuh"
 
 namespace {
 
@@ -56,7 +59,7 @@ spike_dwconv_kernel(const float* __restrict__ x, const float* __restrict__ w,
         if (wi < 0 || wi >= W) continue;
         const float v = xn[((int64_t)hi * W + wi) * C];
         if (v != 0.f)
-          acc = __fadd_rn(acc, __fmul_rn(v, w[(i * kw + j) * C + c]));
+          acc = repro::dw_tap(acc, v, w[(i * kw + j) * C + c]);
       }
     }
     out[idx] = acc;

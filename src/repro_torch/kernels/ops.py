@@ -6,7 +6,10 @@ config through the shape-keyed launch table (``repro_torch.kernels.tune``,
 op ``"conv_lif"``): the fused conv->LIF kernel (``spike_conv_lif``) or
 the per-op pair (``spike_conv`` then ``norm_affine_lif``) under the
 chosen gate.  An untuned shape takes the per-op pair under the
-``"mask"`` gate; the other ops have one launch each (the spike matmul
+``"mask"`` gate.  A planned backbone segment (``backbone_segment_op``,
+op ``"backbone_seg"``) runs as one ``backbone_segment`` launch or on
+the per-layer route, each layer through its own dispatch; untuned, the
+per-layer route.  The other ops have one launch each (the spike matmul
 gates in the kernel).
 
 Each op reshapes between the layers' [T, B, ...] layout and the flat
@@ -20,8 +23,15 @@ from typing import Iterable
 
 import torch
 
-from repro_torch.core.layers import _same_pads, spike_im2col, unfold
+from repro_torch.core.layers import _same_pads, fold, spike_im2col, unfold
 from repro_torch.kernels import tune
+from repro_torch.kernels.backbone_fuse import (segment_activation_elems,
+                                               segment_edge_elems,
+                                               segment_macs,
+                                               segment_unfused_launches)
+from repro_torch.kernels.backbone_segment import (DEFAULT_CLUSTER,
+                                                  backbone_segment,
+                                                  segment_operands)
 from repro_torch.kernels.blocks import DEFAULT_BK, DEFAULT_BM
 from repro_torch.kernels.lif_scan import lif_scan, norm_affine_lif
 from repro_torch.kernels.max_pool import max_pool
@@ -160,4 +170,89 @@ def fused_conv_lif_table(keys: Iterable[str],
         table.record(key, tune.LaunchConfig(bn=widths[0], gate=gate,
                                             fused=True),
                      float("nan"), float("nan"))
+    return table
+
+
+# ---------------------------------------------------------------------------
+# backbone_segment_op: a planned segment as one launch or per layer
+# ---------------------------------------------------------------------------
+
+def segment_dims(specs, *, T: int, B: int, H: int, W: int):
+    """The launch-table dims of a segment of anonymous ``specs`` on a
+    [T, B, H, W, C] input: the extent, each layer's ``dim_token``
+    (``L0``, ``L1``, ...) and the aggregate terms of the estimate: MACs
+    ``F``, conv-output elements ``A``, edge elements ``E`` (input,
+    weights, output) and the per-layer route's device operations ``U``."""
+    dims = dict(T=T, B=B, H=H, W=W)
+    for i, s in enumerate(specs):
+        dims[f"L{i}"] = s.dim_token
+    kw = dict(H=H, W=W, T=T, B=B)
+    dims.update(F=segment_macs(specs, **kw),
+                A=segment_activation_elems(specs, **kw),
+                E=segment_edge_elems(specs, **kw),
+                U=segment_unfused_launches(specs))
+    return dims
+
+
+def _seg_unfused(x, params, specs, lif):
+    """The per-layer route of a segment, as ``_run_per_layer`` runs it on
+    the "cuda" backend: each firing conv through its own ``conv_lif``
+    dispatch, a depthwise layer through ``spike_dwconv`` and
+    ``norm_affine_lif``, a pool through ``max_pool``."""
+    for (w, scale, bias), s in zip(params, specs):
+        T, B = x.shape[:2]
+        if s.depthwise:
+            y = unfold(spike_dwconv_op(fold(x), w, stride=s.stride), T, B)
+            x = norm_affine_lif_op(y, scale, bias, **lif)
+        else:
+            x = spike_conv_lif_op(fold(x), w, scale, bias, T=T, B=B,
+                                  stride=s.stride, **lif)
+        if s.pool:
+            x = unfold(max_pool_op(fold(x), window=s.pool), T, B)
+    return x
+
+
+def backbone_segment_op(x: torch.Tensor, params, *, specs,
+                        tau: float = 2.0, v_th: float = 1.0,
+                        v_reset: float = 0.0) -> torch.Tensor:
+    """One planned backbone segment (``backbone_fuse.plan_segments``)
+    through one dispatch point.  x [T, B, H, W, C] spikes; params the
+    (w, scale, bias) of each layer; specs its anonymous ``LayerSpec``s
+    (same-shaped segments share one table entry) -> spikes after the
+    last layer, pooling absorbed.  The launch table decides per shape:
+    the ``backbone_segment`` kernel under its gate and cluster size
+    (``LaunchConfig.gate``/``bm``) or the per-layer route (the default);
+    both give the same spikes."""
+    T, B, H, W, _ = x.shape
+    specs = tuple(specs)
+    dims = segment_dims(specs, T=T, B=B, H=H, W=W)
+    lif = dict(tau=tau, v_th=v_th, v_reset=v_reset)
+
+    def run(cfg):
+        if cfg.fused:
+            return backbone_segment(x.contiguous(),
+                                    segment_operands(params, specs),
+                                    specs=specs, gate=cfg.gate,
+                                    cluster=cfg.bm, **lif)
+        return _seg_unfused(x, params, specs, lif)
+    runner, live = None, 1.0
+    if tune.tuning_active():
+        live = float((x != 0).float().mean())
+        runner = run
+    return run(tune.dispatch("backbone_seg", dims, runner, live=live))
+
+
+def fused_segment_table(keys: Iterable[str], gate: str = "inline",
+                        cluster: int = DEFAULT_CLUSTER) -> tune.TuningTable:
+    """A table that routes every ``backbone_seg`` key of ``keys`` to the
+    ``backbone_segment`` kernel under ``gate`` with ``cluster`` blocks
+    per batch element (entries forced, not timed: their µs are NaN).
+    Other keys are left out."""
+    table = tune.TuningTable()
+    for key in keys:
+        op, _ = tune.parse_key(key)
+        if op == "backbone_seg":
+            table.record(key, tune.LaunchConfig(bm=cluster, gate=gate,
+                                                fused=True),
+                         float("nan"), float("nan"))
     return table

@@ -3,11 +3,16 @@ the counterpart of ``repro.kernels.tune`` for the port's kernels.
 
 For each (op, layer shape) a sweep times the launch choices the port's
 kernels really take against the layer's own inputs and keeps the winner
-in a table.  Today one op has choices: ``conv_lif``, a whole firing conv
+in a table.  Two ops have choices.  ``conv_lif``, a whole firing conv
 layer, runs either the fused kernel (``spike_conv_lif``, under its gate
 and channel-slice width ``bn``) or the per-op pair (``spike_conv`` then
-``norm_affine_lif``, under the conv's gate).  Every other op resolves to
-its one default until its kernels take launch choices.
+``norm_affine_lif``, under the conv's gate).  ``backbone_seg``, a
+planned backbone segment, runs either the ``backbone_segment`` kernel
+(under the gate "inline" or "none", ``bm`` blocks per batch element) or
+the per-layer route, each layer through its own dispatch.  Every other
+op resolves to its one default until its kernels take launch choices.
+A segment's key carries each layer's shape token (``L0k3s1c64n64d0p0``,
+no layer name), so same-shaped segments share one entry.
 
 How a sweep is bounded: the candidates of a shape are ranked by the
 roofline estimate (``repro_torch.launch.roofline``, H100 figures), and
@@ -42,13 +47,15 @@ import functools
 import json
 import math
 import os
+import re
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import TuneConfig
 from repro_torch.configs.registry import get_tune_config
+from repro_torch.kernels.backbone_segment import MAX_LAYERS
 from repro_torch.kernels.blocks import DEFAULT_BK, DEFAULT_BM, DEFAULT_BN
 from repro_torch.kernels.spike_conv_lif import slice_widths
 from repro_torch.launch.roofline import SMS, kernel_launch_estimate
@@ -64,7 +71,9 @@ DEFAULT_TABLE_PATH = os.path.join(os.path.dirname(__file__),
 @dataclasses.dataclass(frozen=True)
 class LaunchConfig:
     """One launch decision: tile shapes, gate mode, fusion variant.  For
-    the fused ``conv_lif`` kernel ``bn`` is its channels per block."""
+    the fused ``conv_lif`` kernel ``bn`` is its channels per block; for
+    the ``backbone_segment`` kernel ``bm`` is its blocks per batch
+    element (the cluster size)."""
     bm: int = DEFAULT_BM
     bn: int = DEFAULT_BN
     bk: int = DEFAULT_BK
@@ -90,13 +99,24 @@ def shape_key(op: str, **dims) -> str:
     return op + "|" + ",".join(f"{k}{v}" for k, v in sorted(dims.items()))
 
 
-def parse_key(key: str) -> Tuple[str, Dict[str, int]]:
-    """The (op, dims) of a ``shape_key`` whose dims are integers."""
+_TOKEN_DIM = re.compile(r"([A-Z]+\d*)([a-z].*)")
+_INT_DIM = re.compile(r"([A-Za-z]+)(\d+)")
+
+
+def parse_key(key: str) -> Tuple[str, Dict[str, Union[int, str]]]:
+    """The (op, dims) of a ``shape_key``: integer dims (``HW1024``), and
+    layer tokens (``L0k3s1c64n64d0p0`` -> ``L0``: ``"k3s1c64n64d0p0"``)."""
     op, _, rest = key.partition("|")
-    dims = {}
+    dims: Dict[str, Union[int, str]] = {}
     for part in rest.split(",") if rest else ():
-        i = len(part.rstrip("0123456789"))
-        dims[part[:i]] = int(part[i:])
+        m = _TOKEN_DIM.fullmatch(part)
+        if m is not None:
+            dims[m.group(1)] = m.group(2)
+            continue
+        m = _INT_DIM.fullmatch(part)
+        if m is None:
+            raise ValueError(f"bad dim {part!r} in key {key!r}")
+        dims[m.group(1)] = int(m.group(2))
     return op, dims
 
 
@@ -290,16 +310,33 @@ def _resolve_cached(op: str, key: str, epoch: int) -> LaunchConfig:
 # ---------------------------------------------------------------------------
 
 _CONV_GATES = ("mask", "inline", "none")
+SEGMENT_CLUSTERS = (16, 8)  # backbone_segment cluster sizes swept
 _FUSED_WIDTHS = 3           # the widest slice widths that fit, per gate
 _MASK_OPS = 4               # device ops of the plain occupancy reduction
 
 
-def candidates(op: str, dims: Dict[str, int],
-               tune_cfg: TuneConfig) -> List[LaunchConfig]:
+_SEG_GATES = ("inline", "none")
+
+
+def _segment_layers(dims: Dict) -> int:
+    """Layers of a ``backbone_seg`` key's segment (its ``L<i>`` tokens)."""
+    return sum(1 for k in dims if re.fullmatch(r"L\d+", k))
+
+
+def candidates(op: str, dims: Dict, tune_cfg: TuneConfig) -> List[LaunchConfig]:
     """The launch configs the port's kernels take at (op, shape): never
     one that cannot launch there.  Capped at ``max_candidates``."""
     out: List[LaunchConfig] = []
-    if op == "conv_lif":
+    if op == "backbone_seg":
+        # the kernel under both gates (no "mask": interior patch matrices
+        # never exist outside it) at each cluster size, then the
+        # per-layer route
+        if _segment_layers(dims) <= MAX_LAYERS:
+            for gate in _SEG_GATES:
+                for cs in SEGMENT_CLUSTERS:
+                    out.append(LaunchConfig(bm=cs, gate=gate, fused=True))
+        out.append(LaunchConfig(fused=False))
+    elif op == "conv_lif":
         widths = slice_widths(dims["T"] * dims["HW"], dims["N"])
         for gate in _CONV_GATES:
             for w in widths[:_FUSED_WIDTHS]:
@@ -311,10 +348,27 @@ def candidates(op: str, dims: Dict[str, int],
     return out[:tune_cfg.max_candidates]
 
 
-def estimate(op: str, dims: Dict[str, int], cfg: LaunchConfig,
+def _segment_estimate(dims: Dict, cfg: LaunchConfig, live: float) -> float:
+    """A segment: the kernel crosses device memory once, at the segment's
+    edges (``E``), in one launch, on B clusters of ``bm`` blocks; the
+    per-layer route round-trips each layer's conv output (``A``: written,
+    copied, read three times by the epilogue, its spikes written and
+    read) in ``U`` device operations."""
+    frac = live if cfg.gate != "none" else 1.0
+    if cfg.fused:
+        flops = 2.0 * dims["F"] * frac * max(1.0, SMS / (dims["B"] * cfg.bm))
+        return kernel_launch_estimate(flops, 4.0 * dims["E"], 1)
+    flops = 2.0 * dims["F"] * live
+    return kernel_launch_estimate(flops, 4.0 * (dims["E"] + 7 * dims["A"]),
+                                  dims["U"])
+
+
+def estimate(op: str, dims: Dict, cfg: LaunchConfig,
              live: float = 1.0) -> float:
     """Roofline estimate (seconds) used to RANK candidates; ``live`` is
     the live-activation fraction of the inputs, which the gates skip."""
+    if op == "backbone_seg":
+        return _segment_estimate(dims, cfg, live)
     if op != "conv_lif":
         return kernel_launch_estimate(0.0, 0.0, 1)
     B, M = dims["B"], dims["B"] * dims["T"] * dims["HW"]

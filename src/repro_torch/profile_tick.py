@@ -3,7 +3,7 @@
     python -m repro_torch.profile_tick [--arch spiking_yolo] [--ticks 20]
         [--batch 8] [--backend cuda] [--enc-backend torch|cuda]
         [--isp-backend torch|cuda|cuda_fused]
-        [--tune-table PATH | --sweep-to PATH]
+        [--tune-table PATH | --sweep-to PATH] [--segments]
 
 Serves one of the paper's four backbones at full width (``--arch``, a
 name of ``SNN_ARCHS``: spiking_yolo, spiking_vgg, spiking_mobilenet or
@@ -18,7 +18,10 @@ JSON) that the engine snapshots; ``--sweep-to`` first sweeps one on the
 tick's own voxels (one eager ``npu_forward`` under ``tune.tuning``, the
 "smoke" policy), saves it there and profiles with it; with neither the
 engine takes the active chain (``REPRO_TORCH_TUNE_TABLE``, else the
-untuned per-op route).
+untuned per-op route).  ``--segments`` adds to that table (or to an
+empty one) an entry per fused-route backbone segment of the arch that
+sends it to the ``backbone_segment`` kernel: the forced-segment tick.
+A table's ``backbone_seg`` entries serve as its ``conv_lif`` ones do.
 Prints, per tick: the host wall time, the host time inside each stage
 span (``tick.upload``/``encode``/``npu``/``isp``/``fetch``, set by
 ``EngineCore``), the device busy time (the sum of kernel and copy times)
@@ -40,8 +43,10 @@ import torch
 
 from repro_torch.configs.registry import (ENCODING_CONFIGS, ISP_CONFIGS,
                                          SNN_ARCHS, get_tune_config)
+from repro_torch.core.backbones import fused_route_segments
 from repro_torch.core.npu import init_npu, npu_forward
 from repro_torch.kernels import tune
+from repro_torch.kernels.ops import fused_segment_table
 from repro_torch.serve.cognitive_engine import (CognitiveEngine,
                                                 PerceptionRequest)
 
@@ -79,6 +84,9 @@ def main(argv=None) -> int:
     tables.add_argument("--sweep-to", default=None,
                         help="sweep a launch table on the tick's voxels, "
                              "save it here and serve with it")
+    ap.add_argument("--segments", action="store_true",
+                    help="route every fused-route backbone segment to the "
+                         "backbone_segment kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_tick: needs a CUDA device")
@@ -103,6 +111,16 @@ def main(argv=None) -> int:
         fused = sorted(k for k, e in table.entries.items() if e["fused"])
         print(f"swept {len(table.entries)} shapes into {args.sweep_to}; "
               f"fused at {fused}")
+    if args.segments:
+        keys = [k for _, _, k in fused_route_segments(cfg, args.batch)]
+        if not keys:
+            raise SystemExit(f"profile_tick: {args.arch} has no fused-route "
+                             f"segment")
+        forced = fused_segment_table(keys)
+        if table is not None:
+            forced.entries = dict(table.entries, **forced.entries)
+        table = forced
+        print(f"forced {len(keys)} backbone segments onto the kernel")
     with tune.pinned(table):             # the engine snapshots it
         eng = CognitiveEngine(
             params, cfg, batch=args.batch,
@@ -157,6 +175,7 @@ def main(argv=None) -> int:
     print(json.dumps({
         "arch": args.arch, "backend": args.backend,
         "tune_table": args.tune_table or args.sweep_to,
+        "segments": args.segments,
         "enc_backend": args.enc_backend, "isp_backend": args.isp_backend,
         "batch": args.batch, "ticks": n,
         "device": torch.cuda.get_device_name(0),

@@ -269,7 +269,8 @@ def test_npu_forward_forced_fused_equals_per_op(arch):
 
 
 WRAPPERS = ("spike_conv", "spike_conv_lif", "norm_affine_lif",
-            "spike_dwconv", "max_pool", "lif_scan", "spike_matmul")
+            "spike_dwconv", "max_pool", "lif_scan", "spike_matmul",
+            "backbone_segment")
 
 
 @pytest.mark.parametrize("arch", sorted(SNN_ARCHS))
@@ -278,7 +279,9 @@ def test_engine_launches_per_tick_under_a_table(arch, monkeypatch):
     and an empty table: kernel-wrapper calls per tick equal chip_smoke's
     formula (spike_conv_lif once per firing non-depthwise conv, the
     readout on spike_conv, norm_affine_lif on the depthwise layers
-    alone), and the results equal the untuned engine's."""
+    alone; a backbone segment the sweep sent to its kernel one
+    backbone_segment call for its layers), and the results equal the
+    untuned engine's."""
     cfg = reduced_snn(arch, backend="cuda")
     params = init_npu(torch.Generator().manual_seed(0), cfg, device="cpu")
     rng = np.random.default_rng(2)
@@ -310,7 +313,8 @@ def test_engine_launches_per_tick_under_a_table(arch, monkeypatch):
         done = eng.run_to_completion([PerceptionRequest(**r) for r in reqs])
         assert eng.ticks == 1 and len(done) == B
         want = chip_smoke.npu_launches_per_tick(
-            cfg, fused=chip_smoke.fused_layers(params, cfg, B, table))
+            cfg, fused=chip_smoke.fused_layers(params, cfg, B, table),
+            segments=chip_smoke.fused_segments(cfg, B, table))
         assert dict(calls) == {k: v for k, v in want.items() if v}, label
         results[label] = {r.rid: r.result for r in done}
     # at full width: the counts chip_smoke checks on the card

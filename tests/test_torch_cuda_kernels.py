@@ -19,8 +19,14 @@ and on real values) and the max-pool has no rounding (equal, both gate
 modes).  The fused conv->LIF kernel sums its conv as spike_conv and its
 statistics as norm_affine_lif do, so its spikes are held to the per-op
 kernel pair and to its plain version by the near-threshold rule (1e-4),
-under every gate and channel-slice width.
+under every gate and channel-slice width.  The backbone segment kernel
+sums its convs and statistics as the per-layer kernels do, so its spikes
+equal the per-layer kernel route's (equal, both gates, every cluster
+size), and each of its layers is held to the plain layer on the route's
+own input by the near-threshold rule (1e-4).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -34,7 +40,11 @@ from repro_torch.isp.demosaic import demosaic_mhc
 from repro_torch.isp.fuse import compile_plan, segment_call
 from repro_torch.isp.nlm import nlm_denoise
 from repro_torch.isp.stages import control_to_stage_params
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops, tune
+from repro_torch.kernels.backbone_fuse import LayerSpec
+from repro_torch.kernels.backbone_segment import (backbone_segment,
+                                                  segment_layer_plain,
+                                                  segment_operands)
 from repro_torch.kernels.demosaic import demosaic
 from repro_torch.kernels.event_voxel import event_voxel
 from repro_torch.kernels.lif_scan import lif_scan, norm_affine_lif
@@ -315,6 +325,98 @@ def test_isp_fused_segments_match_plain(dev, name, B, H, W):
         x = want.contiguous()
 
 
+# (T, B, H, density, silent batch elements, specs)
+SEG_CASES = {
+    "canonical_pair_pool": (3, 2, 12, 0.15, 0, (
+        LayerSpec("", cin=2, cout=8), LayerSpec("", cin=8, cout=8, pool=2),
+        LayerSpec("", kernel=1, cin=8, cout=16))),
+    "stride2_chain": (5, 3, 16, 0.2, 0, (
+        LayerSpec("", stride=2, cin=16, cout=32),
+        LayerSpec("", cin=32, cout=32),
+        LayerSpec("", stride=2, cin=32, cout=64))),
+    "depthwise_inside": (3, 2, 17, 0.2, 0, (
+        LayerSpec("", stride=2, depthwise=True, cin=24, cout=24),
+        LayerSpec("", kernel=1, cin=24, cout=48),
+        LayerSpec("", stride=2, depthwise=True, cin=48, cout=48),
+        LayerSpec("", kernel=1, cin=48, cout=256))),
+    "single_layer_pool": (5, 2, 16, 0.3, 0, (
+        LayerSpec("", kernel=1, cin=132, cout=66, pool=2),)),
+    "partly_silent": (5, 4, 16, 0.2, 2, (
+        LayerSpec("", cin=64, cout=64),
+        LayerSpec("", stride=2, cin=64, cout=128))),
+}
+
+
+def _segment_case(name, dev):
+    T, B, H, dens, silent, specs = SEG_CASES[name]
+    rng = np.random.default_rng(len(name) + H)
+    x = (rng.random((T, B, H, H, specs[0].cin)) < dens).astype(np.float32)
+    x[:, :silent] = 0.0
+    params = []
+    for s in specs:
+        n = s.cin if s.depthwise else s.cout
+        w = rng.normal(0, 0.5, (s.kernel, s.kernel, 1 if s.depthwise
+                                else s.cin, n))
+        params.append(tuple(torch.tensor(a.astype(np.float32), device=dev)
+                            for a in (w, rng.normal(1, 0.2, n),
+                                      rng.normal(0, 0.2, n))))
+    return torch.tensor(x, device=dev), tuple(params), specs
+
+
+def _per_layer_route(x, params, specs):
+    """The per-layer kernel route, layer by layer: each layer's input,
+    then the output."""
+    ins = []
+    with tune.off():
+        for p, s in zip(params, specs):
+            ins.append(x.contiguous())
+            x = ops._seg_unfused(x, (p,), (s,), LIF)
+    return ins, x
+
+
+LIF = dict(tau=2.0, v_th=1.0, v_reset=0.0)
+
+
+@pytest.mark.parametrize("gate", ["inline", "none"])
+@pytest.mark.parametrize("case", sorted(SEG_CASES))
+def test_backbone_segment_equals_per_layer_route(dev, case, gate):
+    x, params, specs = _segment_case(case, dev)
+    ins, want = _per_layer_route(x, params, specs)
+    flat = segment_operands(params, specs)
+    for cluster in (16, 8, 1):
+        got = backbone_segment(x, flat, specs=specs, gate=gate,
+                               cluster=cluster, **LIF)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (cluster, float((got != want)
+                                                       .float().mean()))
+    # each layer alone, on the route's own input, held to the plain layer
+    for i, (s, xin) in enumerate(zip(specs, ins)):
+        s0 = dataclasses.replace(s, pool=0)
+        w, sc, bi = flat[3 * i:3 * i + 3]
+        got = backbone_segment(xin, (w, sc, bi), specs=(s0,), gate=gate,
+                               **LIF)
+        y4, _ = segment_layer_plain(xin.cpu(), w.cpu(), s0)
+        z = instance_norm_affine(y4, sc.cpu(), bi.cpu())
+        res = spike_mismatch(z, got.reshape(z.shape), tol=1e-4)
+        assert res["far"] == 0, (i, res)
+
+
+def test_backbone_segment_raises_on_what_it_does_not_take(dev):
+    x, params, specs = _segment_case("stride2_chain", dev)
+    flat = segment_operands(params, specs)
+    with pytest.raises(ValueError, match="gate"):
+        backbone_segment(x, flat, specs=specs, gate="mask")
+    with pytest.raises(ValueError, match="cluster"):
+        backbone_segment(x, flat, specs=specs, cluster=3)
+    with pytest.raises(ValueError, match="stride"):
+        backbone_segment(x, flat, specs=(dataclasses.replace(
+            specs[0], stride=3),) + specs[1:])
+    with pytest.raises(TypeError, match="float32"):
+        backbone_segment(x.double(), flat, specs=specs)
+    with pytest.raises(ValueError, match="operands"):
+        backbone_segment(x, flat[3:] + flat[:3], specs=specs)
+
+
 def test_launch_counters(dev):
     build.reset_launches()
     x = torch.ones(5, 64, device=dev)
@@ -345,9 +447,15 @@ def test_launch_counters(dev):
     spike_conv_lif(p, torch.ones(9, 4, device=dev), one, one, T=3, B=2, HW=4)
     spike_conv_lif(p.cpu(), torch.ones(9, 4), one.cpu(), one.cpu(), T=3,
                    B=2, HW=4)                               # plain
+    seg = (LayerSpec("", cin=4, cout=4, pool=2),)
+    flat = (torch.ones(128, 4, device=dev), one, one)
+    x5 = xf.reshape(2, 1, 8, 8, 4)
+    backbone_segment(x5, flat, specs=seg)
+    backbone_segment(x5.cpu(), tuple(t.cpu() for t in flat),
+                     specs=seg)                             # plain
     torch.cuda.synchronize()
     assert build.LAUNCHES == {"lif_scan": 1, "spike_matmul": 1,
-                              "spike_conv_lif": 1,
+                              "spike_conv_lif": 1, "backbone_segment": 1,
                               "event_voxel": 1, "demosaic": 1, "nlm": 1,
                               "isp_stencil_segment": 2,
                               "isp_pointwise_segment": 1,

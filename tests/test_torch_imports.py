@@ -34,7 +34,8 @@ def test_every_module_imports_without_jax_or_repro():
               "kernels.event_voxel", "kernels.demosaic", "kernels.nlm",
               "kernels.isp_fused", "isp.fuse", "kernels.spike_dwconv",
               "kernels.max_pool", "core.backbones", "kernels.tune",
-              "kernels.spike_conv_lif", "launch.roofline"):
+              "kernels.spike_conv_lif", "launch.roofline",
+              "kernels.backbone_fuse", "kernels.backbone_segment"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
