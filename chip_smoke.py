@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's cognitive serving tick on one NVIDIA GPU, on
-the paper's four spiking backbones, and hold each hand-written CUDA
-kernel against its plain PyTorch version.
+the paper's four spiking backbones, and its LM serving path on
+full-width qwen2-7b, and hold each hand-written CUDA kernel against its
+plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -55,7 +56,10 @@ Phases (any failure raises and exits non-zero):
              again with half the batch silent: bit-equal to the
              per-layer kernel route each time, and each layer of the
              route held to the plain layer on its own input by the
-             near-threshold rule (flips and band printed);
+             near-threshold rule (flips and band printed).  Last, VGG's
+             first-layer patches at batch 205 (more 64-row tiles than
+             gridDim.y holds) through spike_conv and spike_matmul,
+             allclose to the plain GEMM;
 4. timings — per kernel, device-time medians (CUDA events behind a spin
              kernel, so host launch overhead is not counted) over 30 runs
              of every launch of a tick (kernel, plain version, one
@@ -115,7 +119,38 @@ Phases (any failure raises and exits non-zero):
              same bars; then the tick latency (p50, p90) of spiking-YOLO's
              four engines and every other all-kernel engine (untuned,
              forced-fused, swept, forced-segment), in turns;
-6. report  — one JSON line of per-kernel numbers, the card line, and
+6. LM      — after the SNN engines' memory is released: full-width
+             qwen2-7b (28 layers, bf16, random weights from a CUDA
+             generator seeded 0; parameter count and bytes resident
+             printed); serve_prefill of 2 numpy-seeded prompts of 4096
+             tokens (cache 4112) with exactly 28 flash_attention
+             launches; the kernel against its plain scan on layer 0's
+             and the last layer's own q/k/v, bf16 (the rounding bound
+             2^-8 (A + |got| + |plain|) + 1e-5, A the attention over |v|:
+             P is rounded to bf16 for the P.V product and both outputs
+             to bf16; capped at 2e-2 + 1e-2 |plain|; the median |plain|
+             printed beside it) and float32 copies (1e-5); the same
+             prefill on the plain scan, its last logits' max relative
+             difference below 0.05 and the argmax equal wherever the
+             plain top-2 margin exceeds twice the largest logit
+             difference; 16 greedy serve_decode steps from the
+             prefill cache with no flash_attention launch; at 2 layers in
+             float32 the decode of token 4096 after a 4095-token prefill
+             against the 4096-token prefill (rel < 1e-4); the decode's
+             f32 wo product (bf16 parts, one GEMM) against a float32
+             copy of wo (rel < 1e-5); ServeEngine at
+             full width (batch 4, max_len 128, 6 requests of 4-7 tokens,
+             8 new tokens each) answering every request with in-range
+             tokens, and on the 2-layer float32 model each request's
+             tokens equal to its serve_prefill + serve_decode
+             continuation; then flash_attention's time per prefill (28
+             launches, each on its layer's own inputs), its plain scan's,
+             SDPA's (library) and its bound (visible pairs at the 989
+             TFLOP/s bf16 peak, or bytes), prefill tokens/s, the decode
+             step and the engine tick p50/p90, and one prefill and five
+             decode steps under torch.profiler (device ops, busy time,
+             idle share, the costliest device ops);
+7. report  — one JSON line of per-kernel numbers, the card line, and
              the result line ``{"ok": true, "device": {...}}`` last.
 
 Run alone (without ``src/``) or without a card, it fails before any
@@ -146,6 +181,25 @@ E2E_TOL = 1e-4                  # end-to-end raw_pred, control and rgb
 NLM_TOL = 1e-6
 LARGE_HW = 512                  # the extra demosaic/nlm timing line
 SPIN_CYCLES_PER_S = 2e9         # ~ the H100's SM clock, for the spin kernel
+# the grid-cap check: VGG's first layer at this batch has more 64-row
+# tiles (5 * 205 * 64 * 64 rows) than gridDim.y holds (65535)
+GRID_CAP_BATCH = 205
+# LM serving: full-width qwen2-7b, 2 prompts of train_4k's 4096 tokens
+LM_ARCH = "qwen2-7b"
+LM_BATCH = 2
+LM_SEQ = 4096
+LM_DECODE = 16                  # greedy decode steps after the prefill
+LM_CHECK_LAYERS = 2             # depth of the float32 decode-vs-prefill check
+LM_ENGINE = dict(batch=4, max_len=128, requests=6, max_new=8)
+LM_PLAIN_REPS = 5               # the plain scan's timing runs per layer
+F32_TOL = 1e-5                  # flash kernel vs plain, float32
+# flash kernel vs plain, bfloat16: the rounding bound of
+# kernels.flash_attention.bf16_error_bound, never past this fixed bar
+BF16_ATOL, BF16_RTOL = 2e-2, 1e-2
+# the prefill's last logits on the kernel vs on the plain scan, max
+# |diff| over max |logit|: 28 bf16 layers carry the kernel's rounding of
+# P forward (0.020 measured on an H100, 700 W)
+LOGITS_REL_TOL = 0.05
 
 # name -> (source in the repo, the TPU kernel it replaces)
 KERNELS = {
@@ -175,6 +229,8 @@ KERNELS = {
                  "src/repro/kernels/backbone_fuse.py:509"),
     "backbone_segment": ("src/repro_torch/kernels/csrc/backbone_segment.cu",
                          "src/repro/kernels/backbone_fuse.py:423"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:57"),
 }
 NPU_KERNELS = ("spike_conv", "spike_conv_lif", "norm_affine_lif", "lif_scan",
                "spike_matmul", "spike_dwconv", "max_pool", "backbone_segment")
@@ -348,13 +404,13 @@ class KernelStats:
         self.shapes = []
 
     def add(self, shape, ms, plain_ms, nbytes, nops, err, library_ms=None,
-            per_op_ms=None):
+            per_op_ms=None, peak_flops=FP32_FLOPS):
         self.shapes.append(shape)
         if per_op_ms is not None:
             self.per_op_ms = (self.per_op_ms or 0.0) + per_op_ms
         self.ms += ms
         self.plain_ms += plain_ms
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / FP32_FLOPS * 1e3
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / peak_flops * 1e3
         self.bound_ms += max(tb, to)
         self.bytes_s += tb
         self.ops_s += to
@@ -1447,6 +1503,387 @@ def cognitive_phase(params, cfg, reqs, dev):
 
 
 # ---------------------------------------------------------------------------
+# the LM phase: serving full-width qwen2-7b
+# ---------------------------------------------------------------------------
+
+def tensors(tree):
+    """Every tensor of a nested dict / list of tensors."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in tensors(x)]
+    return [tree]
+
+
+def grid_cap_check(vgg_params, vgg_cfg, vox):
+    """spike_conv and spike_matmul on VGG's first-layer patches at batch
+    GRID_CAP_BATCH (the batch-8 voxels tiled): more 64-row tiles than
+    gridDim.y holds, held to the plain GEMM."""
+    import torch
+    from repro_torch.core import backbones as BB
+    from repro_torch.core import layers as L
+    from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
+    from repro_torch.kernels.spike_matmul import spike_matmul
+
+    spec = BB.vgg_specs(vgg_cfg)[0]
+    p = vgg_params["backbone"][spec.name]
+    B = vox.shape[1]
+    x = vox.repeat(1, -(-GRID_CAP_BATCH // B), 1, 1, 1)[:, :GRID_CAP_BATCH]
+    kh = p["w"].shape[0]
+    patches, _ = L.spike_im2col(L.fold(x), kh, kh, spec.stride)
+    wmat = p["w"].reshape(-1, p["w"].shape[-1]).contiguous()
+    M = patches.shape[0]
+    check(M > 65535 * 64, f"grid cap: {M} rows do not pass the old cap")
+    want = L.blocked_matmul(patches, wmat)
+    errs = {}
+    for name, got in (("spike_conv", spike_conv(patches, wmat,
+                                                occupancy_mask(patches))),
+                      ("spike_matmul", spike_matmul(patches, wmat))):
+        torch.cuda.synchronize()
+        check(torch.allclose(got, want, atol=1e-4, rtol=1e-5),
+              f"{name} disagrees with its plain version at M={M}")
+        errs[name] = float((got - want).abs().max())
+    print(f"  grid cap: VGG {spec.name} at batch {GRID_CAP_BATCH}, M={M} "
+          f"rows ({-(-M // 64)} row tiles > 65535), K={patches.shape[1]}, "
+          f"N={wmat.shape[1]}: max|kernel - plain| {errs}")
+
+
+def patched_attention(fn, hook):
+    """``fn()`` with every flash-attention call of the model (one per
+    layer) going to ``hook(real, q, k, v, **kw)`` instead of the real
+    wrapper ``real``."""
+    from repro_torch.models import attention
+    real = attention.flash_attention
+    attention.flash_attention = lambda q, k, v, **kw: hook(real, q, k, v,
+                                                            **kw)
+    try:
+        return fn()
+    finally:
+        attention.flash_attention = real
+
+
+def profile_window(fn, n):
+    """``fn()`` n times under torch.profiler -> per call: (wall ms with
+    the profiler on, device busy ms, device ops, {device op name: ms})."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / n / 1e3)
+    return wall_ms, sum(by_name.values()), len(dev) / n, by_name
+
+
+def attention_work(q, k, v, kw):
+    """(bytes, operations) of one attention call: q, k, v and the output
+    each moved once; 2 d + 2 dv operations per visible (query, key) pair,
+    counted from this call's mask."""
+    import torch
+    from repro_torch.kernels.flash_attention import visible_mask
+    B, Sq, Hq, d = q.shape
+    Sk, dv = k.shape[1], v.shape[3]
+    dev = q.device
+    pairs = int(visible_mask(kw["q_offset"] + torch.arange(Sq, device=dev),
+                             torch.arange(Sk, device=dev), Sk=Sk,
+                             causal=kw["causal"],
+                             window=kw["window"]).sum())
+    nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * Hq * dv) \
+        * q.element_size()
+    return nbytes, pairs * B * Hq * (2.0 * d + 2.0 * dv)
+
+
+def kernel_vs_plain(q, k, v, kw):
+    """The kernel and the plain scan on the same inputs -> (max |err|,
+    the largest share of the bar used, median |plain|, median bar);
+    raises past the bar (float32 F32_TOL + F32_TOL * |plain|; bfloat16
+    the rounding bound ``bf16_error_bound``, never past BF16_ATOL +
+    BF16_RTOL * |plain|)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "flash_attention: non-finite")
+    mag = want.float().abs()
+    if q.dtype == torch.float32:
+        bar = F32_TOL + F32_TOL * mag
+    else:
+        bar = torch.minimum(fa.bf16_error_bound(q, k, v, got, want, **kw),
+                            BF16_ATOL + BF16_RTOL * mag)
+    err = (got.float() - want.float()).abs()
+    share = float((err / bar).max())
+    check(share <= 1.0, f"flash_attention {q.dtype} {tuple(q.shape)}: "
+          f"max|err| {float(err.max()):.3g} past the bar")
+    return (float(err.max()), share, float(mag.median()),
+            float(bar.median()))
+
+
+def lm_phase(dev, card):
+    """LM serving on full-width qwen2-7b (bf16, random weights from a
+    CUDA generator seeded 0): serve_prefill of LM_BATCH prompts of LM_SEQ
+    tokens (flash_attention in every layer, counted), the kernel held to
+    its plain version on layer 0's and the last layer's own q/k/v (bf16
+    and float32 copies), the prefill held to the same prefill on the
+    plain scan, greedy serve_decode from its cache (no flash launch), the
+    float32 decode-vs-prefill check at LM_CHECK_LAYERS layers, the slot
+    engine at full width and its tokens against prefill + decode on the
+    float32 model; then the timings.  -> (the kernel's KernelStats, its
+    launches on the main path, the report)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.roofline import BF16_TENSOR_FLOPS
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.lm import serve_decode, serve_prefill
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tensors(params))
+    print(f"  {LM_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} parameters "
+          f"(config count {cfg.param_count()}), "
+          f"{torch.cuda.memory_allocated(dev)} bytes resident, "
+          f"init {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (LM_BATCH, LM_SEQ)), device=dev)
+    cache_len = LM_SEQ + LM_DECODE
+
+    def prefill():
+        return serve_prefill(params, cfg, {"tokens": toks},
+                             cache_len=cache_len)
+
+    # the main path, counted
+    build.reset_launches()
+    logits, cache = prefill()
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES["flash_attention"]
+    check(launches == cfg.num_layers, f"serve_prefill launched "
+          f"flash_attention {launches} times, want {cfg.num_layers}")
+    check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), "prefill logits")
+    check(len(cache) == cfg.num_layers and tuple(cache[0].k.shape) == (
+        LM_BATCH, cache_len, cfg.num_kv_heads, cfg.head_dim), "prefill cache")
+    print(f"  serve_prefill [{LM_BATCH}, {LM_SEQ}] (cache {cache_len}): "
+          f"flash_attention launched {launches} times (one per layer)")
+
+    # each layer's own q/k/v, recorded from the same prefill
+    calls = []
+
+    def record(real, q, k, v, **kw):
+        calls.append((q, k, v, kw))
+        return real(q, k, v, **kw)
+    patched_attention(prefill, record)
+    check(len(calls) == cfg.num_layers, "one attention call per layer")
+    err = {}
+    for li in (0, cfg.num_layers - 1):
+        q, k, v, kw = calls[li]
+        e16, s16, mag16, bar16 = kernel_vs_plain(q, k, v, kw)
+        e32, s32, _, _ = kernel_vs_plain(q.float(), k.float(), v.float(),
+                                         kw)
+        err[li] = e16
+        print(f"  layer {li}: flash_attention vs plain, bf16 max|err| "
+              f"{e16:.3g} ({s16:.2f} of the rounding bound; median |plain| "
+              f"{mag16:.3g}, median bar {bar16:.3g}), float32 max|err| "
+              f"{e32:.3g} ({s32:.2f} of {F32_TOL} + {F32_TOL}|plain|)")
+
+    # end to end: the same prefill with attention on the plain scan
+    logits_plain, _ = patched_attention(
+        prefill, lambda real, q, k, v, **kw: fa.flash_attention_plain(
+            q, k, v, **kw))
+    diff = (logits - logits_plain).abs()
+    rel = float(diff.max() / logits_plain.abs().max())
+    check(rel < LOGITS_REL_TOL, f"prefill logits {rel:.3g} from the plain "
+          f"scan's, past {LOGITS_REL_TOL}")
+    top2 = logits_plain.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > 2 * diff.amax(dim=-1)     # no flip possible
+    same = logits.argmax(-1) == logits_plain.argmax(-1)
+    check(bool(same[decided].all()), "prefill argmax differs from the "
+          "plain scan's where the margin decides it")
+    print(f"  end to end: last logits vs the plain scan's, max rel diff "
+          f"{rel:.3g} (< {LOGITS_REL_TOL}); argmax equal on {int(same.sum())}/{LM_BATCH} rows "
+          f"(decided by the margin on {int(decided.sum())}: top-2 margins "
+          f"{[round(float(m), 4) for m in margin]})")
+
+    # prefill -> greedy decode from its cache
+    build.reset_launches()
+    nxt = logits.argmax(-1, keepdim=True)
+    out = [nxt]
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE - 1):
+        lg, cache = serve_decode(params, cfg, cache, nxt, LM_SEQ + i)
+        nxt = lg.argmax(-1, keepdim=True)
+        out.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0) / (LM_DECODE - 1)
+    out = torch.cat(out, dim=1)
+    check(build.LAUNCHES["flash_attention"] == 0,
+          "flash_attention launched during decode")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()), "decode tokens")
+    print(f"  serve_decode: {LM_DECODE} greedy tokens per prompt from the "
+          f"prefill cache, no flash_attention launch; "
+          f"{decode_s * 1e3:.2f} ms a step at batch {LM_BATCH}; first "
+          f"tokens {out[:, :6].tolist()}")
+    # the decode's f32 wo product (three bf16 parts of the f32 input in
+    # one bf16 GEMM) against the float32 copy of wo it avoids
+    wo = params["layers"][0]["mixer"]["attn"]["wo"]
+    x32 = torch.randn((LM_BATCH, wo.shape[0]), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(2))
+    want = x32 @ wo.float()
+    rel_wo = float((attention._f32_matmul(x32, wo) - want).abs().max()
+                   / want.abs().max())
+    check(rel_wo < F32_TOL, f"decode's f32 wo product: rel {rel_wo:.3g}")
+    print(f"  decode's f32 wo product without a float32 copy of wo vs "
+          f"with it: rel {rel_wo:.3g} (< {F32_TOL})")
+    # where a decode step's time goes: 5 more steps (the last position)
+    # under the profiler
+    prof = {"decode": profile_window(
+        lambda: serve_decode(params, cfg, cache, nxt, cache_len - 1), 5)}
+    del cache
+
+    # float32, LM_CHECK_LAYERS layers at full width: decode the last token
+    # against a prefill of all of them
+    cfg32 = dataclasses.replace(cfg, num_layers=LM_CHECK_LAYERS,
+                                dtype="float32")
+    p32 = tfm.init_params(torch.Generator(device=dev).manual_seed(1), cfg32,
+                          device=dev)
+    full, _ = serve_prefill(p32, cfg32, {"tokens": toks})
+    _, c32 = serve_prefill(p32, cfg32, {"tokens": toks[:, :-1]},
+                           cache_len=LM_SEQ)
+    dec, _ = serve_decode(p32, cfg32, c32, toks[:, -1:], LM_SEQ - 1)
+    del c32
+    rel32 = float((dec - full).abs().max() / full.abs().max())
+    check(rel32 < 1e-4, f"float32 decode vs prefill: rel {rel32:.3g}")
+    print(f"  float32 at {LM_CHECK_LAYERS} layers: decode of token {LM_SEQ} "
+          f"after a {LM_SEQ - 1}-token prefill vs the {LM_SEQ}-token "
+          f"prefill, rel {rel32:.3g} (< 1e-4)")
+
+    # the slot engine at full width, then its tokens on the float32 model
+    # against prefill + greedy decode
+    e = LM_ENGINE
+
+    def serve(p, c):
+        eng = ServeEngine(p, c, batch=e["batch"], max_len=e["max_len"])
+        pending = make_requests(e["requests"], c.vocab_size, e["max_new"])
+        done, ticks = [], []
+        while pending or any(r is not None for r in eng.active):
+            while pending and eng._free_slot() is not None:
+                eng.submit(pending.pop(0))
+            t = time.perf_counter()
+            done.extend(eng.tick())
+            ticks.append((time.perf_counter() - t) * 1e3)
+        check(sorted(r.rid for r in done) == list(range(e["requests"])),
+              "the engine did not answer every request")
+        for r in done:
+            check(len(r.out_tokens) == e["max_new"] and all(
+                0 <= t < c.vocab_size for t in r.out_tokens),
+                f"request {r.rid}: tokens {r.out_tokens}")
+        return sorted(done, key=lambda r: r.rid), ticks
+
+    build.reset_launches()
+    done, ticks = serve(params, cfg)
+    check(build.LAUNCHES["flash_attention"] == 0,
+          "the engine prefills by decode steps: no flash_attention launch")
+    tick = {"p50_ms": statistics.median(ticks),
+            "p90_ms": statistics.quantiles(ticks, n=10)[8],
+            "ticks": len(ticks)}
+    print(f"  ServeEngine (full width, batch {e['batch']}, max_len "
+          f"{e['max_len']}): {len(done)} requests answered, "
+          f"{e['max_new']} in-range tokens each; tick {tick}")
+    done32, _ = serve(p32, cfg32)
+    for r in done32:
+        pr = torch.as_tensor(r.prompt, device=dev)[None]
+        lg, c = serve_prefill(p32, cfg32, {"tokens": pr},
+                              cache_len=pr.shape[1] + e["max_new"])
+        want = [int(lg[0].argmax())]
+        for i in range(e["max_new"] - 1):
+            lg, c = serve_decode(p32, cfg32, c,
+                                 torch.tensor([[want[-1]]], device=dev),
+                                 pr.shape[1] + i)
+            want.append(int(lg[0].argmax()))
+        check(r.out_tokens == want, f"engine request {r.rid}: "
+              f"{r.out_tokens} != prefill + decode {want}")
+    print(f"  ServeEngine on the float32 {LM_CHECK_LAYERS}-layer model: "
+          f"every request's tokens equal its serve_prefill + serve_decode "
+          f"continuation ({len(done32)} requests)")
+    del p32
+
+    # timings: per layer on its own q/k/v, summed over the prefill
+    st = KernelStats()
+    for li, (q, k, v, kw) in enumerate(calls):
+        nbytes, nops = attention_work(q, k, v, kw)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=kw["causal"], enable_gqa=True)
+        st.add((tuple(q.shape), tuple(k.shape)),
+               time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+               time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                       reps=LM_PLAIN_REPS, warmup=1),
+               nbytes, nops, err.get(li, 0.0),
+               library_ms=time_ms(library), peak_flops=BF16_TENSOR_FLOPS)
+    del calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        prefill()
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t0) / 2
+    prof["prefill"] = profile_window(prefill, 1)
+    for name, (wall, busy, ops, by_name) in prof.items():
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"  {name} under the profiler: {ops:.0f} device ops, busy "
+              f"{busy:.2f} ms of {wall:.2f} ms wall (idle share "
+              f"{1 - busy / wall:.3f}); most time: "
+              + "; ".join(f"{n[:60]} {ms:.2f}" for n, ms in top))
+    report = {"arch": LM_ARCH, "batch": LM_BATCH, "seq": LM_SEQ,
+              "prefill_s": prefill_s,
+              "prefill_tokens_per_s": LM_BATCH * LM_SEQ / prefill_s,
+              "decode_step_ms": decode_s * 1e3,
+              "decode_tokens_per_s": LM_BATCH / decode_s,
+              "engine_tick": tick, "logits_rel_vs_plain": rel,
+              "profiled": {name: {"wall_ms": w, "device_busy_ms": b,
+                                  "device_ops": o}
+                           for name, (w, b, o, _) in prof.items()},
+              "f32_decode_vs_prefill_rel": rel32,
+              "flash_attention": st.summary(), "card": card}
+    print(f"  timings ({card}): flash_attention per prefill "
+          f"({len(st.shapes)} launches) kernel {st.ms:.4f} ms, plain "
+          f"{st.plain_ms:.4f}, SDPA {st.library_ms:.4f}, bound "
+          f"{st.bound_ms:.4f} ({'operations' if st.ops_s >= st.bytes_s else 'bytes'}); "
+          f"prefill {prefill_s * 1e3:.1f} ms = "
+          f"{report['prefill_tokens_per_s']:.0f} tokens/s; decode step "
+          f"{decode_s * 1e3:.2f} ms; engine tick p50 {tick['p50_ms']:.2f} "
+          f"p90 {tick['p90_ms']:.2f} ms")
+    del params
+    return st, launches, report
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1470,12 +1907,12 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"[1/6] device: {card} (torch {torch.__version__}, CUDA "
+    print(f"[1/7] device: {card} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"[2/6] build: {time.perf_counter() - t0:.1f} s")
+    print(f"[2/7] build: {time.perf_counter() - t0:.1f} s")
     for name in build.SOURCES:
         regs = [ln.strip() for ln in build.build_log(name).splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -1495,7 +1932,7 @@ def main() -> int:
 
     from repro_torch.core.backbones import fused_route_segments, layer_runs
     from repro_torch.kernels.backbone_fuse import describe_plan
-    print("[3/6] per-kernel parity on the main path's inputs "
+    print("[3/7] per-kernel parity on the main path's inputs "
           f"(batch {BATCH}); segment plans at the default budget:")
     for arch, (_, c) in {"spiking_yolo": (params, cfg), **archs}.items():
         plans = " | ".join(describe_plan(sp, H=h, W=w, T=c.time_steps)
@@ -1512,6 +1949,7 @@ def main() -> int:
     for arch, (p, acfg) in archs.items():
         print(f"  --- {arch} (full width, batch {BATCH}), layer by layer")
         arch_st[arch] = kernel_phase(p, acfg, vox)
+    grid_cap_check(*archs["spiking_vgg"], vox)
     # the new kernels' rows: spike_dwconv on MobileNet's forward, max_pool
     # on VGG's and DenseNet's
     st["spike_dwconv"] = arch_st["spiking_mobilenet"]["spike_dwconv"]
@@ -1522,7 +1960,7 @@ def main() -> int:
     st["backbone_segment"] = KernelStats()
     for sts in arch_st.values():
         st["backbone_segment"].merge(sts["backbone_segment"])
-    print("[4/6] timings (ms per tick, medians of CUDA-event runs)")
+    print("[4/7] timings (ms per tick, medians of CUDA-event runs)")
     for name, s in st.items():
         print(f"  {name}: kernel {s.ms:.4f} plain {s.plain_ms:.4f} "
               f"library {s.library_ms} bound {s.bound_ms:.4f} over "
@@ -1538,12 +1976,22 @@ def main() -> int:
                          if s.per_op_ms else ""))
     large_isp_line(dev)
 
-    print("[5/6] the launch table swept on the card (smoke policy, batch "
+    print("[5/7] the launch table swept on the card (smoke policy, batch "
           f"{BATCH}); serving: CognitiveEngine, full spiking_yolo and "
           f"{', '.join(NEW_ARCHS)}; the cognitive loop")
     tables = sweep_phase({"spiking_yolo": (params, cfg), **archs}, vox)
     launches, latency = serve_phase(params, cfg, reqs, dev, archs, tables)
     cognitive_phase(params, cfg, reqs, dev)
+
+    # release the SNN engines' memory before the 15 GB model
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[6/7] LM serving: full-width {LM_ARCH} (bf16, random weights), "
+          f"serve_prefill [{LM_BATCH}, {LM_SEQ}] -> serve_decode, "
+          f"ServeEngine; {torch.cuda.memory_allocated(dev)} bytes still "
+          f"allocated")
+    st["flash_attention"], fa_launches, lm_report = lm_phase(dev, card)
 
     # launches from the main path that runs each kernel: the all-kernel
     # engines, the fused-ISP engine, fast_preview fused, spiking-YOLO's
@@ -1562,13 +2010,15 @@ def main() -> int:
     path_launches["backbone_segment"] = sum(
         launches[n].get("backbone_segment", 0) for n in
         ("all_kernels_segment", *(a + "_segment" for a in archs)))
+    path_launches["flash_attention"] = fa_launches
     rows = [st[k].row(k, path_launches[k]) for k in KERNELS]
-    print("[6/6] report")
+    print("[7/7] report")
     print(json.dumps({"serve": {"batch": BATCH, "requests": REQUESTS,
                                 "tick_latency": latency}}))
     print(json.dumps({"arch_kernels": {
         arch: {k: s.summary() for k, s in sts.items() if s.shapes}
         for arch, sts in arch_st.items()}}))
+    print(json.dumps({"lm": lm_report}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,195 @@
-"""Config dataclasses of the serving tick and the kernel autotuner,
-copied from the JAX package's ``repro.configs.base`` (field names and
-defaults unchanged) with the port's backend names: ``"torch"`` for
-the plain PyTorch path and ``"cuda"`` for the hand-written kernels.
+"""Config dataclasses of the serving tick, the kernel autotuner and the
+LM stack, copied from the JAX package's ``repro.configs.base`` (field
+names and defaults unchanged) with the port's backend names: ``"torch"``
+for the plain PyTorch path and ``"cuda"`` for the hand-written kernels.
 ``repro_torch.convert`` maps the JAX names (``"jnp"`` / ``"pallas"``)
 onto these.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0            # 0 => dense FFN only
+    top_k: int = 2
+    d_expert: int = 0               # expert hidden size (d_ff of each expert)
+    num_shared_experts: int = 0     # deepseek-style always-on shared experts
+    dense_residual: bool = False    # arctic: dense FFN in parallel with MoE
+    capacity_factor: float = 2.0    # static EP capacity slack
+    router_aux_weight: float = 1e-2
+    moe_layer_period: int = 1       # apply MoE every k-th layer (jamba: 2)
+    moe_layer_offset: int = 1       # which residue of the period is MoE
+    first_dense_layers: int = 0     # deepseek: first k layers stay dense
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention dims."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba / xLSTM block parameters."""
+    kind: str = "mamba"             # "mamba" | "mlstm" | "slstm"
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                # 0 => ceil(d_model/16)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"           # dense|moe|hybrid|ssm|audio|vlm
+    num_layers: int = 2
+    d_model: int = 128
+    num_heads: int = 2
+    num_kv_heads: int = 2
+    d_ff: int = 512
+    vocab_size: int = 256
+    head_dim: int = 0               # 0 => d_model // num_heads
+    max_seq_len: int = 4096
+    rope_theta: float = 1e6
+    qkv_bias: bool = False          # qwen-style
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    causal: bool = True             # False => encoder-only (hubert)
+    act: str = "silu"               # "silu"|"gelu"
+    norm_kind: str = "rms"          # "rms"|"ln"
+    dtype: str = "bfloat16"
+
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+
+    # hybrid layouts: string pattern over layers, cycled. chars:
+    #   'A' attention block, 'M' mamba block, 'L' mLSTM, 'S' sLSTM
+    # "" => all attention.
+    layer_pattern: str = ""
+
+    # windowed attention for long-context attention layers (0 = full)
+    attention_window: int = 0
+
+    # multi-token prediction depth (deepseek MTP); 0 = off
+    mtp_depth: int = 0
+
+    # modality frontend stub: if >0, inputs include precomputed embeddings
+    # of this dimensionality concatenated ahead of token embeddings.
+    frontend_embed_tokens: int = 0   # number of prefix embedding positions
+
+    # cost-extraction mode: fully unroll every internal lax.scan so
+    # XLA cost_analysis sees every trip (it counts while bodies ONCE —
+    # see launch/dryrun.py two-point correction). Never set for real runs.
+    unroll_scans: bool = False
+
+    # -- derived helpers ---------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    def pattern_at(self, layer: int) -> str:
+        if not self.layer_pattern:
+            return "A"
+        return self.layer_pattern[layer % len(self.layer_pattern)]
+
+    def is_moe_layer(self, layer: int) -> bool:
+        if self.moe is None or self.moe.num_experts == 0:
+            return False
+        if layer < self.moe.first_dense_layers:
+            return False
+        p = self.moe.moe_layer_period
+        return (layer % p) == (self.moe.moe_layer_offset % p)
+
+    def param_count(self) -> int:
+        """Analytic total parameter count (used for 6ND roofline)."""
+        c = self
+        hd = c.resolved_head_dim
+        d = c.d_model
+        emb = c.vocab_size * d * (1 if c.tie_embeddings else 2)
+        total = emb
+        for layer in range(c.num_layers):
+            kind = self.pattern_at(layer)
+            if kind == "A":
+                if c.mla is not None:
+                    m = c.mla
+                    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+                    total += d * m.q_lora_rank + m.q_lora_rank * c.num_heads * qk
+                    total += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    total += m.kv_lora_rank * c.num_heads * (m.qk_nope_head_dim + m.v_head_dim)
+                    total += c.num_heads * m.v_head_dim * d
+                else:
+                    total += d * c.num_heads * hd          # q
+                    total += 2 * d * c.num_kv_heads * hd   # k,v
+                    total += c.num_heads * hd * d          # o
+            elif kind == "M":
+                s = c.ssm or SSMConfig()
+                di = s.expand * d
+                dtr = s.dt_rank or -(-d // 16)
+                total += d * 2 * di            # in_proj
+                total += di * s.d_conv         # conv
+                total += di * (dtr + 2 * s.d_state)  # x_proj
+                total += dtr * di              # dt_proj
+                total += di * s.d_state + di   # A, D
+                total += di * d                # out_proj
+            elif kind in ("L", "S"):
+                s = c.ssm or SSMConfig()
+                di = s.expand * d
+                if kind == "L":
+                    total += d * di * 3 + di * d + 2 * di  # q,k,v, out, gates
+                else:
+                    total += 4 * d * d + 4 * d * d + d * d  # sLSTM gates+rec+out
+            # FFN / MoE
+            if self.is_moe_layer(layer):
+                m = c.moe
+                total += d * m.num_experts              # router
+                total += m.num_experts * 3 * d * m.d_expert
+                total += m.num_shared_experts * 3 * d * m.d_expert
+                if m.dense_residual:
+                    total += 3 * d * c.d_ff
+            elif kind == "A" or not c.layer_pattern:
+                if c.d_ff:
+                    total += 3 * d * c.d_ff
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE top-k only) for 6·N_active·D."""
+        c = self
+        if c.moe is None or c.moe.num_experts == 0:
+            return self.param_count()
+        total = self.param_count()
+        m = c.moe
+        n_moe_layers = sum(1 for l in range(c.num_layers) if self.is_moe_layer(l))
+        all_expert = n_moe_layers * m.num_experts * 3 * c.d_model * m.d_expert
+        active_expert = n_moe_layers * m.top_k * 3 * c.d_model * m.d_expert
+        return int(total - all_expert + active_expert)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: (kind, seq_len, global_batch)."""
+    name: str = "train_4k"
+    kind: str = "train"             # train | prefill | decode | long_decode
+    seq_len: int = 4096
+    global_batch: int = 256
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", "train", 4096, 256),
+    ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    ShapeConfig("decode_32k", "decode", 32768, 128),
+    ShapeConfig("long_500k", "decode", 524288, 1),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
 
 # Default stage ordering = the paper's fixed §V pipeline.
 DEFAULT_ISP_STAGES: Tuple[str, ...] = (

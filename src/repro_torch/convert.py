@@ -4,9 +4,12 @@ both compute the same function on the same weights.
 Nothing here imports the JAX package: parameters arrive as a nested dict
 of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)`` on the
 JAX side), a config as any object with the reference's field names.
-The parameter trees have the same keys on both sides: HWIO conv weights
-``w`` with per-channel ``scale``/``bias``, dense ``w`` [cin, cout] with
-``bias``.
+The SNN parameter trees have the same keys on both sides: HWIO conv
+weights ``w`` with per-channel ``scale``/``bias``, dense ``w`` [cin,
+cout] with ``bias``.  The LM trees differ in one place: the reference
+stacks its repeated unit's layers along a leading axis (``units``, one
+``lax.scan``), the port keeps one entry per layer (``layers``, and a
+list of per-layer caches).
 """
 from __future__ import annotations
 
@@ -15,8 +18,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.configs.base import EncodingConfig, ISPConfig, SNNConfig
+from repro_torch.configs.base import (EncodingConfig, ISPConfig,
+                                      ModelConfig, SNNConfig)
 from repro_torch.core.npu import resolve_device
+from repro_torch.models.attention import KVCache
+from repro_torch.models.transformer import check_supported, layout
 
 # JAX backend name -> the port's (SNN layers, ISP stages, encoding)
 BACKEND_NAMES = {"jnp": "torch", "pallas": "cuda"}
@@ -61,3 +67,60 @@ def encoding_config(cfg) -> EncodingConfig:
     """The port's EncodingConfig with the same fields, backend name
     mapped."""
     return _mapped(EncodingConfig, cfg)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (ml_dtypes bfloat16 too) -> a tensor of its type that
+    owns a copy of the data (the decode step writes caches in place; an
+    array from JAX is read-only)."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def _per_layer(tree, cfg: ModelConfig):
+    """The reference's {"prefix": {i: x}, "units": {i: x stacked over
+    units}} -> a list of x per layer, layer ``prefix + u * U + i``."""
+    pfx, U, n_units = layout(cfg)
+    layers = [tree["prefix"][str(i)] for i in range(pfx)]
+    for u in range(n_units):
+        for i in range(U):
+            layers.append(_index(tree["units"][str(i)], u))
+    return layers
+
+
+def _index(tree, u):
+    if isinstance(tree, dict):
+        return {k: _index(v, u) for k, v in tree.items()}
+    if isinstance(tree, tuple):      # a NamedTuple cache
+        return type(tree)(*(np.asarray(t)[u] for t in tree))
+    return np.asarray(tree)[u]
+
+
+def lm_params_from_numpy(tree, cfg: ModelConfig, device=None):
+    """The JAX LM parameter tree (as numpy) -> the port's, on ``device``
+    (default the card; raises without one), each array in its own type:
+    the same keys, ``prefix``/``units`` replaced by ``layers``."""
+    check_supported(cfg)
+    device = resolve_device(device or "cuda")
+    out = {k: _tree(v, device) for k, v in tree.items()
+           if k not in ("prefix", "units")}
+    out["layers"] = [_tree(p, device) for p in _per_layer(tree, cfg)]
+    return out
+
+
+def lm_cache_from_numpy(tree, cfg: ModelConfig, device=None):
+    """A JAX LM cache (``init_cache`` or ``forward_prefill``'s, as numpy;
+    a KVCache per block) -> the port's list of per-layer KVCaches."""
+    check_supported(cfg)
+    device = resolve_device(device or "cuda")
+    return [KVCache(_tensor(c[0], device), _tensor(c[1], device))
+            for c in _per_layer(tree, cfg)]

@@ -45,6 +45,7 @@ SOURCES = {
     "nlm": "nlm.cu",
     "isp_fused": "isp_fused.cu",
     "backbone_segment": "backbone_segment.cu",
+    "flash_attention": "flash_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -19,6 +19,10 @@
 // store.  This is the simple, right first version: no tensor cores
 // (parity is fp32, TF32 would round the weights), no wgmma/TMA, no
 // implicit im2col.
+//
+// Grid: the 64-row tiles on gridDim.x (up to 2^31 - 1 of them, so any
+// row count the int arguments hold), the 64-column tiles on gridDim.y
+// (up to 65535, N <= 4,194,240).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -48,7 +52,7 @@ gated_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
   __shared__ float Bs[kBKS][kBN];
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
 
   float acc[4][4];
 #pragma unroll
@@ -131,7 +135,7 @@ template <int GATE>
 inline int launch_gated_gemm(const float* A, const float* B,
                              const int32_t* occ, int occ_cols, float* C,
                              int M, int K, int N, cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
   gated_gemm_kernel<GATE><<<grid, kThreads, 0, stream>>>(A, B, occ, occ_cols,
                                                           C, M, K, N);
   return static_cast<int>(cudaGetLastError());

@@ -30,9 +30,6 @@ _SIG = ("spike_conv_launch",
          ctypes.c_int, ctypes.c_void_p])
 _GATE_MASK, _GATE_INLINE = 0, 1         # gated_gemm.cuh GateMode
 
-# gridDim.y of the 64-row tiles
-_MAX_M = 65535 * 64
-
 
 def occupancy_mask(patches: torch.Tensor, *, bm: int = DEFAULT_BM,
                    bk: int = DEFAULT_BK) -> torch.Tensor:
@@ -69,8 +66,6 @@ def spike_conv(patches: torch.Tensor, wmat: torch.Tensor,
                              "patches' device")
     if dev.type == "cpu":
         return blocked_matmul(patches, wmat)
-    if M > _MAX_M:
-        raise ValueError(f"spike_conv: M={M} exceeds the grid ({_MAX_M})")
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if M == 0 or N == 0:
         return out

@@ -10,7 +10,6 @@ import torch
 from repro_torch.core.layers import blocked_matmul
 from repro_torch.kernels.build import (check_f32, check_launch, load,
                                        stream_of)
-from repro_torch.kernels.spike_conv import _MAX_M
 
 _SIG = ("spike_matmul_launch",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -27,8 +26,6 @@ def spike_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return blocked_matmul(x, w)
     M, K = x.shape
     N = w.shape[1]
-    if M > _MAX_M:
-        raise ValueError(f"spike_matmul: M={M} exceeds the grid ({_MAX_M})")
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if M == 0 or N == 0:
         return out

@@ -7,8 +7,10 @@ the larger of the compute and the memory time, plus a fixed host cost
 per device launch.
 
 The card's figures are NVIDIA's data-sheet peaks at the 700 W limit:
-3.35 TB/s of HBM3 and 67 TFLOP/s of float32 outside the tensor cores
-(the port's GEMMs run in full fp32 on CUDA cores).  ``LAUNCH_S`` is the
+3.35 TB/s of HBM3, 67 TFLOP/s of float32 outside the tensor cores
+(the port's SNN GEMMs run in full fp32 on CUDA cores) and 989 TFLOP/s
+of dense bf16 on the tensor cores (the flash-attention kernel's bound,
+``chip_smoke.py``).  ``LAUNCH_S`` is the
 host time of one eager launch through a kernel wrapper, as
 ``chip_smoke.py``'s ``launch overhead`` line measures it: 26.6 us on an
 H100 80GB HBM3 at 700 W (a plain torch op costs the host less; the
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 HBM_BW = 3.35e12            # bytes/s
 PEAK_FLOPS = 67e12          # fp32 FLOP/s, CUDA cores
+BF16_TENSOR_FLOPS = 989e12  # dense bf16 FLOP/s, tensor cores
 SMS = 132                   # streaming multiprocessors
 LAUNCH_S = 26.6e-6          # host seconds per eager kernel launch
 L2_BYTES = 50 * 2 ** 20     # cudaDeviceProp.l2CacheSize of an H100 SXM

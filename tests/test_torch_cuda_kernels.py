@@ -239,6 +239,21 @@ def test_spike_matmul_matches_plain(dev, M, K, N, density):
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize("kernel", ["spike_conv", "spike_matmul"])
+def test_gemm_past_the_old_row_tile_cap(dev, kernel):
+    """M = 65535 * 64 + 64 rows: more 64-row tiles than gridDim.y holds
+    (the row tiles sit on gridDim.x), against the plain version."""
+    M, K, N = 65535 * 64 + 64, 18, 32
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = (torch.rand(M, K, device=dev, generator=g) < 0.1).float()
+    x[-64:] = 1.0           # the last row tile live
+    w = torch.randn(K, N, device=dev, generator=g)
+    got = (spike_conv(x, w, occupancy_mask(x)) if kernel == "spike_conv"
+           else spike_matmul(x, w))
+    want = spike_matmul(x.cpu(), w.cpu())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+
+
 def _events(rng, B, N, T, H, W, *, live=0.8, hot=False):
     """[B, N] events with out-of-range coordinates, polarities and
     timestamps (boundary ``t == window`` included); ``hot`` piles every

@@ -35,7 +35,10 @@ def test_every_module_imports_without_jax_or_repro():
               "kernels.isp_fused", "isp.fuse", "kernels.spike_dwconv",
               "kernels.max_pool", "core.backbones", "kernels.tune",
               "kernels.spike_conv_lif", "launch.roofline",
-              "kernels.backbone_fuse", "kernels.backbone_segment"):
+              "kernels.backbone_fuse", "kernels.backbone_segment",
+              "models.blocks", "models.attention", "models.transformer",
+              "models.lm", "serve.engine", "launch.serve",
+              "kernels.flash_attention"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
