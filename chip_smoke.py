@@ -15,11 +15,14 @@ Phases (any failure raises and exits non-zero):
 3. parity  — walk full-width spiking-YOLO (64x64, T=5, 32 base channels,
              4 stages) at batch 8 layer by layer, calling each NPU kernel
              on the main path's own inputs and comparing it with its plain
-             version on the same inputs (TF32 off): spike_conv and
-             spike_matmul allclose atol=1e-4 rtol=1e-5, lif_scan equal,
+             version on the same inputs (TF32 off): spike_conv (read from
+             the folded spikes) under each gate ("mask", "inline",
+             "none") bit-equal to spike_matmul on the layer's patches
+             (the gated GEMM's bits), spike_conv and spike_matmul allclose
+             atol=1e-4 rtol=1e-5 to their plain versions, lif_scan equal,
              norm_affine_lif spikes equal except where the plain membrane
              lies within 1e-4 of v_th; spike_conv also on a partly silent
-             patch matrix so the tile skip runs; on every firing conv
+             input so the gates skip; on every firing conv
              the fused spike_conv_lif under each gate ("mask", "inline",
              "none") on the layer's own patches and on a copy whose first
              half of the batch is silent, its spikes equal to the per-op
@@ -57,14 +60,17 @@ Phases (any failure raises and exits non-zero):
              per-layer kernel route each time, and each layer of the
              route held to the plain layer on its own input by the
              near-threshold rule (flips and band printed).  Last, VGG's
-             first-layer patches at batch 205 (more 64-row tiles than
-             gridDim.y holds) through spike_conv and spike_matmul,
-             allclose to the plain GEMM;
+             first layer at batch 205 (more 64-row tiles than gridDim.y
+             holds) through spike_conv and spike_matmul on its patches,
+             bit-equal to each other and allclose to the plain GEMM;
 4. timings — per kernel, device-time medians (CUDA events behind a spin
              kernel, so host launch overhead is not counted) over 30 runs
              of every launch of a tick (kernel, plain version, one
              PyTorch call where it computes the same function:
-             torch.matmul for the GEMMs, cuDNN's grouped conv on the
+             cuDNN's conv on the pre-padded channels-last input for
+             spike_conv (torch.matmul on its patches beside it, and the
+             kernel under each gate), torch.matmul for spike_matmul,
+             cuDNN's grouped conv on the
              pre-padded channels-last input for spike_dwconv,
              F.max_pool2d for max_pool; none for spike_conv_lif and
              backbone_segment, printed beside the per-op kernel pair's
@@ -155,6 +161,12 @@ Phases (any failure raises and exits non-zero):
 
 Run alone (without ``src/``) or without a card, it fails before any
 result is printed.
+
+    python3 chip_smoke.py --kernel-phase spiking_yolo spiking_densenet
+
+runs only phase 3-4's layer walk (every NPU kernel against its plain
+version, and its times) for the named archs at batch 8 and prints each
+arch's per-kernel numbers as one JSON line; it prints no result line.
 """
 from __future__ import annotations
 
@@ -402,10 +414,13 @@ class KernelStats:
         self.per_op_ms = None       # spike_conv_lif: the per-op kernel pair
         self.max_abs_err = 0.0
         self.shapes = []
+        self.extra = {}             # other named times, summed (ms)
 
     def add(self, shape, ms, plain_ms, nbytes, nops, err, library_ms=None,
-            per_op_ms=None, peak_flops=FP32_FLOPS):
+            per_op_ms=None, peak_flops=FP32_FLOPS, extra=None):
         self.shapes.append(shape)
+        for k, v in (extra or {}).items():
+            self.extra[k] = self.extra.get(k, 0.0) + v
         if per_op_ms is not None:
             self.per_op_ms = (self.per_op_ms or 0.0) + per_op_ms
         self.ms += ms
@@ -431,6 +446,8 @@ class KernelStats:
             self.library_ms = (self.library_ms or 0.0) + other.library_ms
         if other.per_op_ms is not None:
             self.per_op_ms = (self.per_op_ms or 0.0) + other.per_op_ms
+        for k, v in other.extra.items():
+            self.extra[k] = self.extra.get(k, 0.0) + v
         return self
 
     def summary(self):
@@ -440,6 +457,7 @@ class KernelStats:
                "max_abs_err": self.max_abs_err}
         if self.per_op_ms is not None:
             out["per_op_ms"] = self.per_op_ms
+        out.update(self.extra)
         return out
 
     def row(self, name, launches):
@@ -517,7 +535,9 @@ def kernel_phase(params, cfg, vox):
     from repro_torch.core.lif import lif_scan as lif_plain
     from repro_torch.kernels.lif_scan import lif_scan
     from repro_torch.kernels.max_pool import max_pool
-    from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
+    from repro_torch.kernels.spike_conv import GATES as CONV_GATES
+    from repro_torch.kernels.spike_conv import (conv_tiles, occupancy_mask,
+                                                spike_conv)
     from repro_torch.kernels.spike_dwconv import (spike_dwconv,
                                                   tap_occupancy_mask)
     from repro_torch.kernels.spike_matmul import spike_matmul
@@ -533,34 +553,65 @@ def kernel_phase(params, cfg, vox):
     seg_inputs = {seg.layers[0].name: None for seg, _, _ in routes}
 
     def gemm(p, x, stride, name):
-        """spike_conv on x's patches -> the conv output [T, B, ...]."""
-        kh = p["w"].shape[0]
-        xf = L.fold(x)
+        """spike_conv on x's folded spikes, under every gate bit-equal to
+        the gated GEMM (spike_matmul) on its materialised patches -> the
+        conv output [T, B, ...]."""
+        w = p["w"]
+        kh = w.shape[0]
+        xf = L.fold(x).contiguous()
         patches, (Ho, Wo) = L.spike_im2col(xf, kh, kh, stride)
-        wmat = p["w"].reshape(-1, p["w"].shape[-1]).contiguous()
-        occ = occupancy_mask(patches)
+        wmat = w.reshape(-1, w.shape[-1]).contiguous()
         M, K = patches.shape
         N = wmat.shape[1]
-        y = spike_conv(patches, wmat, occ)
-        y_ref = L.blocked_matmul(patches, wmat)
-        torch.cuda.synchronize()
+        y = spike_conv(xf, w, stride=stride)        # the main path's gate
+        oracle = spike_matmul(patches, wmat).reshape(y.shape)
+        y_ref = L.spike_conv(xf, w, stride=stride)
+        for gate in CONV_GATES:
+            got = spike_conv(xf, w, stride=stride, gate=gate)
+            torch.cuda.synchronize()
+            check(torch.equal(got, oracle), f"spike_conv {name} (gate "
+                  f"{gate}): {int((got != oracle).sum())} values differ "
+                  f"from spike_matmul on its patches")
         check(torch.allclose(y, y_ref, atol=1e-4, rtol=1e-5),
               f"spike_conv {name} disagrees with its plain version")
+        occ = occupancy_mask(patches)
         live = live_tile_elems(occ, M, K)
+        # the yardstick: cuDNN on the pre-padded input, channels-last
+        # (TF32 off); torch.matmul on the patches beside it
+        H, W = xf.shape[1:3]
+        plo_h, phi_h, _ = L._same_pads(H, kh, stride)
+        plo_w, phi_w, _ = L._same_pads(W, kh, stride)
+        xp = F.pad(xf, (0, 0, plo_w, phi_w, plo_h, phi_h)).permute(0, 3, 1, 2)
+        wt = w.permute(3, 2, 0, 1).contiguous()
+
+        def library():
+            return F.conv2d(xp, wt, stride=stride)
+        lib_err = float((library().permute(0, 2, 3, 1) - y_ref).abs().max())
+        check(lib_err <= 1e-4, f"spike_conv {name}: the library conv is "
+              f"{lib_err:.3g} away")
+        gate_ms = {g: time_ms(lambda g=g: spike_conv(xf, w, stride=stride,
+                                                     gate=g))
+                   for g in CONV_GATES}
+        t = conv_tiles(M, K, N)
         st["spike_conv"].add(
-            (M, K, N),
-            time_ms(lambda: spike_conv(patches, wmat, occ)),
-            time_ms(lambda: L.blocked_matmul(patches, wmat)),
-            live * 4 + (K * N + M * N + occ.numel()) * 4, 2.0 * N * live,
-            (y - y_ref).abs().max(),
-            library_ms=time_ms(lambda: torch.matmul(patches, wmat)))
-        print(f"  spike_conv {name:9s} M={M} K={K} N={N} live tiles "
-              f"{int(occ.sum())}/{occ.numel()} max|err| "
-              f"{float((y - y_ref).abs().max()):.3g}")
+            (M, K, N), gate_ms["mask"],
+            time_ms(lambda: L.spike_conv(xf, w, stride=stride)),
+            (xf.numel() + K * N + M * N) * 4, 2.0 * N * live,
+            (y - y_ref).abs().max(), library_ms=time_ms(library),
+            extra={"matmul_ms": time_ms(lambda: torch.matmul(patches, wmat)),
+                   "inline_ms": gate_ms["inline"],
+                   "none_ms": gate_ms["none"]})
+        print(f"  spike_conv {name:9s} M={M} K={K} N={N} tile "
+              f"128x{t.bn}{' split-K' if t.split else ''} live tiles "
+              f"{int(occ.sum())}/{occ.numel()}: bit-equal to spike_matmul "
+              f"under {'/'.join(CONV_GATES)}; max|err| "
+              f"{float((y - y_ref).abs().max()):.3g}; ms by gate "
+              + " ".join(f"{g} {v:.4f}" for g, v in gate_ms.items()))
         if len(gemm_inputs) < 2:
-            gemm_inputs.append((patches, wmat))
-        last.update(patches=patches, wmat=wmat, y=y)
-        return L.unfold(y.reshape(B * T, Ho, Wo, N), T, B)
+            gemm_inputs.append((xf, w, stride))
+        last.update(patches=patches, wmat=wmat, y=y.reshape(M, N), xf=xf,
+                    w=w, stride=stride)
+        return L.unfold(y, T, B)
 
     def dwconv(p, x, stride, name):
         """spike_dwconv on x, bit-equal to the plain tap loop -> the conv
@@ -654,19 +705,28 @@ def kernel_phase(params, cfg, vox):
     gemm(params["head"]["pred"], h, 1, "head_pred")
 
     # partly silent input: the first half of the frames carry no spike
-    patches, wmat = gemm_inputs[-1]
-    silent = patches.clone()
+    xf, w, stride = gemm_inputs[-1]
+    silent = xf.clone()
     silent[: silent.shape[0] // 2] = 0
-    occ = occupancy_mask(silent)
+    patches, _ = L.spike_im2col(silent, w.shape[0], w.shape[1], stride)
+    wmat = w.reshape(-1, w.shape[-1])
+    occ = occupancy_mask(patches)
     check(int((occ == 0).sum()) > 0, "no silent tile in the skip check")
-    got = spike_conv(silent, wmat, occ)
-    want = L.blocked_matmul(silent, wmat)
-    torch.cuda.synchronize()
-    check(torch.allclose(got, want, atol=1e-4, rtol=1e-5),
-          "spike_conv disagrees on a partly silent input")
+    want = spike_matmul(patches, wmat)
+    plain = L.blocked_matmul(patches, wmat)
+    for gate in CONV_GATES:
+        got = spike_conv(silent, w, stride=stride,
+                         gate=gate).reshape(want.shape)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"spike_conv (gate {gate}) differs "
+              f"from spike_matmul on a partly silent input")
+        check(torch.allclose(got, plain, atol=1e-4, rtol=1e-5),
+              f"spike_conv (gate {gate}) disagrees with its plain version "
+              f"on a partly silent input")
     print(f"  spike_conv partly silent: {int((occ == 0).sum())}/"
-          f"{occ.numel()} tiles skipped, max|err| "
-          f"{float((got - want).abs().max()):.3g}")
+          f"{occ.numel()} tiles silent, bit-equal to spike_matmul under "
+          f"{'/'.join(CONV_GATES)}, max|err| "
+          f"{float((got - plain).abs().max()):.3g}")
 
     # control head: ctrl_hidden fires through lif_scan, ctrl_out is the
     # spike-input matmul
@@ -845,8 +905,9 @@ def fused_check(p, last, s_pair, name, st, lif_kw):
     plain version and the per-op pair."""
     import torch
     from repro_torch.core.layers import instance_norm_affine
+    from repro_torch.core.layers import spike_im2col
     from repro_torch.kernels.lif_scan import norm_affine_lif
-    from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
+    from repro_torch.kernels.spike_conv import spike_conv
     from repro_torch.kernels.spike_conv_lif import (GATES,
                                                     slab_occupancy_mask,
                                                     slice_widths,
@@ -854,6 +915,7 @@ def fused_check(p, last, s_pair, name, st, lif_kw):
                                                     spike_conv_lif_plain)
     from repro_torch.testing import spike_mismatch
     patches, wmat, y = last["patches"], last["wmat"], last["y"]
+    xf, w, stride = last["xf"], last["w"], last["stride"]
     T, B, Ho, Wo, N = s_pair.shape
     HW, (M, K) = Ho * Wo, patches.shape
     sc, bi = p["scale"], p["bias"]
@@ -861,21 +923,24 @@ def fused_check(p, last, s_pair, name, st, lif_kw):
     kw = dict(T=T, B=B, HW=HW, **lif_kw)
 
     def pair(x):
-        """The per-op kernel pair on patch matrix x: (spikes, currents)."""
-        y4 = spike_conv(x, wmat, occupancy_mask(x)).reshape(
+        """The per-op kernel pair on folded spikes x: (spikes, currents)."""
+        y4 = spike_conv(x, w, stride=stride).reshape(
             B, T, HW, N).transpose(0, 1).contiguous()
         return norm_affine_lif(y4, sc, bi, **lif_kw), \
             instance_norm_affine(y4, sc, bi)
 
-    silent = patches.clone()
-    silent[: M // 2] = 0
+    # the first half of the batch silent (batch-major fold: the first
+    # M // 2 patch rows)
+    silent_x = xf.clone()
+    silent_x[: xf.shape[0] // 2] = 0
+    silent = spike_im2col(silent_x, w.shape[0], w.shape[1], stride)[0]
     occ_s = slab_occupancy_mask(silent.reshape(B, T * HW, K))
     check(int((occ_s == 0).sum()) > 0, f"spike_conv_lif {name}: no silent "
           f"tile in the partly silent check")
     y4 = y.reshape(B, T, HW, N).transpose(0, 1).contiguous()
     runs = {"main path": (patches, s_pair.reshape(T, B, HW, N),
                           instance_norm_affine(y4, sc, bi)),
-            "partly silent": (silent, *pair(silent))}
+            "partly silent": (silent, *pair(silent_x))}
     flips, band, equal, err = {}, {}, True, 0.0
     for label, (x, s_ref, z) in runs.items():
         plain = spike_conv_lif_plain(x, wmat, sc, bi, **kw)
@@ -895,13 +960,12 @@ def fused_check(p, last, s_pair, name, st, lif_kw):
             err = max(err, float((got - plain).abs().max()))
     occ = slab_occupancy_mask(patches.reshape(B, T * HW, K))
     live = sum(live_tile_elems(occ[b], T * HW, K) for b in range(B))
-    occ_pair = occupancy_mask(patches)
     ms = time_ms(lambda: spike_conv_lif(patches, wmat, sc, bi, bn=bn,
                                         occ=occ, **kw))
     plain_ms = time_ms(lambda: spike_conv_lif_plain(patches, wmat, sc, bi,
                                                     **kw))
     pair_ms = time_ms(lambda: norm_affine_lif(
-        spike_conv(patches, wmat, occ_pair).reshape(B, T, HW, N)
+        spike_conv(xf, w, stride=stride).reshape(B, T, HW, N)
         .transpose(0, 1).contiguous(), sc, bi, **lif_kw))
     st["spike_conv_lif"].add(
         (T, B, HW, K, N, bn), ms, plain_ms,
@@ -1516,13 +1580,14 @@ def tensors(tree):
 
 
 def grid_cap_check(vgg_params, vgg_cfg, vox):
-    """spike_conv and spike_matmul on VGG's first-layer patches at batch
-    GRID_CAP_BATCH (the batch-8 voxels tiled): more 64-row tiles than
-    gridDim.y holds, held to the plain GEMM."""
+    """spike_conv on VGG's first layer at batch GRID_CAP_BATCH (the
+    batch-8 voxels tiled) and spike_matmul on its patches: more 64-row
+    tiles than gridDim.y holds; both held to the plain GEMM, and the
+    conv bit-equal to spike_matmul."""
     import torch
     from repro_torch.core import backbones as BB
     from repro_torch.core import layers as L
-    from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
+    from repro_torch.kernels.spike_conv import spike_conv
     from repro_torch.kernels.spike_matmul import spike_matmul
 
     spec = BB.vgg_specs(vgg_cfg)[0]
@@ -1530,22 +1595,27 @@ def grid_cap_check(vgg_params, vgg_cfg, vox):
     B = vox.shape[1]
     x = vox.repeat(1, -(-GRID_CAP_BATCH // B), 1, 1, 1)[:, :GRID_CAP_BATCH]
     kh = p["w"].shape[0]
-    patches, _ = L.spike_im2col(L.fold(x), kh, kh, spec.stride)
+    xf = L.fold(x).contiguous()
+    patches, _ = L.spike_im2col(xf, kh, kh, spec.stride)
     wmat = p["w"].reshape(-1, p["w"].shape[-1]).contiguous()
     M = patches.shape[0]
     check(M > 65535 * 64, f"grid cap: {M} rows do not pass the old cap")
     want = L.blocked_matmul(patches, wmat)
+    got = {"spike_conv": spike_conv(xf, p["w"], stride=spec.stride)
+           .reshape(M, -1),
+           "spike_matmul": spike_matmul(patches, wmat)}
+    torch.cuda.synchronize()
+    check(torch.equal(got["spike_conv"], got["spike_matmul"]),
+          f"spike_conv differs from spike_matmul on its patches at M={M}")
     errs = {}
-    for name, got in (("spike_conv", spike_conv(patches, wmat,
-                                                occupancy_mask(patches))),
-                      ("spike_matmul", spike_matmul(patches, wmat))):
-        torch.cuda.synchronize()
-        check(torch.allclose(got, want, atol=1e-4, rtol=1e-5),
+    for name, y in got.items():
+        check(torch.allclose(y, want, atol=1e-4, rtol=1e-5),
               f"{name} disagrees with its plain version at M={M}")
-        errs[name] = float((got - want).abs().max())
+        errs[name] = float((y - want).abs().max())
     print(f"  grid cap: VGG {spec.name} at batch {GRID_CAP_BATCH}, M={M} "
           f"rows ({-(-M // 64)} row tiles > 65535), K={patches.shape[1]}, "
-          f"N={wmat.shape[1]}: max|kernel - plain| {errs}")
+          f"N={wmat.shape[1]}: spike_conv bit-equal to spike_matmul; "
+          f"max|kernel - plain| {errs}")
 
 
 def patched_attention(fn, hook):
@@ -1903,6 +1973,12 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    kernel_archs = sys.argv[2:] if sys.argv[1:2] == ["--kernel-phase"] \
+        else None
+    if sys.argv[1:] and not kernel_archs:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1929,6 +2005,14 @@ def main() -> int:
     reqs = make_requests(cfg, np.random.default_rng(0))
     vox = torch.stack([torch.as_tensor(r.voxels)
                        for r in reqs[:BATCH]], dim=1).to(dev)
+    if kernel_archs:
+        all_archs = {"spiking_yolo": (params, cfg), **archs}
+        for arch in kernel_archs:
+            print(f"  --- {arch} (full width, batch {BATCH}), layer by layer")
+            sts = kernel_phase(*all_archs[arch], vox)
+            print(json.dumps({arch: {k: s.summary() for k, s in sts.items()
+                                     if s.shapes}}))
+        return 0
 
     from repro_torch.core.backbones import fused_route_segments, layer_runs
     from repro_torch.kernels.backbone_fuse import describe_plan

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port, each beside its plain
-PyTorch version: ``spike_conv`` (gated GEMM), ``spike_conv_lif`` (the
-fused conv->norm->LIF layer), ``spike_dwconv`` (gated depthwise conv),
+PyTorch version: ``spike_conv`` (gated implicit-im2col conv),
+``spike_conv_lif`` (the fused conv->norm->LIF layer), ``spike_dwconv``
+(gated depthwise conv),
 ``max_pool`` (gated spike pooling), ``spike_matmul`` (tile-skip GEMM),
 ``lif_scan`` and ``norm_affine_lif`` (the NPU), ``event_voxel`` (DVS
 encoding), ``demosaic`` and ``nlm`` (the ISP), ``isp_fused`` (the fused

@@ -35,10 +35,10 @@ from repro_torch.launch.roofline import (SEGMENT_BUDGET_BYTES,
 MAX_FUSED_STRIDE = 2
 
 # device operations of the per-layer route at its untuned default, per
-# layer: im2col, the occupancy mask's reductions, the GEMM, the copy to
+# layer: the conv kernel (read from the folded spikes), the copy to
 # [T, B, HW, N] and the epilogue for a normal conv; the fold, the
 # depthwise conv and the epilogue for a depthwise one; fold and pool
-_UNFUSED_OPS_CONV = 8
+_UNFUSED_OPS_CONV = 3
 _UNFUSED_OPS_DW = 3
 _UNFUSED_OPS_POOL = 2
 

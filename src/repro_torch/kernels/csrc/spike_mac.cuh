@@ -1,7 +1,7 @@
 // The multiply-add steps of the spiking convs, shared by the per-layer
-// kernels (gated_gemm.cuh, spike_conv_lif.cu, spike_dwconv.cu) and the
-// fused backbone segment (backbone_segment.cu), so the routes give the
-// same conv values bit for bit.
+// kernels (spike_conv.cu, gated_gemm.cuh, spike_conv_lif.cu,
+// spike_dwconv.cu) and the fused backbone segment (backbone_segment.cu),
+// so the routes give the same conv values bit for bit.
 //
 //   GEMM conv: K in canonical 128-wide blocks, in order; a block's
 //   partial is an fmaf chain from +0 over its k in order (kblock_fma),

@@ -32,42 +32,23 @@ from repro_torch.kernels.backbone_fuse import (segment_activation_elems,
 from repro_torch.kernels.backbone_segment import (DEFAULT_CLUSTER,
                                                   backbone_segment,
                                                   segment_operands)
-from repro_torch.kernels.blocks import DEFAULT_BK, DEFAULT_BM
 from repro_torch.kernels.lif_scan import lif_scan, norm_affine_lif
 from repro_torch.kernels.max_pool import max_pool
-from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
+from repro_torch.kernels.spike_conv import spike_conv
 from repro_torch.kernels.spike_conv_lif import slice_widths, spike_conv_lif
 from repro_torch.kernels.spike_dwconv import spike_dwconv
 from repro_torch.kernels.spike_matmul import spike_matmul
-
-
-def _gate_mask(patches: torch.Tensor, gate: str):
-    """The spike_conv kernel's occupancy argument under ``gate``."""
-    if gate == "mask":
-        return occupancy_mask(patches)
-    if gate == "none":
-        M, K = patches.shape
-        return torch.ones((-(-M // DEFAULT_BM), -(-K // DEFAULT_BK)),
-                          dtype=torch.int32, device=patches.device)
-    if gate == "inline":
-        return None
-    raise ValueError(f"gate must be 'mask', 'inline' or 'none', got "
-                     f"{gate!r}")
 
 
 def spike_conv_op(xf: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                   gate: str = "mask") -> torch.Tensor:
     """Activity-gated spiking conv.  xf [N, H, W, C] folded spikes, w
     HWIO [kh, kw, cin, cout] -> [N, Ho, Wo, cout], SAME padding.  The
-    im2col and the occupancy mask are plain torch, as the reference
-    leaves them to XLA; the gated GEMM is the kernel.  ``gate``:
-    "mask" (the occupancy mask), "inline" (checked in the kernel) or
-    "none" (an all-ones mask)."""
-    kh, kw = w.shape[:2]
-    patches, (Ho, Wo) = spike_im2col(xf, kh, kw, stride)
-    wmat = w.reshape(kh * kw * w.shape[2], w.shape[3]).contiguous()
-    y = spike_conv(patches, wmat, _gate_mask(patches, gate))
-    return y.reshape(xf.shape[0], Ho, Wo, -1)
+    kernel reads xf itself (no patch matrix, no occupancy mask in
+    torch).  ``gate``: "mask" (each K block checked in xf before its
+    copies), "inline" (each staged slice checked) or "none"."""
+    return spike_conv(xf.contiguous(), w.contiguous(), stride=stride,
+                      gate=gate)
 
 
 def spike_dwconv_op(xf: torch.Tensor, w: torch.Tensor, *,
@@ -150,7 +131,8 @@ def spike_conv_lif_op(xf, w, scale, bias, *, T: int, B: int,
     if tune.tuning_active():
         live = float((xf != 0).float().mean())
         runner = run
-    return run(tune.dispatch("conv_lif", dims, runner, live=live))
+    return run(tune.dispatch("conv_lif", dims, runner, live=live,
+                             taps=kh * kw))
 
 
 def fused_conv_lif_table(keys: Iterable[str],

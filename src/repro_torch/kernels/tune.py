@@ -57,12 +57,14 @@ from repro_torch.configs.base import TuneConfig
 from repro_torch.configs.registry import get_tune_config
 from repro_torch.kernels.backbone_segment import MAX_LAYERS
 from repro_torch.kernels.blocks import DEFAULT_BK, DEFAULT_BM, DEFAULT_BN
+from repro_torch.kernels.spike_conv import conv_tiles
 from repro_torch.kernels.spike_conv_lif import slice_widths
 from repro_torch.launch.roofline import SMS, kernel_launch_estimate
 
 TUNE_SCHEMA_VERSION = 1
-# the port's kernels: bump when their numerics or launch semantics change
-KERNELS_VERSION = "h100-1"
+# the port's kernels: bump when their numerics, launch semantics or
+# speed change (a table's winners were timed on them)
+KERNELS_VERSION = "h100-2"
 ENV_VAR = "REPRO_TORCH_TUNE_TABLE"
 DEFAULT_TABLE_PATH = os.path.join(os.path.dirname(__file__),
                                   "tuned_defaults.json")
@@ -312,7 +314,7 @@ def _resolve_cached(op: str, key: str, epoch: int) -> LaunchConfig:
 _CONV_GATES = ("mask", "inline", "none")
 SEGMENT_CLUSTERS = (16, 8)  # backbone_segment cluster sizes swept
 _FUSED_WIDTHS = 3           # the widest slice widths that fit, per gate
-_MASK_OPS = 4               # device ops of the plain occupancy reduction
+_MASK_OPS = 4               # device ops of the fused route's plain mask
 
 
 _SEG_GATES = ("inline", "none")
@@ -364,9 +366,11 @@ def _segment_estimate(dims: Dict, cfg: LaunchConfig, live: float) -> float:
 
 
 def estimate(op: str, dims: Dict, cfg: LaunchConfig,
-             live: float = 1.0) -> float:
+             live: float = 1.0, taps: int = 9) -> float:
     """Roofline estimate (seconds) used to RANK candidates; ``live`` is
-    the live-activation fraction of the inputs, which the gates skip."""
+    the live-activation fraction of the inputs, which the gates skip;
+    ``taps`` the conv's kh*kw (the key holds only K = kh*kw*C, so a
+    dispatch passes it; a 3x3 conv when not given)."""
     if op == "backbone_seg":
         return _segment_estimate(dims, cfg, live)
     if op != "conv_lif":
@@ -375,22 +379,28 @@ def estimate(op: str, dims: Dict, cfg: LaunchConfig,
     K, N = dims["K"], dims["N"]
     frac = live if cfg.gate != "none" else 1.0
     flops = 2.0 * M * K * N * frac
-    mask_ops = _MASK_OPS if cfg.gate == "mask" else 0
     if cfg.fused:
         # every channel slice re-reads its batch element's patch slab,
-        # and B * slices blocks may leave SMs idle
+        # and B * slices blocks may leave SMs idle; the patches and the
+        # mask are plain torch before the launch
         slices = math.ceil(N / cfg.bn)
         reads = slices * (2 if cfg.gate == "inline" else 1)
         nbytes = 4.0 * (M * K * frac * reads + B * slices * K * cfg.bn
                         + M * N)
         flops *= max(1.0, SMS / (B * slices))
-        launches = 1 + mask_ops
+        launches = 1 + (_MASK_OPS if cfg.gate == "mask" else 0)
     else:
-        # the conv output: written, copied to [T, B, HW, N], read three
-        # times by the epilogue; inline re-checks per 64-column tile
-        reads = 1 + (math.ceil(N / 64) if cfg.gate == "inline" else 0)
-        nbytes = 4.0 * (M * K * frac * reads + K * N + 7 * M * N)
-        launches = 3 + mask_ops
+        # the conv kernel reads the activation (about M*C: each tap's
+        # re-read comes from L2, as does the "mask" gate's check) and
+        # the weights; its output is written, copied to
+        # [T, B, HW, N] and read three times by the epilogue; under
+        # split-K its partials cross memory once more.  Three host
+        # launches: the conv (its split-K reduce is launched inside
+        # it), the copy, the epilogue.
+        t = conv_tiles(M, K, N)
+        partials = 2 * t.kblocks * M * N if t.split else 0
+        nbytes = 4.0 * (M * K / taps + K * N + 7 * M * N + partials)
+        launches = 3
     return kernel_launch_estimate(flops, nbytes, launches)
 
 
@@ -420,9 +430,9 @@ def measure(runner: Callable[[LaunchConfig], object], cfg: LaunchConfig,
 
 def _sweep(op: str, dims: Dict[str, int],
            runner: Callable[[LaunchConfig], object], tune_cfg: TuneConfig,
-           live: float):
+           live: float, taps: int):
     ranked = sorted(candidates(op, dims, tune_cfg),
-                    key=lambda c: estimate(op, dims, c, live))
+                    key=lambda c: estimate(op, dims, c, live, taps))
     short = ranked[:max(1, tune_cfg.prune_to)]
     dflt = default_config(op)
     if dflt not in short:
@@ -439,15 +449,16 @@ def _sweep(op: str, dims: Dict[str, int],
 
 def dispatch(op: str, dims: Dict[str, int],
              runner: Optional[Callable[[LaunchConfig], object]] = None, *,
-             live: float = 1.0) -> LaunchConfig:
+             live: float = 1.0, taps: int = 9) -> LaunchConfig:
     """The launch config of (op, shape).  Under ``tuning()``, with a
     ``runner`` and an untuned key, sweep on the caller's inputs first
-    and record the winner."""
+    (ranked by ``estimate`` at ``live`` and ``taps``) and record the
+    winner."""
     key = shape_key(op, **dims)
     ctx = _tune_ctx
     if (ctx is not None and runner is not None
             and key not in ctx.table.entries):
-        cfg, us, default_us = _sweep(op, dims, runner, ctx.cfg, live)
+        cfg, us, default_us = _sweep(op, dims, runner, ctx.cfg, live, taps)
         ctx.table.record(key, cfg, us, default_us)
         _bump_epoch()               # the resolve cache must see the entry
         return cfg

@@ -513,7 +513,7 @@ def test_backbone_seg_estimates_rank():
            for c in tune.candidates("backbone_seg", dims,
                                     TUNE_CONFIGS["default"])}
     unfused = est[LaunchConfig(fused=False)]
-    # one launch at the segment's edges beats 16 device ops round-tripping
+    # one launch at the segment's edges beats 6 device ops round-tripping
     # every layer; the live fraction counts under "inline" only
     assert all(v < unfused for c, v in est.items() if c.fused)
     assert est[LaunchConfig(bm=16, gate="inline", fused=True)] < \

@@ -16,7 +16,10 @@ their plain versions op for op (equal for [exposure+dpc], [demosaic] and
 summed in another order, and NLM has its exp (atol 1e-6).  The
 depthwise conv replays the plain tap loop's roundings (equal, on spikes
 and on real values) and the max-pool has no rounding (equal, both gate
-modes).  The fused conv->LIF kernel sums its conv as spike_conv and its
+modes).  The spike conv kernel reads the folded spikes (implicit im2col)
+and gives the gated GEMM's bits on the materialised patches under every
+gate (equal to spike_matmul on spike_im2col's patches).  The fused
+conv->LIF kernel sums its conv as spike_conv and its
 statistics as norm_affine_lif do, so its spikes are held to the per-op
 kernel pair and to its plain version by the near-threshold rule (1e-4),
 under every gate and channel-slice width.  The backbone segment kernel
@@ -50,7 +53,8 @@ from repro_torch.kernels.event_voxel import event_voxel
 from repro_torch.kernels.lif_scan import lif_scan, norm_affine_lif
 from repro_torch.kernels.max_pool import max_pool
 from repro_torch.kernels.nlm import nlm
-from repro_torch.kernels.spike_conv import occupancy_mask, spike_conv
+from repro_torch.kernels.spike_conv import GATES as CONV_GATES
+from repro_torch.kernels.spike_conv import conv_tiles, spike_conv
 from repro_torch.kernels.spike_conv_lif import (GATES, slice_widths,
                                                 spike_conv_lif)
 from repro_torch.kernels.spike_dwconv import spike_dwconv
@@ -108,36 +112,65 @@ CONV_CASES = {
     "pointwise": (3, 8, 8, 256, 14, 1, 1, 0.4, 0),
     "partly_silent": (6, 16, 16, 32, 64, 3, 1, 0.3, 4),
     "all_silent": (2, 8, 8, 4, 8, 3, 2, 0.0, 0),
+    # split-K: M = 640, K = 2304, N = 256 (YOLO's f3 and head conv)
+    "split_k": (40, 4, 4, 256, 256, 3, 1, 0.2, 0),
+    # 2 channels (8-byte chunks), stride 2 on an even 64-wide input
+    "c2_stride2_even": (40, 64, 64, 2, 32, 3, 2, 0.05, 0),
+    # DenseNet's first dense layer: cout 24 in a 32-wide tile, K = 216
+    "densenet_c24": (40, 32, 32, 24, 24, 3, 1, 0.2, 0),
+    "pointwise_c66": (20, 8, 8, 66, 14, 1, 1, 0.3, 0),  # 8-byte chunks
+    "odd_c15": (4, 12, 12, 15, 19, 3, 1, 0.3, 0),       # 4-byte chunks
 }
+
+
+def _conv_inputs(dev, case, seed, silent_half=False):
+    n, h, w_, cin, cout, k, stride, dens, silent = CONV_CASES[case]
+    rng = np.random.default_rng(seed)
+    xf = _spikes(rng, (n, h, w_, cin), dens, silent)
+    if silent_half:
+        xf[: n // 2] = 0.0
+    w = torch.tensor(rng.normal(0, 1, (k, k, cin, cout)).astype(np.float32))
+    return xf.to(dev), w.to(dev), k, stride
+
+
+def _oracle(xf, w, k, stride):
+    """Today's gated GEMM (spike_matmul) on the materialised patches."""
+    patches, (Ho, Wo) = spike_im2col(xf, k, k, stride)
+    y = spike_matmul(patches, w.reshape(-1, w.shape[-1]).contiguous())
+    return y.reshape(xf.shape[0], Ho, Wo, -1)
 
 
 @pytest.mark.parametrize("case", sorted(CONV_CASES))
 def test_spike_conv_matches_plain(dev, case):
-    n, h, w_, cin, cout, k, stride, dens, silent = CONV_CASES[case]
-    rng = np.random.default_rng(len(case))
-    xf = _spikes(rng, (n, h, w_, cin), dens, silent).to(dev)
-    w = torch.tensor(rng.normal(0, 1, (k, k, cin, cout)).astype(np.float32),
-                     device=dev)
-    patches, _ = spike_im2col(xf, k, k, stride)
-    wmat = w.reshape(-1, cout).contiguous()
-    occ = occupancy_mask(patches)
-    got = spike_conv(patches, wmat, occ)
-    want = spike_conv(patches.cpu(), wmat.cpu(), occ.cpu())
-    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
+    """Every gate bit-equal to spike_matmul on the patches, and within
+    1e-4 of the plain version."""
+    xf, w, k, stride = _conv_inputs(dev, case, len(case))
+    want = _oracle(xf, w, k, stride)
+    plain = spike_conv(xf.cpu(), w.cpu(), stride=stride)
+    for gate in CONV_GATES:
+        got = spike_conv(xf, w, stride=stride, gate=gate)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (gate, float((got - want).abs().max()))
+        torch.testing.assert_close(got.cpu(), plain, atol=1e-4, rtol=1e-5)
+    if case == "split_k":
+        M, K, N = xf.shape[0] * 16, w.shape[0] ** 2 * w.shape[2], w.shape[3]
+        assert conv_tiles(M, K, N).split
 
 
-def test_spike_conv_inline_gate_matches_plain(dev):
-    n, h, w_, cin, cout, k, stride, dens, silent = CONV_CASES["partly_silent"]
-    rng = np.random.default_rng(5)
-    xf = _spikes(rng, (n, h, w_, cin), dens, silent).to(dev)
-    w = torch.tensor(rng.normal(0, 1, (k, k, cin, cout)).astype(np.float32),
-                     device=dev)
-    patches, _ = spike_im2col(xf, k, k, stride)
-    wmat = w.reshape(-1, cout).contiguous()
-    got = spike_conv(patches, wmat, None)
-    assert torch.equal(got, spike_conv(patches, wmat, occupancy_mask(patches)))
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_spike_conv_inline_gate_matches_plain(dev, case):
+    """Half the frames silent, so the gates skip: "inline" (and "mask",
+    "none") bit-equal to spike_matmul on the patches, within 1e-4 of
+    the plain version."""
+    xf, w, k, stride = _conv_inputs(dev, case, 5, silent_half=True)
+    want = _oracle(xf, w, k, stride)
+    got = spike_conv(xf, w, stride=stride, gate="inline")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for gate in ("mask", "none"):
+        assert torch.equal(spike_conv(xf, w, stride=stride, gate=gate), got)
     torch.testing.assert_close(got.cpu(), spike_conv(
-        patches.cpu(), wmat.cpu(), None), atol=1e-4, rtol=1e-5)
+        xf.cpu(), w.cpu(), stride=stride), atol=1e-4, rtol=1e-5)
 
 
 # (T, B, H, W, cin, cout, stride, density, silent frames)
@@ -165,8 +198,8 @@ def test_spike_conv_lif_matches_per_op_pair_and_plain(dev, case, gate):
     patches, (Ho, Wo) = spike_im2col(xf, 3, 3, stride)
     wmat = w.reshape(-1, cout).contiguous()
     HW = Ho * Wo
-    # the per-op kernel pair on the same patches, and its currents
-    y = spike_conv(patches, wmat, occupancy_mask(patches))
+    # the per-op kernel pair on the same spikes, and its currents
+    y = spike_conv(xf, w, stride=stride)
     y4 = y.reshape(B, T, HW, cout).transpose(0, 1).contiguous()
     pair = norm_affine_lif(y4, scale, bias)
     z = instance_norm_affine(y4, scale, bias)
@@ -241,16 +274,30 @@ def test_spike_matmul_matches_plain(dev, M, K, N, density):
 
 @pytest.mark.parametrize("kernel", ["spike_conv", "spike_matmul"])
 def test_gemm_past_the_old_row_tile_cap(dev, kernel):
-    """M = 65535 * 64 + 64 rows: more 64-row tiles than gridDim.y holds
-    (the row tiles sit on gridDim.x), against the plain version."""
-    M, K, N = 65535 * 64 + 64, 18, 32
+    """More than 65535 * 64 rows: more 64-row tiles than gridDim.y holds
+    (the row tiles sit on gridDim.x), against the plain version.
+    spike_conv on a VGG-first-layer-like xf [1025, 64, 64, 2] (M =
+    1025 * 4096 rows), also bit-equal to spike_matmul on its patches;
+    spike_matmul on M = 65535 * 64 + 64 rows."""
     g = torch.Generator(device=dev).manual_seed(0)
-    x = (torch.rand(M, K, device=dev, generator=g) < 0.1).float()
-    x[-64:] = 1.0           # the last row tile live
-    w = torch.randn(K, N, device=dev, generator=g)
-    got = (spike_conv(x, w, occupancy_mask(x)) if kernel == "spike_conv"
-           else spike_matmul(x, w))
-    want = spike_matmul(x.cpu(), w.cpu())
+    if kernel == "spike_conv":
+        xf = (torch.rand(1025, 64, 64, 2, device=dev, generator=g)
+              < 0.1).float()
+        xf[-1] = 1.0            # the last row tiles live
+        w = torch.randn(3, 3, 2, 32, device=dev, generator=g)
+        patches, _ = spike_im2col(xf, 3, 3, 1)
+        assert patches.shape[0] > 65535 * 64
+        wmat = w.reshape(-1, 32)
+        got = spike_conv(xf, w).reshape(-1, 32)
+        assert torch.equal(got, spike_matmul(patches, wmat))
+        want = spike_matmul(patches.cpu(), wmat.cpu())
+    else:
+        M, K, N = 65535 * 64 + 64, 18, 32
+        x = (torch.rand(M, K, device=dev, generator=g) < 0.1).float()
+        x[-64:] = 1.0           # the last row tile live
+        w = torch.randn(K, N, device=dev, generator=g)
+        got = spike_matmul(x, w)
+        want = spike_matmul(x.cpu(), w.cpu())
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-5)
 
 
@@ -438,6 +485,10 @@ def test_launch_counters(dev):
     lif_scan(x)
     spike_matmul(x, torch.ones(64, 8, device=dev))
     lif_scan(x.cpu())                       # the plain version: no launch
+    for gate in CONV_GATES:                 # one launch a call, any gate
+        spike_conv(torch.ones(2, 8, 8, 4, device=dev),
+                   torch.ones(3, 3, 4, 8, device=dev), gate=gate)
+    spike_conv(torch.ones(2, 8, 8, 4), torch.ones(3, 3, 4, 8))  # plain
     evs = _events(np.random.default_rng(0), 2, 64, 3, 8, 8)
     event_voxel(EventStream(*(a.to(dev) for a in evs)), time_steps=3,
                 height=8, width=8)
@@ -470,6 +521,7 @@ def test_launch_counters(dev):
                      specs=seg)                             # plain
     torch.cuda.synchronize()
     assert build.LAUNCHES == {"lif_scan": 1, "spike_matmul": 1,
+                              "spike_conv": len(CONV_GATES),
                               "spike_conv_lif": 1, "backbone_segment": 1,
                               "event_voxel": 1, "demosaic": 1, "nlm": 1,
                               "isp_stencil_segment": 2,

@@ -275,6 +275,24 @@ def test_estimate_ranks_slices_and_sparsity():
     assert kernel_launch_estimate(2e9, 1e6, 1) > a
 
 
+def test_pair_estimate_reads_the_activation_not_the_patches():
+    """The per-op pair's conv reads xf (implicit im2col): at a fixed
+    input width C its bytes no longer grow with kh*kw, while the fused
+    kernel, which still reads the patch matrix, does.  DenseNet's first
+    dense layer (C = N = 24) as a 1x1 and as a 3x3 conv; bytes-bound."""
+    one = dict(T=5, B=8, HW=4096, K=24, N=24)
+    three = dict(one, K=9 * 24)
+    pair1 = tune.estimate("conv_lif", one, LaunchConfig(), taps=1)
+    pair3 = tune.estimate("conv_lif", three, LaunchConfig(), taps=9)
+    assert pair3 == pytest.approx(pair1, rel=1e-3)
+    fused = LaunchConfig(bn=8, fused=True)
+    assert tune.estimate("conv_lif", three, fused, taps=9) > \
+        1.5 * tune.estimate("conv_lif", one, fused, taps=1)
+    # no occupancy launches on the pair: every gate costs three launches
+    assert tune.estimate("conv_lif", three, LaunchConfig(gate="inline"),
+                         taps=9) == pytest.approx(pair3, rel=1e-9)
+
+
 def test_measure_times_each_call_after_a_warmup():
     seen = []
 
