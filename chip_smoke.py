@@ -130,7 +130,10 @@ Phases (any failure raises and exits non-zero):
              generator seeded 0; parameter count and bytes resident
              printed); serve_prefill of 2 numpy-seeded prompts of 4096
              tokens (cache 4112) with exactly 28 flash_attention
-             launches; the kernel against its plain scan on layer 0's
+             launches, every one on the "wgmma" design (wgmma on a
+             TMA-fed K/V ring, warp-specialised, persistent; counted per
+             design as build.LAUNCHES["flash_attention:wgmma"]); the
+             kernel against its plain scan on layer 0's
              and the last layer's own q/k/v, bf16 (the rounding bound
              2^-8 (A + |got| + |plain|) + 1e-5, A the attention over |v|:
              P is rounded to bf16 for the P.V product and both outputs
@@ -150,7 +153,8 @@ Phases (any failure raises and exits non-zero):
              tokens, and on the 2-layer float32 model each request's
              tokens equal to its serve_prefill + serve_decode
              continuation; then flash_attention's time per prefill (28
-             launches, each on its layer's own inputs), its plain scan's,
+             launches, each on its layer's own inputs), the earlier
+             "mma_sync" design's on the same inputs, its plain scan's,
              SDPA's (library) and its bound (visible pairs at the 989
              TFLOP/s bf16 peak, or bytes), prefill tokens/s, the decode
              step and the engine tick p50/p90, and one prefill and five
@@ -167,6 +171,16 @@ result is printed.
 runs only phase 3-4's layer walk (every NPU kernel against its plain
 version, and its times) for the named archs at batch 8 and prints each
 arch's per-kernel numbers as one JSON line; it prints no result line.
+
+    python3 chip_smoke.py --flash-phase
+
+builds only flash_attention and runs it alone at one qwen2-7b prefill
+layer (numpy-seeded bf16 q [2, 4096, 28, 128], k and v [2, 4096, 4,
+128], causal; no model): the "wgmma" kernel against the plain scan
+within the rounding bound and the float32 kernel on float32 copies
+within 1e-5, then the "wgmma" kernel, the "mma_sync" design, SDPA and
+the float32 kernel timed in turns, printed with the bound, TFLOP/s and
+the card as one JSON line; it prints no result line.
 """
 from __future__ import annotations
 
@@ -1698,6 +1712,90 @@ def kernel_vs_plain(q, k, v, kw):
             float(bar.median()))
 
 
+def flash_phase(dev, card):
+    """flash_attention alone at one layer of the qwen2-7b prefill (q [2,
+    4096, 28, 128], k and v [2, 4096, 4, 128], causal; numpy-seeded bf16,
+    no model): the "wgmma" kernel held to the plain scan within
+    ``bf16_error_bound`` and the float32 kernel to it within F32_TOL on
+    float32 copies; then the "wgmma" kernel, the "mma_sync" design at the
+    same shape, SDPA (the yardstick; the port never calls it) and the
+    float32 kernel timed in turns (w m s f f s m w), with the bound,
+    TFLOP/s and the card.  -> the report."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.roofline import BF16_TENSOR_FLOPS
+
+    cfg = get_config(LM_ARCH)
+    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(0)
+
+    def normal(*shape):
+        return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
+    q32 = normal(LM_BATCH, LM_SEQ, Hq, hd).to(dev)
+    k32 = normal(LM_BATCH, LM_SEQ, Hkv, hd).to(dev)
+    v32 = normal(LM_BATCH, LM_SEQ, Hkv, hd).to(dev)
+    q, k, v = (t.bfloat16() for t in (q32, k32, v32))
+    kw = dict(causal=True, q_offset=0, window=0)
+    print(f"  --- flash_attention at one {LM_ARCH} prefill layer: q "
+          f"{tuple(q.shape)}, k/v {tuple(k.shape)}, causal, bf16")
+    build.reset_launches()
+    e16, s16, mag16, bar16 = kernel_vs_plain(q, k, v, kw)
+    check(build.LAUNCHES["flash_attention:wgmma"] == 1,
+          f"bf16 at d = {hd} did not run the wgmma design: "
+          f"{dict(build.LAUNCHES)}")
+    e32, s32, _, _ = kernel_vs_plain(q32, k32, v32, kw)
+    print(f"  wgmma vs plain: bf16 max|err| {e16:.3g} ({s16:.2f} of the "
+          f"rounding bound; median |plain| {mag16:.3g}, median bar "
+          f"{bar16:.3g}); float32 kernel max|err| {e32:.3g} ({s32:.2f} of "
+          f"{F32_TOL} + {F32_TOL}|plain|)")
+    blocks = fa.wgmma_schedule(LM_BATCH, LM_SEQ, LM_SEQ, Hq, causal=True,
+                               n_blocks=torch.cuda.get_device_properties(
+                                   dev).multi_processor_count)
+    tiles = [sum(it[3] for it in b) for b in blocks]
+    balance = max(tiles) / (sum(tiles) / len(tiles))
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    fns = {
+        "wgmma": lambda: fa.flash_attention(q, k, v, **kw),
+        "mma_sync": lambda: fa._launch(q, k, v, design="mma_sync", **kw),
+        "sdpa": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True),
+        "f32": lambda: fa.flash_attention(q32, k32, v32, **kw),
+    }
+    runs = {n: [] for n in fns}
+    for n in ("wgmma", "mma_sync", "sdpa", "f32", "f32", "sdpa", "mma_sync",
+              "wgmma"):
+        runs[n].append(time_ms(fns[n]))
+    nbytes, nops = attention_work(q, k, v, kw)
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_TENSOR_FLOPS * 1e3
+    f32_bound = max(2 * nbytes / HBM_BYTES_PER_S,
+                    nops / FP32_FLOPS) * 1e3
+    report = {"arch": LM_ARCH, "q": list(q.shape), "kv": list(k.shape),
+              "card": card, "bound_ms": max(tb, to),
+              "bound_by": "operations" if to >= tb else "bytes",
+              "f32_bound_ms": f32_bound, "gflop": nops / 1e9,
+              "bf16_max_abs_err": e16, "bf16_share_of_bound": s16,
+              "f32_max_abs_err": e32, "schedule_tiles_max_over_mean":
+              balance, "layers_per_prefill": cfg.num_layers, "designs": {}}
+    for n, ms in runs.items():
+        report["designs"][n] = {
+            "ms_runs": ms, "ms": statistics.median(ms),
+            "ms_per_prefill": statistics.median(ms) * cfg.num_layers,
+            "tflops": nops / (statistics.median(ms) * 1e-3) / 1e12}
+        print(f"  {n}: {' / '.join(f'{t:.4f}' for t in ms)} ms a layer, "
+              f"{report['designs'][n]['ms_per_prefill']:.4f} ms a prefill, "
+              f"{report['designs'][n]['tflops']:.1f} TFLOP/s")
+    print(f"  bound {max(tb, to):.4f} ms a layer ({report['bound_by']}; "
+          f"{nops / 1e9:.1f} GFLOP), float32 bound {f32_bound:.4f}; wgmma "
+          f"schedule: {len(blocks)} blocks, tiles max/mean {balance:.3f}; "
+          f"{card}")
+    return report
+
+
 def lm_phase(dev, card):
     """LM serving on full-width qwen2-7b (bf16, random weights from a
     CUDA generator seeded 0): serve_prefill of LM_BATCH prompts of LM_SEQ
@@ -1751,13 +1849,17 @@ def lm_phase(dev, card):
     launches = build.LAUNCHES["flash_attention"]
     check(launches == cfg.num_layers, f"serve_prefill launched "
           f"flash_attention {launches} times, want {cfg.num_layers}")
+    check(build.LAUNCHES["flash_attention:wgmma"] == launches,
+          f"flash_attention launches by design {dict(build.LAUNCHES)}: "
+          f"want all {launches} on wgmma")
     check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size)
           and logits.dtype == torch.float32
           and bool(torch.isfinite(logits).all()), "prefill logits")
     check(len(cache) == cfg.num_layers and tuple(cache[0].k.shape) == (
         LM_BATCH, cache_len, cfg.num_kv_heads, cfg.head_dim), "prefill cache")
     print(f"  serve_prefill [{LM_BATCH}, {LM_SEQ}] (cache {cache_len}): "
-          f"flash_attention launched {launches} times (one per layer)")
+          f"flash_attention launched {launches} times (one per layer), "
+          f"all on the wgmma design")
 
     # each layer's own q/k/v, recorded from the same prefill
     calls = []
@@ -1915,7 +2017,9 @@ def lm_phase(dev, card):
                time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                        reps=LM_PLAIN_REPS, warmup=1),
                nbytes, nops, err.get(li, 0.0),
-               library_ms=time_ms(library), peak_flops=BF16_TENSOR_FLOPS)
+               library_ms=time_ms(library), peak_flops=BF16_TENSOR_FLOPS,
+               extra={"mma_sync_ms": time_ms(lambda: fa._launch(
+                   q, k, v, design="mma_sync", **kw))})
     del calls
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1942,7 +2046,8 @@ def lm_phase(dev, card):
               "f32_decode_vs_prefill_rel": rel32,
               "flash_attention": st.summary(), "card": card}
     print(f"  timings ({card}): flash_attention per prefill "
-          f"({len(st.shapes)} launches) kernel {st.ms:.4f} ms, plain "
+          f"({len(st.shapes)} launches) kernel (wgmma) {st.ms:.4f} ms, the "
+          f"mma_sync design {st.extra['mma_sync_ms']:.4f}, plain "
           f"{st.plain_ms:.4f}, SDPA {st.library_ms:.4f}, bound "
           f"{st.bound_ms:.4f} ({'operations' if st.ops_s >= st.bytes_s else 'bytes'}); "
           f"prefill {prefill_s * 1e3:.1f} ms = "
@@ -1975,7 +2080,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     kernel_archs = sys.argv[2:] if sys.argv[1:2] == ["--kernel-phase"] \
         else None
-    if sys.argv[1:] and not kernel_archs:
+    flash_only = sys.argv[1:] == ["--flash-phase"]
+    if sys.argv[1:] and not kernel_archs and not flash_only:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -1987,14 +2093,18 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
 
     t0 = time.perf_counter()
-    build.build_all()
+    built = ["flash_attention"] if flash_only else list(build.SOURCES)
+    build.build_all(built)
     print(f"[2/7] build: {time.perf_counter() - t0:.1f} s")
-    for name in build.SOURCES:
+    for name in built:
         regs = [ln.strip() for ln in build.build_log(name).splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"  {name}: {' | '.join(regs)}")
 
     dev = torch.device("cuda")
+    if flash_only:
+        print(json.dumps({"flash_phase": flash_phase(dev, card)}))
+        return 0
     cfg = dataclasses.replace(SNN_ARCHS["spiking_yolo"], backend="cuda")
     params = init_npu(torch.Generator().manual_seed(0), cfg, device=dev)
     archs = {}

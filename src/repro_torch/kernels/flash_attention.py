@@ -9,9 +9,15 @@ math, q's type out.  ``flash_attention_ref_plain`` is the one-shot
 softmax of ``repro.kernels.ref.flash_attention_ref`` on [BH, S, d].
 
 ``flash_attention`` is the wrapper: a CPU tensor takes the plain scan, a
-CUDA tensor launches the kernel (bfloat16 on the tensor cores, float32
-on CUDA cores) or raises.  Each launch adds one to
-``build.LAUNCHES["flash_attention"]``.
+CUDA tensor launches the kernel or raises.  ``kernel_design`` names the
+kernel from the type and head dims alone: bfloat16 at
+``WGMMA_HEAD_DIMS`` (every full-width LM config's head) runs "wgmma"
+(wgmma on a TMA-fed K/V ring, warp-specialised, persistent), other
+bfloat16 head dims "mma_sync", float32 "f32" (CUDA cores).  Each launch
+adds one to ``build.LAUNCHES["flash_attention"]`` and one to
+``build.LAUNCHES["flash_attention:<design>"]``.  ``wgmma_schedule`` is
+the "wgmma" kernel's work list and its split over the blocks;
+``wgmma_products`` runs that kernel's two tensor-core products alone.
 """
 from __future__ import annotations
 
@@ -20,12 +26,22 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.build import check_launch, load, stream_of
+from repro_torch.kernels.build import (LAUNCHES, check_launch, load,
+                                      stream_of)
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
-# the (d, dv) pairs the kernel is built for (csrc/flash_attention.cu)
+# the (d, dv) pairs the "f32" and "mma_sync" kernels are built for
+# (csrc/flash_attention.cu), and those of the "wgmma" kernel
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (32, 16))
+WGMMA_HEAD_DIMS = ((64, 64), (128, 128))
+# csrc/flash_attention.cu `Design`
+DESIGNS = {"f32": 0, "mma_sync": 1, "wgmma": 2}
+# the "wgmma" kernel's query rows per work item and keys per tile
+WGMMA_BM = WGMMA_BN = 128
+# a launch error at or past this is a failed tensor-map encode, plus its
+# CUresult
+TENSOR_MAP_ERR = 1 << 16
 BF16_U = 2.0 ** -8      # bfloat16's unit roundoff (8 significant bits)
 
 _SIG = ("flash_attention_launch",
@@ -34,6 +50,9 @@ _SIG = ("flash_attention_launch",
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
          ctypes.c_void_p])
+_PROBE_SIG = ("flash_attention_probe",
+              [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p])
 
 
 def visible_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, Sk: int,
@@ -143,22 +162,68 @@ def _check(q, k, v):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
 
 
-def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
-                    window: int = 0) -> torch.Tensor:
-    """q [B, Sq, Hq, d], k [B, Sk, Hkv, d], v [B, Sk, Hkv, dv] (float32 or
-    bfloat16, one type) -> [B, Sq, Hq, dv] in q's type.  A CPU tensor
-    takes ``flash_attention_plain``; a CUDA tensor launches the kernel."""
+def kernel_design(dtype, d: int, dv: int) -> str:
+    """The kernel a CUDA call of ``flash_attention`` runs, from its type
+    and head dims alone."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if (d, dv) in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def key_range(q0: int, q1: int, *, Sk: int, causal: bool, q_offset: int,
+              window: int):
+    """The keys [lo, hi) some query row of [q0, q1) can see (the kernels'
+    ``key_range``)."""
+    hi = min(Sk, q1 + q_offset) if causal else Sk
+    lo = max(0, q0 + q_offset - window + 1) if window > 0 else 0
+    return lo, max(hi, lo)
+
+
+def wgmma_schedule(B: int, Sq: int, Sk: int, Hq: int, *, causal: bool,
+                   q_offset: int = 0, window: int = 0, n_blocks: int):
+    """The "wgmma" kernel's work: per block, its items (b, h, q0, key
+    tiles) in the order it runs them.  The list runs query tiles
+    outermost (causal: the last, longest, first), then batch, then query
+    head, so a KV head's G query heads are adjacent; block x takes item x
+    of each even round of ``n_blocks`` items and item n_blocks - 1 - x of
+    each odd one."""
+    n_mb = -(-Sq // WGMMA_BM)
+    items = []
+    for mi in range(n_mb):
+        q0 = ((n_mb - 1 - mi) if causal else mi) * WGMMA_BM
+        lo, hi = key_range(q0, min(q0 + WGMMA_BM, Sq), Sk=Sk, causal=causal,
+                           q_offset=q_offset, window=window)
+        tiles = -(-(hi - lo) // WGMMA_BN)
+        items += [(b, h, q0, tiles) for b in range(B) for h in range(Hq)]
+    blocks = [[] for _ in range(min(n_blocks, len(items)))]
+    n = len(blocks)
+    for r in range(-(-len(items) // max(n, 1))):
+        for x in range(n):
+            idx = r * n + (n - 1 - x if r % 2 else x)
+            if idx < len(items):
+                blocks[x].append(items[idx])
+    return blocks
+
+
+def _launch(q, k, v, *, causal: bool, q_offset: int, window: int,
+            design: str) -> torch.Tensor:
+    """Launch ``design`` on CUDA tensors.  The model path passes
+    ``kernel_design``'s choice; timing code may pass "mma_sync" to time
+    the earlier design at (128, 128) beside "wgmma"."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=q_offset, window=window)
     B, Sq, Hq, d = q.shape
     Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[3]
-    if (d, dv) not in HEAD_DIMS:
+    if (design == "f32") != (q.dtype == torch.float32):
+        raise TypeError(f"flash_attention: {q.dtype} on design {design!r}")
+    built = WGMMA_HEAD_DIMS if design == "wgmma" else HEAD_DIMS
+    if (d, dv) not in built:
         raise ValueError(f"flash_attention: head dims (d={d}, dv={dv}) are "
-                         f"not built; built: {HEAD_DIMS}")
+                         f"not built for {design!r}; built: {built}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if design == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the TMA loads need q, k, v on "
+                         "16-byte boundaries")
     out = torch.empty((B, Sq, Hq, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -167,7 +232,58 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Sk, Hq, Hkv, d, dv, int(causal), int(q_offset),
-            int(window), d ** -0.5, int(q.dtype == torch.bfloat16),
-            stream_of(q.device))
-    check_launch("flash_attention", err)
+            int(window), d ** -0.5, DESIGNS[design], stream_of(q.device))
+    _check_launch("flash_attention", err)
+    LAUNCHES[f"flash_attention:{design}"] += 1
     return out
+
+
+def _check_launch(name: str, err: int) -> None:
+    """``build.check_launch``, naming a failed tensor-map encode."""
+    if err >= TENSOR_MAP_ERR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: "
+                           f"CUresult {err - TENSOR_MAP_ERR}")
+    check_launch(name, err)
+
+
+def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                    window: int = 0) -> torch.Tensor:
+    """q [B, Sq, Hq, d], k [B, Sk, Hkv, d], v [B, Sk, Hkv, dv] (float32 or
+    bfloat16, one type) -> [B, Sq, Hq, dv] in q's type.  A CPU tensor
+    takes ``flash_attention_plain``; a CUDA tensor launches the kernel of
+    ``kernel_design``."""
+    if q.device.type == "cpu":
+        _check(q, k, v)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset, window=window)
+    return _launch(q, k, v, causal=causal, q_offset=q_offset, window=window,
+                   design=kernel_design(q.dtype, q.shape[3], v.shape[3]))
+
+
+def wgmma_products(q, k, v):
+    """The "wgmma" kernel's two tensor-core products alone: bf16 q, k
+    [128, d] and v [128, dv] -> (s = q k^T, o = bf16(s) v), both float32
+    [128, 128] and [128, dv].  CPU tensors take the plain products; CUDA
+    tensors one block of ``flash_attention_probe`` (the kernel's own TMA
+    loads, descriptors and register fragments)."""
+    d, dv = q.shape[1], v.shape[1]
+    if (q.dtype, k.dtype, v.dtype) != (torch.bfloat16,) * 3 or q.shape[0] \
+            != WGMMA_BN or k.shape != q.shape or v.shape[0] != WGMMA_BN:
+        raise ValueError("wgmma_products: bf16 q, k [128, d], v [128, dv]")
+    if q.device.type == "cpu":
+        s = q.float() @ k.float().T
+        return s, s.bfloat16().float() @ v.float()
+    if (d, dv) not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"wgmma_products: (d={d}, dv={dv}) not built")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    s = torch.empty((WGMMA_BN, WGMMA_BN), dtype=torch.float32,
+                    device=q.device)
+    o = torch.empty((WGMMA_BN, dv), dtype=torch.float32, device=q.device)
+    lib = load("flash_attention", _PROBE_SIG)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_probe(q.data_ptr(), k.data_ptr(),
+                                        v.data_ptr(), s.data_ptr(),
+                                        o.data_ptr(), d, dv,
+                                        stream_of(q.device))
+    _check_launch("flash_attention_probe", err)
+    return s, o

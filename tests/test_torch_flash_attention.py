@@ -9,13 +9,23 @@ shapes; the model-layout function against the reference model's
 window, a query offset, a non-causal ragged Sk, dv != d); the wrapper on
 CPU tensors takes the plain version, and what it does not take raises.
 
+Also on the CPU: ``kernel_design`` (the kernel a CUDA call runs, from its
+type and head dims alone), ``key_range`` against the visibility mask,
+``wgmma_schedule`` (every item once, causal tiles longest first, a KV
+head's query heads adjacent, the blocks' key tiles even at the prefill
+shape) and the refusals of the launcher that need no card.
+
 The ``cuda`` cases need a card and skip here: the kernel against its plain
 version on the same inputs, float32 within 1e-5, bfloat16 within the
 rounding bound ``bf16_error_bound`` (the kernel rounds the softmax
 weights to bf16 for the P.V product on the tensor cores, and both
 outputs round to bf16: 2^-8 (A + |got| + |plain|) + 1e-5, A the
 attention over |v|), capped at the earlier fixed bar ``BF16_ATOL +
-BF16_RTOL * |plain|``.  JAX is imported inside the CPU tests only, so
+BF16_RTOL * |plain|``; the "wgmma" design at d = dv = 128 (and 64) on
+GQA, window, offset, ragged and non-causal cases, each counted on its
+design; its two products alone (``wgmma_products``); a 28-layer
+prefill with head dim 128 whose every launch runs "wgmma"; small head
+dims on "mma_sync".  JAX is imported inside the CPU tests only, so
 the ``cuda`` cases run where JAX is absent:
 
     python -m pytest -q -m cuda tests/test_torch_flash_attention.py
@@ -27,10 +37,13 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, bf16_error_bound,
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, WGMMA_HEAD_DIMS,
+                                                 bf16_error_bound,
                                                  flash_attention,
                                                  flash_attention_plain,
-                                                 flash_attention_ref_plain)
+                                                 flash_attention_ref_plain,
+                                                 visible_mask)
 from repro_torch.models.attention import flash_attention as model_flash
 
 F32_TOL = 1e-5
@@ -49,6 +62,20 @@ MODEL_CASES = (
        (2, 70, 70, 4, 1, 32, 16, True, 5, 16)])
 # the prefill's shape: qwen2-7b, 4096 tokens
 FULL_CASE = (1, 4096, 4096, 28, 4, 128, 128, True, 0, 0)
+# the "wgmma" design: d = dv = 128 (every full-width LM head), and 64
+WGMMA_CASES = [
+    (2, 256, 256, 4, 4, 128, 128, True, 0, 0),      # G = 1
+    (1, 300, 300, 14, 2, 128, 128, True, 0, 0),     # G = 7
+    (1, 400, 400, 7, 1, 128, 128, True, 0, 100),    # a window
+    (1, 200, 330, 7, 1, 128, 128, True, 130, 0),    # q_offset, Sq != Sk
+    (1, 150, 400, 7, 1, 128, 128, True, 250, 64),   # both
+    (2, 130, 130, 4, 2, 128, 128, True, 0, 0),      # ragged Sq = Sk
+    (1, 1000, 1000, 7, 1, 128, 128, True, 0, 0),
+    (2, 100, 333, 4, 2, 128, 128, False, 0, 0),     # non-causal, ragged Sk
+    (1, 384, 200, 4, 1, 128, 128, False, 0, 0),     # Sq > Sk
+    (2, 200, 200, 4, 2, 64, 64, True, 0, 0),
+    (1, 130, 260, 4, 4, 64, 64, False, 0, 0),
+]
 
 
 def _case_id(c):
@@ -214,6 +241,108 @@ def test_wrapper_raises_on_what_it_does_not_take(name):
         flash_attention(q, k, v, causal=True)
 
 
+@pytest.mark.parametrize("dtype,d,dv,want", [
+    (torch.bfloat16, 128, 128, "wgmma"), (torch.bfloat16, 64, 64, "wgmma"),
+    (torch.bfloat16, 16, 16, "mma_sync"), (torch.bfloat16, 32, 32, "mma_sync"),
+    (torch.bfloat16, 32, 16, "mma_sync"), (torch.float32, 128, 128, "f32"),
+    (torch.float32, 16, 16, "f32")])
+def test_kernel_design_by_type_and_head_dims(dtype, d, dv, want):
+    assert fa.kernel_design(dtype, d, dv) == want
+    assert (d, dv) in (WGMMA_HEAD_DIMS if want == "wgmma" else HEAD_DIMS)
+
+
+@pytest.mark.parametrize("Sk,causal,q_offset,window", [
+    (300, True, 0, 0), (300, False, 0, 0), (333, True, 130, 0),
+    (400, True, 250, 64), (400, True, 0, 100), (90, False, 0, 0)])
+def test_key_range_holds_every_visible_key(Sk, causal, q_offset, window):
+    """Each 128-row tile's [lo, hi) holds every key a row of it sees, and
+    its first and last keys are seen by some row; a tile that sees none
+    gets an empty range."""
+    Sq = 260
+    vis = visible_mask(q_offset + torch.arange(Sq), torch.arange(Sk + 200),
+                       Sk=Sk, causal=causal, window=window)
+    for q0 in range(0, Sq, fa.WGMMA_BM):
+        q1 = min(q0 + fa.WGMMA_BM, Sq)
+        lo, hi = fa.key_range(q0, q1, Sk=Sk, causal=causal,
+                              q_offset=q_offset, window=window)
+        seen = vis[q0:q1].any(dim=0).nonzero().flatten()
+        if seen.numel() == 0:        # rows whose window lies past Sk
+            assert lo == hi
+        else:
+            assert int(seen.min()) == lo and int(seen.max()) == hi - 1
+
+
+SCHEDULES = [(2, 4096, 4096, 28, True, 0, 0, 132),
+             (1, 1000, 1000, 7, True, 0, 0, 132),
+             (2, 100, 333, 4, False, 0, 0, 132),
+             (1, 150, 400, 7, True, 250, 64, 16),
+             (3, 700, 700, 6, False, 0, 0, 5)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,causal,q_offset,window,n_blocks",
+                         SCHEDULES)
+def test_wgmma_schedule_runs_each_item_once(B, Sq, Sk, Hq, causal, q_offset,
+                                            window, n_blocks):
+    blocks = fa.wgmma_schedule(B, Sq, Sk, Hq, causal=causal,
+                               q_offset=q_offset, window=window,
+                               n_blocks=n_blocks)
+    n_items = -(-Sq // fa.WGMMA_BM) * B * Hq
+    assert len(blocks) == min(n_blocks, n_items)
+    got = sorted((b, h, q0) for blk in blocks for b, h, q0, _ in blk)
+    assert got == sorted((b, h, q0) for b in range(B) for h in range(Hq)
+                         for q0 in range(0, Sq, fa.WGMMA_BM))
+    # items per block differ by at most one
+    lens = [len(blk) for blk in blocks]
+    assert max(lens) - min(lens) <= 1
+
+
+def test_wgmma_schedule_order_and_balance_at_the_prefill_shape():
+    """qwen2-7b's prefill on 132 SMs: the list's causal tiles run longest
+    first, a KV head's 7 query heads are adjacent in it (so they share
+    K/V tiles in L2), and every block gets the same number of key tiles."""
+    B, S, Hq, G = 2, 4096, 28, 7
+    blocks = fa.wgmma_schedule(B, S, S, Hq, causal=True, n_blocks=132)
+    first_round = [blk[0] for blk in blocks]        # items 0 .. 131
+    tiles = [t for _, _, _, t in first_round]
+    assert tiles == sorted(tiles, reverse=True) and tiles[0] == S // 128
+    assert [h // G for _, h, _, _ in first_round[:G]] == [0] * G
+    for blk in blocks:           # round r's item is later in the list
+        assert [t for *_, t in blk] == sorted((t for *_, t in blk),
+                                             reverse=True)
+    per_block = {sum(t for *_, t in blk) for blk in blocks}
+    assert per_block == {S // 128 * (S // 128 + 1) // 2 * B * Hq // 132}
+
+
+def test_launcher_refusals_that_need_no_card():
+    """Head dims the named design is not built for, a type the design
+    does not take, and TMA's 16-byte alignment raise before any launch."""
+    q = torch.zeros(1, 8, 4, 32, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not built for 'wgmma'"):
+        fa._launch(q, k, k, causal=True, q_offset=0, window=0,
+                   design="wgmma")
+    with pytest.raises(TypeError, match="design"):
+        fa._launch(q.float(), k.float(), k.float(), causal=True, q_offset=0,
+                   window=0, design="mma_sync")
+    flat = torch.zeros(1 + 8 * 4 * 128, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 8, 4, 128)           # 2 bytes off the allocation
+    k = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._launch(q, k, k, causal=True, q_offset=0, window=0,
+                   design="wgmma")
+
+
+def test_wgmma_products_on_cpu_are_the_plain_products():
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.tensor(rng.normal(0, 1, (128, 64)).astype(np.float32))
+               .bfloat16() for _ in range(3))
+    s, o = fa.wgmma_products(q, k, v)
+    assert torch.equal(s, q.float() @ k.float().T)
+    assert torch.equal(o, s.bfloat16().float() @ v.float())
+    with pytest.raises(ValueError):
+        fa.wgmma_products(q[:64], k[:64], v[:64])
+
+
 # ---------------------------------------------------------------------------
 # the card: the kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -283,3 +412,94 @@ def test_kernel_raises_on_what_it_does_not_take(dev):
     q = torch.zeros(1, 8, 16, 4, device=dev).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q, q, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=_case_id)
+def test_wgmma_kernel_matches_plain(dev, case):
+    _, _, _, _, _, _, _, causal, qo, w = case
+    q, k, v = (torch.tensor(a).to(dev, torch.bfloat16)
+               for a in _inputs(case, seed=11))
+    build.reset_launches()
+    got = flash_attention(q, k, v, causal=causal, q_offset=qo, window=w)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == 1
+    assert build.LAUNCHES["flash_attention:wgmma"] == 1
+    kw = dict(causal=causal, q_offset=qo, window=w)
+    assert_kernel_close(got, flash_attention_plain(q, k, v, **kw), q, k, v,
+                        **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", WGMMA_HEAD_DIMS)
+def test_wgmma_products_match_plain(dev, d, dv):
+    """The kernel's two products alone (its TMA boxes, swizzle,
+    descriptors and fragments): S = q k^T against float32 (the bf16
+    products are exact in f32; only the order of the sums differs), and
+    P V with P = bf16(S) against float32 on the kernel's own S."""
+    rng = np.random.default_rng(d)
+    q, k = (torch.tensor(rng.normal(0, 1, (128, d)).astype(np.float32))
+            .to(dev, torch.bfloat16) for _ in range(2))
+    v = torch.tensor(rng.normal(0, 1, (128, dv)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    s, o = fa.wgmma_products(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s, q.float() @ k.float().T, atol=1e-4,
+                               rtol=1e-5)
+    torch.testing.assert_close(o, s.bfloat16().float() @ v.float(),
+                               atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_prefill_launches_run_the_wgmma_design(dev):
+    """A 28-layer model with qwen2-7b's heads (28 / 4 of 128; narrow
+    elsewhere): each of serve_prefill's 28 flash_attention launches runs
+    the wgmma design."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.lm import serve_prefill
+    cfg = dataclasses.replace(get_config("qwen2-7b"), d_model=256,
+                              d_ff=512, vocab_size=512)
+    assert (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim) == (28, 28, 4, 128)
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0),
+                             cfg, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 256)), device=dev)
+    build.reset_launches()
+    logits, _ = serve_prefill(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    assert build.LAUNCHES["flash_attention"] == 28
+    assert build.LAUNCHES["flash_attention:wgmma"] == 28
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", [p for p in HEAD_DIMS
+                                  if p not in WGMMA_HEAD_DIMS])
+def test_small_head_dims_run_the_mma_sync_design(dev, d, dv):
+    case = (1, 70, 70, 4, 2, d, dv, True, 0, 0)
+    q, k, v = (torch.tensor(a).to(dev, torch.bfloat16) for a in _inputs(case))
+    build.reset_launches()
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention:mma_sync"] == 1
+    assert build.LAUNCHES["flash_attention:wgmma"] == 0
+    assert_kernel_close(got, flash_attention_plain(q, k, v, causal=True),
+                        q, k, v, causal=True)
+
+
+@pytest.mark.cuda
+def test_mma_sync_design_at_the_prefill_head_dim(dev):
+    """The earlier design stays callable at d = 128 for timing, and right."""
+    case = (1, 300, 300, 14, 2, 128, 128, True, 0, 0)
+    q, k, v = (torch.tensor(a).to(dev, torch.bfloat16) for a in _inputs(case))
+    build.reset_launches()
+    got = fa._launch(q, k, v, causal=True, q_offset=0, window=0,
+                     design="mma_sync")
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention:mma_sync"] == 1
+    assert_kernel_close(got, flash_attention_plain(q, k, v, causal=True),
+                        q, k, v, causal=True)
