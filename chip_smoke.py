@@ -19,7 +19,9 @@ Phases (any failure raises and exits non-zero):
              the folded spikes) under each gate ("mask", "inline",
              "none") bit-equal to spike_matmul on the layer's patches
              (the gated GEMM's bits), spike_conv and spike_matmul allclose
-             atol=1e-4 rtol=1e-5 to their plain versions, lif_scan equal,
+             atol=1e-4 rtol=1e-5 to their plain versions, spike_matmul's
+             "small" path (the control head's) bit-equal to its "tiled"
+             path on the head's input and on 30% spikes, lif_scan equal,
              norm_affine_lif spikes equal except where the plain membrane
              lies within 1e-4 of v_th; spike_conv also on a partly silent
              input so the gates skip; on every firing conv
@@ -49,7 +51,9 @@ Phases (any failure raises and exits non-zero):
              full-width spiking MobileNet, VGG and DenseNet (the paper's
              other backbones; same voxels):
              spike_dwconv equal to its plain tap loop on each depthwise
-             layer's input and on a partly silent copy, max_pool equal to
+             layer's input and on a partly silent copy (the earlier
+             grid-stride design too, where build/earlier holds its
+             source), max_pool equal to
              its plain version in both gate modes on each pool's input
              and on a copy with an all-silent frame.  Each arch's segment
              plan at the default budget is printed, and every
@@ -69,9 +73,13 @@ Phases (any failure raises and exits non-zero):
              PyTorch call where it computes the same function:
              cuDNN's conv on the pre-padded channels-last input for
              spike_conv (torch.matmul on its patches beside it, and the
-             kernel under each gate), torch.matmul for spike_matmul,
-             cuDNN's grouped conv on the
-             pre-padded channels-last input for spike_dwconv,
+             kernel under each gate), torch.matmul for spike_matmul
+             (its "tiled" path beside it), cuDNN's grouped conv on the
+             pre-padded channels-last input for spike_dwconv (the
+             earlier grid-stride design beside it where
+             build/earlier/spike_dwconv.cu holds a copy of its source:
+             `git show <commit>:src/repro_torch/kernels/csrc/
+             spike_dwconv.cu`; null otherwise),
              F.max_pool2d for max_pool; none for spike_conv_lif and
              backbone_segment, printed beside the per-op kernel pair's
              and the per-layer kernel route's time instead), and the least
@@ -418,6 +426,56 @@ def time_ms(fn, reps=TIMING_REPS, warmup=3):
     return statistics.median(times)
 
 
+EARLIER = ROOT / "build" / "earlier"  # earlier designs' sources, to time
+_EARLIER_LIBS = {}
+
+
+def earlier_dwconv():
+    """spike_dwconv's earlier design (a thread an output in a
+    grid-stride loop), built with the kernels' nvcc flags from a copy of
+    its source at build/earlier/spike_dwconv.cu, as a function (xf, w,
+    stride) -> out on CUDA tensors; None where there is no copy."""
+    import ctypes
+    import torch
+    from repro_torch.core.layers import _same_pads
+    from repro_torch.kernels import build
+    src = EARLIER / "spike_dwconv.cu"
+    if not src.exists():
+        return None
+    if "spike_dwconv" not in _EARLIER_LIBS:
+        lib_path = EARLIER / "libspike_dwconv.so"
+        done = subprocess.run(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
+             str(lib_path), str(src)], capture_output=True, text=True,
+            timeout=300)
+        check(done.returncode == 0, f"the earlier spike_dwconv does not "
+              f"build:\n{done.stdout}{done.stderr}")
+        fn = ctypes.CDLL(str(lib_path)).spike_dwconv_launch
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _EARLIER_LIBS["spike_dwconv"] = fn
+    fn = _EARLIER_LIBS["spike_dwconv"]
+
+    def run(xf, w, stride):
+        N, H, W, C = xf.shape
+        kh, kw = w.shape[:2]
+        pad_h, _, Ho = _same_pads(H, kh, stride)
+        pad_w, _, Wo = _same_pads(W, kw, stride)
+        out = torch.empty((N, Ho, Wo, C), device=xf.device)
+        err = fn(xf.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, C,
+                 Ho, Wo, kh, kw, stride, pad_h, pad_w,
+                 torch.cuda.current_stream(xf.device).cuda_stream)
+        check(err == 0, f"the earlier spike_dwconv failed to launch: "
+              f"cudaError {err}")
+        return out
+    return run
+
+
+def _sum_or_none(a, b):
+    return None if a is None or b is None else a + b
+
+
 class KernelStats:
     """Per-kernel sums over one tick's launches."""
 
@@ -428,13 +486,14 @@ class KernelStats:
         self.per_op_ms = None       # spike_conv_lif: the per-op kernel pair
         self.max_abs_err = 0.0
         self.shapes = []
-        self.extra = {}             # other named times, summed (ms)
+        self.extra = {}             # other named times, summed (ms);
+        #                             None where one was not timed
 
     def add(self, shape, ms, plain_ms, nbytes, nops, err, library_ms=None,
             per_op_ms=None, peak_flops=FP32_FLOPS, extra=None):
         self.shapes.append(shape)
         for k, v in (extra or {}).items():
-            self.extra[k] = self.extra.get(k, 0.0) + v
+            self.extra[k] = _sum_or_none(self.extra.get(k, 0.0), v)
         if per_op_ms is not None:
             self.per_op_ms = (self.per_op_ms or 0.0) + per_op_ms
         self.ms += ms
@@ -461,7 +520,7 @@ class KernelStats:
         if other.per_op_ms is not None:
             self.per_op_ms = (self.per_op_ms or 0.0) + other.per_op_ms
         for k, v in other.extra.items():
-            self.extra[k] = self.extra.get(k, 0.0) + v
+            self.extra[k] = _sum_or_none(self.extra.get(k, 0.0), v)
         return self
 
     def summary(self):
@@ -552,6 +611,8 @@ def kernel_phase(params, cfg, vox):
     from repro_torch.kernels.spike_conv import GATES as CONV_GATES
     from repro_torch.kernels.spike_conv import (conv_tiles, occupancy_mask,
                                                 spike_conv)
+    from repro_torch.kernels import spike_dwconv as dw_mod
+    from repro_torch.kernels import spike_matmul as mm_mod
     from repro_torch.kernels.spike_dwconv import (spike_dwconv,
                                                   tap_occupancy_mask)
     from repro_torch.kernels.spike_matmul import spike_matmul
@@ -640,11 +701,16 @@ def kernel_phase(params, cfg, vox):
         silent[: xf.shape[0] // 2] = 0
         got_s = spike_dwconv(silent, w, stride=stride)
         want_s = L.spike_conv(silent, w, stride=stride, depthwise=True)
+        # the earlier design, timed beside the kernel where its source is
+        earlier = earlier_dwconv()
+        old = earlier(xf, w, stride) if earlier else y_ref
         torch.cuda.synchronize()
         check(torch.equal(y, y_ref), f"spike_dwconv {name} is not bit-exact")
         check(torch.equal(got_s, want_s),
               f"spike_dwconv {name} is not bit-exact on a partly silent "
               f"input")
+        check(torch.equal(old, y_ref), f"spike_dwconv {name}: the earlier "
+              f"design is not bit-exact")
         N, H, W, C = xf.shape
         taps, _ = L._patch_slices(xf, kh, kw, stride)
         live = sum(int((t != 0).sum()) for t in taps)
@@ -662,18 +728,26 @@ def kernel_phase(params, cfg, vox):
         lib_err = float((library().permute(0, 2, 3, 1) - y_ref).abs().max())
         check(lib_err <= 1e-4, f"spike_dwconv {name}: the library conv is "
               f"{lib_err:.3g} away")
+        ms = time_ms(lambda: spike_dwconv(xf, w, stride=stride))
+        lib_ms = time_ms(library)
+        old_ms = time_ms(lambda: earlier(xf, w, stride)) if earlier else None
         st["spike_dwconv"].add(
-            (N, H, W, C, stride),
-            time_ms(lambda: spike_dwconv(xf, w, stride=stride)),
+            (N, H, W, C, stride), ms,
             time_ms(lambda: L.spike_conv(xf, w, stride=stride,
                                          depthwise=True)),
             (xf.numel() + y.numel() + w.numel()) * 4, 2.0 * live, 0.0,
-            library_ms=time_ms(library))
+            library_ms=lib_ms, extra={"earlier_design_ms": old_ms})
+        t = dw_mod.dw_tiles(N, H, W, C, kh, kw, stride)
         print(f"  spike_dwconv {name:7s} [N,H,W,C]={(N, H, W, C)} stride "
-              f"{stride}: bit-exact; live taps {live}/{kh * kw * y.numel()}, "
+              f"{stride}, {t.blocks} blocks of {t.bh}x{t.bw} outputs x "
+              f"{t.cg} channels, {t.threads} threads, {t.smem_bytes} B "
+              f"shared: bit-exact"
+              f"{' (the earlier design too)' if earlier else ''}; "
+              f"live taps {live}/{kh * kw * y.numel()}, "
               f"silent tap slabs {int((occ == 0).sum())}/{occ.numel()} "
               f"(partly silent input: {int((occ_s == 0).sum())}, "
-              f"bit-exact)")
+              f"bit-exact); ms {ms:.5f}, cuDNN {lib_ms:.5f}, earlier design "
+              + (f"{old_ms:.5f}" if earlier else "not built"))
         return L.unfold(y, T, B)
 
     def conv(name, p, x, stride, depthwise):
@@ -763,24 +837,33 @@ def kernel_phase(params, cfg, vox):
                       generator=torch.Generator(hx.device).manual_seed(1))
            < 0.3).float()
     errs = []
+    M, K = hx.shape
+    N = po["w"].shape[1]
+    path = mm_mod.matmul_path(M, N)
+    check(path == "small", f"spike_matmul: the head's [{M}, {K}] @ [{K}, "
+          f"{N}] takes the {path} path")
     for xin, label in ((hx, "main path"), (rnd, "30% spikes")):
         got = spike_matmul(xin, po["w"])
+        tiled = mm_mod._launch(xin, po["w"], "tiled")
         want = L.blocked_matmul(xin, po["w"])
         torch.cuda.synchronize()
+        check(torch.equal(got, tiled), f"spike_matmul: the small path "
+              f"differs from the tiled one ({label})")
         check(torch.allclose(got, want, atol=1e-4, rtol=1e-5),
               f"spike_matmul disagrees ({label})")
         errs.append(float((got - want).abs().max()))
         print(f"  spike_matmul {label} {tuple(xin.shape)}@"
-              f"{tuple(po['w'].shape)} spikes {float(xin.mean()):.3f} "
-              f"max|err| {errs[-1]:.3g}")
-    M, K = hx.shape
-    N = po["w"].shape[1]
+              f"{tuple(po['w'].shape)} spikes {float(xin.mean()):.3f}: "
+              f"{path} path bit-equal to the tiled one, max|err| "
+              f"{errs[-1]:.3g}")
     live = live_tile_elems(occupancy_mask(hx), M, K)
     st["spike_matmul"].add(
         (M, K, N), time_ms(lambda: spike_matmul(hx, po["w"])),
         time_ms(lambda: L.blocked_matmul(hx, po["w"])),
         (M * K + K * N + M * N) * 4, 2.0 * N * live, max(errs),
-        library_ms=time_ms(lambda: torch.matmul(hx, po["w"])))
+        library_ms=time_ms(lambda: torch.matmul(hx, po["w"])),
+        extra={"tiled_ms": time_ms(
+            lambda: mm_mod._launch(hx, po["w"], "tiled"))})
     for seg, _, _ in routes:
         segment_check(params["backbone"], cfg, seg,
                       seg_inputs[seg.layers[0].name], st, lif_kw)

@@ -64,7 +64,7 @@ from repro_torch.launch.roofline import SMS, kernel_launch_estimate
 TUNE_SCHEMA_VERSION = 1
 # the port's kernels: bump when their numerics, launch semantics or
 # speed change (a table's winners were timed on them)
-KERNELS_VERSION = "h100-2"
+KERNELS_VERSION = "h100-3"
 ENV_VAR = "REPRO_TORCH_TUNE_TABLE"
 DEFAULT_TABLE_PATH = os.path.join(os.path.dirname(__file__),
                                   "tuned_defaults.json")

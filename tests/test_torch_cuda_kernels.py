@@ -15,8 +15,10 @@ their plain versions op for op (equal for [exposure+dpc], [demosaic] and
 [awb*+gamma]); sharpen's colour matrices are einsums on the plain side,
 summed in another order, and NLM has its exp (atol 1e-6).  The
 depthwise conv replays the plain tap loop's roundings (equal, on spikes
-and on real values) and the max-pool has no rounding (equal, both gate
-modes).  The spike conv kernel reads the folded spikes (implicit im2col)
+and on real values, under any tiles) and the
+max-pool has no rounding (equal, both gate modes).  The spike matmul's
+small path (the control head's) sums the tiled path's canonical chain
+(equal to it).  The spike conv kernel reads the folded spikes (implicit im2col)
 and gives the gated GEMM's bits on the materialised patches under every
 gate (equal to spike_matmul on spike_im2col's patches).  The fused
 conv->LIF kernel sums its conv as spike_conv and its
@@ -37,8 +39,9 @@ import torch
 from repro_torch.core.encoding import (OOB_POLICIES, VOXEL_MODES,
                                        EventStream, events_to_voxel_batch)
 from repro_torch.configs.registry import ISP_CONFIGS
-from repro_torch.core.layers import (instance_norm_affine, pool_slices,
-                                     spike_conv as conv_plain, spike_im2col)
+from repro_torch.core.layers import (blocked_matmul, instance_norm_affine,
+                                     pool_slices, spike_conv as conv_plain,
+                                     spike_im2col)
 from repro_torch.isp.demosaic import demosaic_mhc
 from repro_torch.isp.fuse import compile_plan, segment_call
 from repro_torch.isp.nlm import nlm_denoise
@@ -57,6 +60,8 @@ from repro_torch.kernels.spike_conv import GATES as CONV_GATES
 from repro_torch.kernels.spike_conv import conv_tiles, spike_conv
 from repro_torch.kernels.spike_conv_lif import (GATES, slice_widths,
                                                 spike_conv_lif)
+from repro_torch.kernels import spike_dwconv as dw_mod
+from repro_torch.kernels import spike_matmul as mm_mod
 from repro_torch.kernels.spike_dwconv import spike_dwconv
 from repro_torch.kernels.spike_matmul import spike_matmul
 from repro_torch.testing import spike_mismatch
@@ -218,7 +223,18 @@ def test_spike_conv_lif_matches_per_op_pair_and_plain(dev, case, gate):
 
 # (N, H, W, C, stride, density, silent frames)
 DW_CASES = {
+    # MobileNet's four depthwise layers at batch 8 (T = 5)
     "mobilenet_dw0": (40, 64, 64, 32, 2, 0.2, 0),
+    "mobilenet_dw1": (40, 32, 32, 32, 2, 0.2, 0),
+    "mobilenet_dw2": (40, 16, 16, 64, 2, 0.2, 0),
+    "mobilenet_dw3": (40, 8, 8, 128, 2, 0.2, 0),
+    "mobilenet_dw0_half_silent": (40, 64, 64, 32, 2, 0.2, 20),
+    # more frames than gridDim.y or z could hold
+    "frames_65537": (65537, 8, 8, 8, 2, 0.2, 0),
+    # wide frames at stride 1, and on 4-byte lanes (C % 4 != 0)
+    "wide_stride1": (40, 32, 32, 32, 1, 0.2, 0),
+    "wide_c33": (40, 64, 64, 33, 2, 0.2, 0),
+    "wide_c33_stride1": (40, 32, 32, 33, 1, 0.2, 0),
     "odd_ragged": (3, 17, 15, 33, 2, 0.3, 0),
     "stride1_wide": (4, 9, 10, 256, 1, 0.1, 0),
     "partly_silent": (6, 16, 16, 24, 2, 0.3, 4),
@@ -226,8 +242,22 @@ DW_CASES = {
 }
 
 
+def _other_dw_tiles(t):
+    """Taller and narrower tiles than ``dw_tiles`` picks, 8 channels a
+    block where C allows it: several commit groups a block, several
+    column bands and channel groups."""
+    cg = 8 if t.C % 8 == 0 else t.cg
+    t = dataclasses.replace(t, cg=cg, bw=max(1, t.Wo // 3),
+                            bh=min(dw_mod.MAX_BAND, t.Ho), col_threads=3)
+    while t.smem_bytes > dw_mod.MAX_SMEM:
+        t = dataclasses.replace(t, bh=t.bh - 1)
+    return t
+
+
 @pytest.mark.parametrize("case", sorted(DW_CASES))
 def test_spike_dwconv_bitexact(dev, case):
+    """Equal to the plain tap loop on spikes and on real values, with
+    dw_tiles' tiles and with others."""
     n, h, w_, c, stride, dens, silent = DW_CASES[case]
     rng = np.random.default_rng(len(case) + c)
     w = torch.tensor(rng.normal(0, 0.5, (3, 3, 1, c)).astype(np.float32),
@@ -239,9 +269,34 @@ def test_spike_dwconv_bitexact(dev, case):
         got = spike_dwconv(x, w, stride=stride)
         want = conv_plain(x, w, stride=stride, depthwise=True)
         assert torch.equal(got, want)
-        assert torch.equal(got.cpu(), conv_plain(x.cpu(), w.cpu(),
-                                                 stride=stride,
-                                                 depthwise=True))
+        t = dw_mod.dw_tiles(n, h, w_, c, 3, 3, stride)
+        assert torch.equal(dw_mod._launch(x, w, stride, _other_dw_tiles(t)),
+                           want)
+        if n <= 64:
+            assert torch.equal(got.cpu(), conv_plain(x.cpu(), w.cpu(),
+                                                     stride=stride,
+                                                     depthwise=True))
+
+
+@pytest.mark.parametrize("k,offset", [(1, 0), (5, 0), (3, 1), (5, 1),
+                                      (15, 0), (57, 1)])
+def test_spike_dwconv_other_kernels_and_unaligned(dev, k, offset):
+    """Kernel sizes other than 3x3 (the runtime-size instance; 15 and 57
+    with narrower tiles and fewer channels a block), and an input 4 bytes
+    off a 16-byte boundary (the 4-byte lane path at C % 4 == 0): equal to
+    the plain tap loop."""
+    n, h, w_, c = 6, 13, 11, 16
+    rng = np.random.default_rng(10 * k + offset)
+    w = torch.tensor(rng.normal(0, 0.5, (k, k, 1, c)).astype(np.float32),
+                     device=dev)
+    flat = torch.zeros(n * h * w_ * c + offset, device=dev)
+    x = flat[offset:].view(n, h, w_, c)
+    x.copy_(_spikes(rng, (n, h, w_, c), 0.3).to(dev))
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    for stride in (1, 2):
+        got = spike_dwconv(x, w, stride=stride)
+        assert torch.equal(got, conv_plain(x, w, stride=stride,
+                                           depthwise=True))
 
 
 @pytest.mark.parametrize("gated", [True, False])
@@ -269,6 +324,30 @@ def test_spike_matmul_matches_plain(dev, M, K, N, density):
     w = torch.tensor(rng.normal(0, 1, (K, N)).astype(np.float32))
     got = spike_matmul(x.to(dev), w.to(dev))
     torch.testing.assert_close(got.cpu(), spike_matmul(x, w), atol=1e-4,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("M,K,N,density", [
+    (40, 64, 8, 0.3),           # the control head at batch 8
+    (5, 64, 8, 0.3),            # ... at batch 1
+    (80, 64, 8, 0.3),           # ... at batch 16: two blocks
+    (40, 64, 8, 0.0),
+    (37, 200, 13, 0.2),         # two K blocks, the second ragged
+    (1, 200, 33, 0.5),
+    (300, 130, 1, 0.2),
+    (64, 127, 64, 0.1),         # K % 4 != 0: 4-byte loads of x
+])
+def test_spike_matmul_small_path_equals_tiled(dev, M, K, N, density):
+    """The small path gives the tiled path's bits, and both lie within
+    1e-4 of blocked_matmul."""
+    assert mm_mod.matmul_path(M, N) == "small"
+    rng = np.random.default_rng(M * K + N)
+    x = _spikes(rng, (M, K), density, silent_rows=M // 3).to(dev)
+    w = torch.tensor(rng.normal(0, 1, (K, N)).astype(np.float32),
+                     device=dev)
+    got = spike_matmul(x, w)
+    assert torch.equal(got, mm_mod._launch(x, w, "tiled"))
+    torch.testing.assert_close(got, blocked_matmul(x, w), atol=1e-4,
                                rtol=1e-5)
 
 
