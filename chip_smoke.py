@@ -22,8 +22,11 @@ Phases (any failure raises and exits non-zero):
              atol=1e-4 rtol=1e-5 to their plain versions, spike_matmul's
              "small" path (the control head's) bit-equal to its "tiled"
              path on the head's input and on 30% spikes, lif_scan equal,
-             norm_affine_lif spikes equal except where the plain membrane
-             lies within 1e-4 of v_th; spike_conv also on a partly silent
+             norm_affine_lif spikes equal to the CPU replay of its
+             statistics contract (testing.norm_affine_lif_contract) and
+             to its earlier design's (where build/earlier holds its
+             source), and to its plain version except where the plain
+             membrane lies within 1e-4 of v_th; spike_conv also on a partly silent
              input so the gates skip; on every firing conv
              the fused spike_conv_lif under each gate ("mask", "inline",
              "none") on the layer's own patches and on a copy whose first
@@ -66,7 +69,12 @@ Phases (any failure raises and exits non-zero):
              near-threshold rule (flips and band printed).  Last, VGG's
              first layer at batch 205 (more 64-row tiles than gridDim.y
              holds) through spike_conv and spike_matmul on its patches,
-             bit-equal to each other and allclose to the plain GEMM;
+             bit-equal to each other and allclose to the plain GEMM; and
+             the five kernels that once held the batch on gridDim.y or .z
+             (norm_affine_lif, event_voxel -- also at 65537 time steps --,
+             spike_conv_lif, backbone_segment, isp_stencil_segment) at
+             batch 65537 on a tiny spatial shape, the last 4 batch
+             elements bit-equal to a run on them alone;
 4. timings — per kernel, device-time medians (CUDA events behind a spin
              kernel, so host launch overhead is not counted) over 30 runs
              of every launch of a tick (kernel, plain version, one
@@ -80,7 +88,10 @@ Phases (any failure raises and exits non-zero):
              build/earlier/spike_dwconv.cu holds a copy of its source:
              `git show <commit>:src/repro_torch/kernels/csrc/
              spike_dwconv.cu`; null otherwise),
-             F.max_pool2d for max_pool; none for spike_conv_lif and
+             F.max_pool2d for max_pool; none for norm_affine_lif (its
+             earlier design beside it where build/earlier/
+             norm_affine_lif.cu holds a copy of its source); none for
+             spike_conv_lif and
              backbone_segment, printed beside the per-op kernel pair's
              and the per-layer kernel route's time instead), and the least
              time the card could
@@ -180,6 +191,15 @@ runs only phase 3-4's layer walk (every NPU kernel against its plain
 version, and its times) for the named archs at batch 8 and prints each
 arch's per-kernel numbers as one JSON line; it prints no result line.
 
+    python3 chip_smoke.py --norm-phase
+
+builds only norm_affine_lif and runs it alone at every served shape of
+the four backbones (numpy-seeded conv outputs, batch 8): bit-equal to
+the contract replay, to the earlier design (where build/earlier holds
+its source) and under other launch plans; per arch the kernel, earlier
+design, plain and bound times summed over a tick's launches, and each
+plan's, as one JSON line; it prints no result line.
+
     python3 chip_smoke.py --flash-phase
 
 builds only flash_attention and runs it alone at one qwen2-7b prefill
@@ -218,6 +238,22 @@ SPIN_CYCLES_PER_S = 2e9         # ~ the H100's SM clock, for the spin kernel
 # the grid-cap check: VGG's first layer at this batch has more 64-row
 # tiles (5 * 205 * 64 * 64 rows) than gridDim.y holds (65535)
 GRID_CAP_BATCH = 205
+# the batch-cap check: five kernels once held B on gridDim.y or .z
+# (at most 65535); each runs at this batch on a tiny spatial shape, its
+# last BATCH_CAP_TAIL batch elements held to a run on them alone
+BIG_BATCH = 65537
+BATCH_CAP_TAIL = 4
+BATCH_CAP_KERNELS = ("norm_affine_lif", "event_voxel", "event_voxel_steps",
+                     "spike_conv_lif", "backbone_segment", "stencil_segment")
+# [T, B, HW, C] of every norm_affine_lif launch of the four backbones'
+# untuned ticks at batch 8 (norm_shapes; tests/test_torch_norm_lif.py
+# holds this list to it)
+NORM_SERVED_SHAPES = (
+    (5, 8, 16, 128), (5, 8, 16, 256), (5, 8, 64, 64), (5, 8, 64, 66),
+    (5, 8, 64, 128), (5, 8, 64, 256), (5, 8, 256, 24), (5, 8, 256, 32),
+    (5, 8, 256, 64), (5, 8, 256, 66), (5, 8, 256, 128), (5, 8, 1024, 24),
+    (5, 8, 1024, 32), (5, 8, 1024, 60), (5, 8, 1024, 64), (5, 8, 4096, 24),
+    (5, 8, 4096, 32), (5, 8, 4096, 48))
 # LM serving: full-width qwen2-7b, 2 prompts of train_4k's 4096 tokens
 LM_ARCH = "qwen2-7b"
 LM_BATCH = 2
@@ -345,6 +381,30 @@ def conv_lif_dims(params, cfg, batch, skip=()):
     return dims
 
 
+def norm_shapes(params, cfg, batch):
+    """[T, B, HW, C] of every norm_affine_lif launch of one untuned
+    forward on the per-layer route, in order: each firing conv's (the
+    backbone's, depthwise included, then head_conv)."""
+    shapes = []
+
+    def conv(name, p, x, stride, depthwise):
+        T, B, H, W, _ = x
+        cout = x[4] if depthwise else p["w"].shape[-1]
+        Ho, Wo = -(-H // stride), -(-W // stride)
+        shapes.append((T, B, Ho * Wo, cout))
+        return (T, B, Ho, Wo, cout)
+
+    def pool(name, x, window):
+        return x[:2] + (x[2] // window, x[3] // window, x[4])
+
+    x = backbone_walk(cfg, params["backbone"],
+                      (cfg.time_steps, batch, cfg.height, cfg.width,
+                       cfg.in_channels), conv, pool,
+                      lambda fs: fs[0][:4] + (sum(f[4] for f in fs),))
+    conv("head_conv", params["head"]["conv"], x, 1, False)
+    return shapes
+
+
 def fused_segments(cfg, batch, table):
     """The fused-route backbone segments of one forward that ``table``
     routes to the backbone_segment kernel."""
@@ -430,32 +490,42 @@ EARLIER = ROOT / "build" / "earlier"  # earlier designs' sources, to time
 _EARLIER_LIBS = {}
 
 
-def earlier_dwconv():
-    """spike_dwconv's earlier design (a thread an output in a
-    grid-stride loop), built with the kernels' nvcc flags from a copy of
-    its source at build/earlier/spike_dwconv.cu, as a function (xf, w,
-    stride) -> out on CUDA tensors; None where there is no copy."""
+def _earlier(name, argtypes):
+    """The launch function of kernel ``name``'s earlier design, built with
+    the kernels' nvcc flags from a copy of its source at
+    build/earlier/<source>; None where there is no copy."""
     import ctypes
-    import torch
-    from repro_torch.core.layers import _same_pads
     from repro_torch.kernels import build
-    src = EARLIER / "spike_dwconv.cu"
+    src = EARLIER / build.SOURCES[name]
     if not src.exists():
         return None
-    if "spike_dwconv" not in _EARLIER_LIBS:
-        lib_path = EARLIER / "libspike_dwconv.so"
+    if name not in _EARLIER_LIBS:
+        lib_path = EARLIER / f"lib{name}.so"
         done = subprocess.run(
             [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
              str(lib_path), str(src)], capture_output=True, text=True,
             timeout=300)
-        check(done.returncode == 0, f"the earlier spike_dwconv does not "
+        check(done.returncode == 0, f"the earlier {name} does not "
               f"build:\n{done.stdout}{done.stderr}")
-        fn = ctypes.CDLL(str(lib_path)).spike_dwconv_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + \
-            [ctypes.c_void_p]
+        fn = getattr(ctypes.CDLL(str(lib_path)), f"{name}_launch")
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _EARLIER_LIBS["spike_dwconv"] = fn
-    fn = _EARLIER_LIBS["spike_dwconv"]
+        _EARLIER_LIBS[name] = fn
+    return _EARLIER_LIBS[name]
+
+
+def earlier_dwconv():
+    """spike_dwconv's earlier design (a thread an output in a
+    grid-stride loop), from a copy of its source at
+    build/earlier/spike_dwconv.cu, as a function (xf, w, stride) -> out
+    on CUDA tensors; None where there is no copy."""
+    import ctypes
+    import torch
+    from repro_torch.core.layers import _same_pads
+    fn = _earlier("spike_dwconv", [ctypes.c_void_p] * 3
+                  + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    if fn is None:
+        return None
 
     def run(xf, w, stride):
         N, H, W, C = xf.shape
@@ -467,6 +537,36 @@ def earlier_dwconv():
                  Ho, Wo, kh, kw, stride, pad_h, pad_w,
                  torch.cuda.current_stream(xf.device).cuda_stream)
         check(err == 0, f"the earlier spike_dwconv failed to launch: "
+              f"cudaError {err}")
+        return out
+    return run
+
+
+def earlier_norm():
+    """norm_affine_lif's earlier design (one block of 32 channels x 32
+    row classes per (b, channel group), three passes over L2), from a
+    copy of its source at build/earlier/norm_affine_lif.cu (`git show
+    97a1ee0:src/repro_torch/kernels/csrc/norm_affine_lif.cu`), as a
+    function (y, scale, bias, lif_kw) -> spikes on CUDA tensors; None
+    where there is no copy."""
+    import ctypes
+    import torch
+    from repro_torch.core.layers import NORM_EPS
+    from repro_torch.core.lif import f32_decay
+    fn = _earlier("norm_affine_lif", [ctypes.c_void_p] * 4
+                  + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+                  + [ctypes.c_void_p])
+    if fn is None:
+        return None
+
+    def run(y, scale, bias, lif_kw):
+        T, B, HW, C = y.shape
+        out = torch.empty_like(y)
+        err = fn(y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                 out.data_ptr(), T, B, HW, C, f32_decay(lif_kw["tau"]),
+                 lif_kw["v_th"], lif_kw["v_reset"], NORM_EPS,
+                 torch.cuda.current_stream(y.device).cuda_stream)
+        check(err == 0, f"the earlier norm_affine_lif failed to launch: "
               f"cudaError {err}")
         return out
     return run
@@ -966,30 +1066,50 @@ def segment_check(bb, cfg, seg, x, st, lif_kw):
 
 
 def fire(p, y5, name, st, lif_kw):
-    """norm_affine_lif on a conv output against its plain version."""
+    """norm_affine_lif on a conv output: bit-equal to the replay of its
+    statistics contract (and to the earlier design where its source is
+    copied), held to its plain version by the near-threshold rule; then
+    timed beside the plain version and the earlier design."""
     import torch
     from repro_torch.core.layers import instance_norm_affine
     from repro_torch.kernels.lif_scan import norm_affine_lif as kernel
     from repro_torch.kernels.lif_scan import norm_affine_lif_plain as plain
-    from repro_torch.testing import spike_mismatch
+    from repro_torch.kernels.lif_scan import norm_lif_plan
+    from repro_torch.testing import norm_affine_lif_contract, spike_mismatch
     T, B, Ho, Wo, C = y5.shape
     y4 = y5.reshape(T, B, Ho * Wo, C).contiguous()
-    s_k = kernel(y4, p["scale"], p["bias"], **lif_kw)
-    z = instance_norm_affine(y4, p["scale"], p["bias"])
-    s_p = plain(y4, p["scale"], p["bias"], **lif_kw)
+    sc, bi = p["scale"], p["bias"]
+    s_k = kernel(y4, sc, bi, **lif_kw)
+    z = instance_norm_affine(y4, sc, bi)
+    s_p = plain(y4, sc, bi, **lif_kw)
+    earlier = earlier_norm()
+    old = earlier(y4, sc, bi, lif_kw) if earlier else None
     torch.cuda.synchronize()
+    check(torch.equal(s_k.cpu(), norm_affine_lif_contract(y4, sc, bi,
+                                                          **lif_kw)),
+          f"norm_affine_lif {name}: the kernel's spikes differ from the "
+          f"replay of its statistics contract")
+    check(old is None or torch.equal(s_k, old), f"norm_affine_lif {name}: "
+          f"the kernel's spikes differ from the earlier design's")
     res = spike_mismatch(z, s_k, tol=NEAR_TOL, **lif_kw)
     check(res["far"] == 0, f"norm_affine_lif {name}: {res['far']} spikes "
           f"differ away from threshold")
     n = y4.numel()
+    ms = time_ms(lambda: kernel(y4, sc, bi, **lif_kw))
+    old_ms = time_ms(lambda: earlier(y4, sc, bi, lif_kw)) if earlier \
+        else None
     st["norm_affine_lif"].add(
-        (T, B, Ho * Wo, C),
-        time_ms(lambda: kernel(y4, p["scale"], p["bias"], **lif_kw)),
-        time_ms(lambda: plain(y4, p["scale"], p["bias"], **lif_kw)),
-        2 * n * 4 + 2 * C * 4, 14 * n, (s_k - s_p).abs().max())
+        (T, B, Ho * Wo, C), ms, time_ms(lambda: plain(y4, sc, bi, **lif_kw)),
+        2 * n * 4 + 2 * C * 4, 14 * n, (s_k - s_p).abs().max(),
+        extra={"earlier_design_ms": old_ms})
+    pl = norm_lif_plan(T, B, Ho * Wo, C)
     print(f"  norm_affine_lif {name:9s} [T,B,HW,C]={(T, B, Ho * Wo, C)} "
           f"rate {float(s_k.mean()):.3f} flipped {res['flipped']} "
-          f"(near threshold {res['near']})")
+          f"(near threshold {res['near']}); bit-equal to the contract "
+          f"replay{' and the earlier design' if earlier else ''}; plan "
+          f"cluster {pl.cluster} x tile {pl.ct} ({pl.blocks} blocks, "
+          f"{pl.smem_bytes} B shared, staged {pl.staged}); ms {ms:.5f}, "
+          f"earlier design " + (f"{old_ms:.5f}" if earlier else "not built"))
     return s_k.reshape(T, B, Ho, Wo, C)
 
 
@@ -1663,6 +1783,184 @@ def cognitive_phase(params, cfg, reqs, dev):
               + ", ".join(f"{k} {d:.3g}" for k, d in diffs.items()))
 
 
+def batch_cap_run(name, dev):
+    """Kernel ``name`` past the old 65535 grid cap, on a tiny spatial
+    shape: (the last BATCH_CAP_TAIL batch elements of its output at
+    batch BIG_BATCH, the kernel on those elements alone), which must be
+    equal.  ``event_voxel_steps``: BIG_BATCH time steps at batch 2,
+    (the kernel, its plain version)."""
+    import torch
+    from repro_torch.configs.registry import ISP_CONFIGS
+    from repro_torch.core.encoding import EventStream, events_to_voxel_batch
+    from repro_torch.isp.fuse import compile_plan, segment_call
+    from repro_torch.isp.stages import control_to_stage_params
+    from repro_torch.kernels.backbone_fuse import LayerSpec
+    from repro_torch.kernels.backbone_segment import (backbone_segment,
+                                                      segment_operands)
+    from repro_torch.kernels.event_voxel import event_voxel
+    from repro_torch.kernels.lif_scan import norm_affine_lif
+    from repro_torch.kernels.spike_conv_lif import spike_conv_lif
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, n = BIG_BATCH, BATCH_CAP_TAIL
+
+    def rand(*shape):
+        return torch.rand(*shape, device=dev, generator=g)
+
+    def spikes(*shape):
+        return (rand(*shape) < 0.3).float()
+
+    if name == "norm_affine_lif":
+        y = torch.randn(2, B, 3, 5, device=dev, generator=g)
+        sc, bi = rand(5) + 0.5, rand(5) - 0.5
+        return (norm_affine_lif(y, sc, bi)[:, -n:],
+                norm_affine_lif(y[:, -n:].contiguous(), sc, bi))
+    if name in ("event_voxel", "event_voxel_steps"):
+        b, T = (B, 2) if name == "event_voxel" else (2, B)
+        N, H, W = 16, 4, 4
+        evs = EventStream(
+            t=rand(b, N), x=(rand(b, N) * W).int(), y=(rand(b, N) * H).int(),
+            p=(rand(b, N) * 2).int(), valid=rand(b, N) < 0.9)
+        kw = dict(time_steps=T, height=H, width=W, mode="count")
+        got = event_voxel(evs, **kw)
+        if name == "event_voxel_steps":
+            return got, events_to_voxel_batch(evs, **kw)
+        return got[-n:], event_voxel(EventStream(*(a[-n:] for a in evs)),
+                                     **kw)
+    if name == "spike_conv_lif":
+        T, HW, K, N = 2, 2, 9, 4
+        patches = spikes(B * T * HW, K)
+        w = torch.randn(K, N, device=dev, generator=g)
+        sc, bi = rand(N) + 0.5, rand(N) - 0.5
+        kw = dict(T=T, HW=HW)
+        return (spike_conv_lif(patches, w, sc, bi, B=B, **kw)[:, -n:],
+                spike_conv_lif(patches[-n * T * HW:].contiguous(), w, sc, bi,
+                               B=n, **kw))
+    if name == "backbone_segment":
+        specs = (LayerSpec("", cin=2, cout=4),)
+        x = spikes(1, B, 4, 4, 2)
+        flat = segment_operands(((torch.randn(3, 3, 2, 4, device=dev,
+                                              generator=g),
+                                  rand(4) + 0.5, rand(4) - 0.5),), specs)
+        return (backbone_segment(x, flat, specs=specs)[:, -n:],
+                backbone_segment(x[:, -n:].contiguous(), flat, specs=specs))
+    if name == "stencil_segment":
+        stages = ISP_CONFIGS["fused"].stages
+        ex = next(e for e in compile_plan(stages)
+                  if e.segment.stencil is not None)
+        x = rand(B, 8, 8)
+        sp = control_to_stage_params(rand(B, ISP_CONFIGS["fused"]
+                                          .control_dim), stages)
+        kernel, _, args, kw = segment_call(ex, x, sp)
+        x, pvec, stats, consts = args
+        return (kernel(*args, **kw)[-n:],
+                kernel(x[-n:], pvec[-n:].contiguous(),
+                       stats[-n:].contiguous(), consts, **kw))
+    raise ValueError(f"batch_cap_run: no kernel {name!r}")
+
+
+def batch_cap_phase(dev):
+    """Each of BATCH_CAP_KERNELS past the old grid cap, bit-equal on the
+    checked batch elements."""
+    import torch
+    for name in BATCH_CAP_KERNELS:
+        got, want = batch_cap_run(name, dev)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"{name} at batch {BIG_BATCH}: "
+              f"{int((got != want).sum())} values differ")
+        print(f"  {name}: past the old 65535 grid cap "
+              f"({'time steps' if name.endswith('steps') else 'batch'} "
+              f"{BIG_BATCH}), bit-equal on the checked "
+              f"{'grid' if name.endswith('steps') else 'batch elements'}")
+        del got, want
+        torch.cuda.empty_cache()
+
+
+def norm_phase(params_by_arch, dev, card):
+    """norm_affine_lif alone at every served shape of the four
+    backbones (numpy-seeded conv outputs): bit-equal to the contract
+    replay and to the earlier design, then per arch the kernel, the
+    earlier design, the plain version and the bound summed over a
+    tick's launches, and the kernel under other plans."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.kernels import lif_scan as K
+    from repro_torch.testing import norm_affine_lif_contract
+    lif_kw = dict(tau=2.0, v_th=1.0, v_reset=0.0)
+    earlier = earlier_norm()
+
+    def replan(**kw):
+        """The default plan with ``kw`` replaced (a tile no wider than C,
+        threads for the chains, streamed where the slab does not fit)."""
+        def plan(shape):
+            p = dc.replace(K.norm_lif_plan(*shape), **kw)
+            ct = min(p.ct, p.C)
+            p = dc.replace(p, ct=ct, vec=p.vec if ct % 4 == 0 else 1,
+                           threads=max(K.THREADS, -(-p.classes * ct // 32)
+                                       * 32))
+            if p.smem_bytes > K.MAX_SMEM:
+                p = dc.replace(p, staged=False)
+            return p
+        return plan
+    variants = {"default": lambda shape: K.norm_lif_plan(*shape),
+                "wide_tile": replan(ct=32),
+                "cluster1": replan(cluster=1),
+                "cluster16": replan(cluster=16),
+                "stream": replan(staged=False)}
+    report = {"card": card}
+    cache = {}
+    for arch, (p, cfg) in params_by_arch.items():
+        shapes = norm_shapes(p, cfg, BATCH)
+        st = KernelStats()
+        var_ms = {v: 0.0 for v in variants}
+        for shape in shapes:
+            if shape not in cache:
+                rng = np.random.default_rng(sum(shape))
+                T, B, HW, C = shape
+                y = torch.tensor(rng.normal(0.2, 1.0, shape)
+                                 .astype(np.float32), device=dev)
+                sc = torch.tensor(rng.normal(1.0, 0.2, C).astype(np.float32),
+                                  device=dev)
+                bi = torch.tensor(rng.normal(0.0, 0.2, C).astype(np.float32),
+                                  device=dev)
+                want = norm_affine_lif_contract(y, sc, bi, **lif_kw)
+                got = K.norm_affine_lif(y, sc, bi, **lif_kw)
+                old = earlier(y, sc, bi, lif_kw) if earlier else None
+                torch.cuda.synchronize()
+                check(torch.equal(got.cpu(), want), f"norm_affine_lif "
+                      f"{shape}: differs from the contract replay")
+                check(old is None or torch.equal(old, got),
+                      f"norm_affine_lif {shape}: differs from the earlier "
+                      f"design")
+                vms = {}
+                for v, make in variants.items():
+                    plan = make(shape)
+                    run = K._norm_launch(y, sc, bi, plan, eps=K.NORM_EPS,
+                                         **lif_kw)
+                    torch.cuda.synchronize()
+                    check(torch.equal(run.cpu(), want), f"norm_affine_lif "
+                          f"{shape} under plan {v}: differs")
+                    vms[v] = time_ms(lambda: K._norm_launch(
+                        y, sc, bi, plan, eps=K.NORM_EPS, **lif_kw))
+                n = y.numel()
+                cache[shape] = dict(
+                    ms=vms["default"],
+                    plain_ms=time_ms(lambda: K.norm_affine_lif_plain(
+                        y, sc, bi, **lif_kw)),
+                    old_ms=time_ms(lambda: earlier(y, sc, bi, lif_kw))
+                    if earlier else None,
+                    nbytes=2 * n * 4 + 2 * C * 4, nops=14 * n, vms=vms)
+                print(f"  {shape}: plan {K.norm_lif_plan(*shape)}; ms "
+                      f"{vms}, earlier {cache[shape]['old_ms']}")
+            c = cache[shape]
+            st.add(shape, c["ms"], c["plain_ms"], c["nbytes"], c["nops"],
+                   0.0, extra={"earlier_design_ms": c["old_ms"]})
+            for v in variants:
+                var_ms[v] += c["vms"][v]
+        report[arch] = dict(st.summary(), plans_ms=var_ms)
+    return report
+
+
 # ---------------------------------------------------------------------------
 # the LM phase: serving full-width qwen2-7b
 # ---------------------------------------------------------------------------
@@ -2164,7 +2462,9 @@ def main() -> int:
     kernel_archs = sys.argv[2:] if sys.argv[1:2] == ["--kernel-phase"] \
         else None
     flash_only = sys.argv[1:] == ["--flash-phase"]
-    if sys.argv[1:] and not kernel_archs and not flash_only:
+    norm_only = sys.argv[1:] == ["--norm-phase"]
+    if sys.argv[1:] and not kernel_archs and not flash_only \
+            and not norm_only:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -2176,7 +2476,8 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
 
     t0 = time.perf_counter()
-    built = ["flash_attention"] if flash_only else list(build.SOURCES)
+    built = (["flash_attention"] if flash_only else
+             ["norm_affine_lif"] if norm_only else list(build.SOURCES))
     build.build_all(built)
     print(f"[2/7] build: {time.perf_counter() - t0:.1f} s")
     for name in built:
@@ -2195,6 +2496,10 @@ def main() -> int:
         acfg = dataclasses.replace(SNN_ARCHS[arch], backend="cuda")
         archs[arch] = (init_npu(torch.Generator().manual_seed(0), acfg,
                                 device=dev), acfg)
+    if norm_only:
+        print(json.dumps({"norm_phase": norm_phase(
+            {"spiking_yolo": (params, cfg), **archs}, dev, card)}))
+        return 0
     reqs = make_requests(cfg, np.random.default_rng(0))
     vox = torch.stack([torch.as_tensor(r.voxels)
                        for r in reqs[:BATCH]], dim=1).to(dev)
@@ -2227,6 +2532,7 @@ def main() -> int:
         print(f"  --- {arch} (full width, batch {BATCH}), layer by layer")
         arch_st[arch] = kernel_phase(p, acfg, vox)
     grid_cap_check(*archs["spiking_vgg"], vox)
+    batch_cap_phase(dev)
     # the new kernels' rows: spike_dwconv on MobileNet's forward, max_pool
     # on VGG's and DenseNet's
     st["spike_dwconv"] = arch_st["spiking_mobilenet"]["spike_dwconv"]

@@ -173,8 +173,6 @@ def backbone_segment(x: torch.Tensor, flat, *, specs, gate: str = "inline",
     if dev.type == "cpu":
         return backbone_segment_plain(x, flat, specs=specs, **lif)
     T, B, H, W, _ = x.shape
-    if B > 65535:
-        raise ValueError(f"backbone_segment: batch {B} exceeds the grid")
     dims, ptrs = [], []
     act_elems = acc_elems = max_n = 1
     h, w = H, W

@@ -13,7 +13,8 @@
 // needs statistics over the whole (T, HW) before any neuron fires.
 //
 // Design: one thread-block cluster per batch element (grid: cluster size
-// x B; cudaLaunchKernelEx with cudaLaunchAttributeClusterDimension).  The
+// x B on gridDim.x, so any batch up to 2^31 - 1 blocks in all;
+// cudaLaunchKernelEx with cudaLaunchAttributeClusterDimension).  The
 // cluster's blocks share a per-element global scratch -- a ping-pong pair
 // of activation buffers, the f32 conv output and the statistics' class
 // sums -- which the planner's budget (roofline.SEGMENT_BUDGET_BYTES, an
@@ -249,7 +250,7 @@ backbone_segment_kernel(const __grid_constant__ SegmentDesc d,
                         const __grid_constant__ Scratch s) {
   cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)cl.block_rank(), cs = (int)cl.num_blocks();
-  const int b = blockIdx.y, tid = threadIdx.x;
+  const int b = (int)(blockIdx.x / cs), tid = threadIdx.x;
   const int gt = rank * kThreads + tid, nt = cs * kThreads;
   const bool inline_gate = d.gate == repro::kGateInline;
   const int T = d.T;
@@ -360,7 +361,8 @@ extern "C" int backbone_segment_launch(
     float decay, float v_th, float v_reset, float eps, const float* x,
     float* out, float* act0, float* act1, int64_t act_stride, float* acc,
     int64_t acc_stride, double* red, int max_n, int cluster, void* stream) {
-  if (L < 1 || L > kMaxLayers || B < 1 || B > 65535 || T < 1 ||
+  if (L < 1 || L > kMaxLayers || B < 1 || T < 1 ||
+      (int64_t)B * cluster >= (int64_t(1) << 31) ||
       (gate != repro::kGateInline && gate != repro::kGateNone) ||
       cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -418,7 +420,7 @@ extern "C" int backbone_segment_launch(
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, B, 1);
+  cfg.gridDim = dim3(cluster * B, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);

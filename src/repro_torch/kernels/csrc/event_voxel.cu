@@ -6,7 +6,9 @@
 // [block_t, H, W, 2] slab in VMEM and streams the window's events past
 // it.  Here one block owns one (window b, time bin t, chunk of the
 // H*W*2 cells) slab in shared memory (at most kChunk cells, 32 KB; the
-// 64x64 path is one chunk): it zeroes the slab, its threads walk the
+// 64x64 path is one chunk); all three sit on gridDim.x, chunk fastest,
+// so any batch and bin count up to 2^31 - 1 blocks in all.  The block
+// zeroes the slab, its threads walk the
 // window's events and atomicAdd 1.0 into the slab for each live event
 // of its bin and chunk, then the mode pass runs on the slab and each
 // cell is written once, coalesced.  One launch, no memset and no second
@@ -44,12 +46,14 @@ __global__ void event_voxel_kernel(const float* __restrict__ t,
                                    const unsigned char* __restrict__ valid,
                                    float* __restrict__ out, int N, int T,
                                    int H, int W, float window, int mode,
-                                   int drop) {
+                                   int drop, int chunks) {
   extern __shared__ float slab[];
-  const int b = blockIdx.z;
-  const int tb = blockIdx.y;
+  const int chunk = (int)(blockIdx.x % chunks);
+  const int rest = (int)(blockIdx.x / chunks);
+  const int tb = rest % T;
+  const int b = rest / T;
   const int64_t cells = (int64_t)H * W * 2;
-  const int64_t c0 = (int64_t)blockIdx.x * kChunk;
+  const int64_t c0 = (int64_t)chunk * kChunk;
   const int n = (int)(cells - c0 < kChunk ? cells - c0 : kChunk);
   for (int i = threadIdx.x; i < n; i += blockDim.x) slab[i] = 0.f;
   __syncthreads();
@@ -99,11 +103,13 @@ extern "C" int event_voxel_launch(const float* t, const int* x, const int* y,
                                   int W, float window, int mode, int drop,
                                   void* stream) {
   const int64_t cells = (int64_t)H * W * 2;
-  const dim3 grid((unsigned)((cells + kChunk - 1) / kChunk), (unsigned)T,
-                  (unsigned)B);
+  const int64_t chunks = (cells + kChunk - 1) / kChunk;
+  const int64_t blocks = chunks * T * B;
+  if (B < 1 || T < 1 || blocks >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * (cells < kChunk ? cells : kChunk);
-  event_voxel_kernel<<<grid, kThreads, smem,
+  event_voxel_kernel<<<(unsigned)blocks, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      t, x, y, p, valid, out, N, T, H, W, window, mode, drop);
+      t, x, y, p, valid, out, N, T, H, W, window, mode, drop, (int)chunks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,7 +20,8 @@
 // window op of a stencil segment.
 //
 // pointwise: one thread per pixel, all channels.
-// stencil: one block per (16x16 output tile, frame).  Its threads read
+// stencil: one block per (16x16 output tile, frame), all on gridDim.x
+// (any batch up to 2^31 - 1 blocks in all).  Its threads read
 // the tile's (16+2r)^2 window straight from the frame, wrapping the
 // indices (pad "wrap", the reference's cyclic roll) or reading zero
 // outside the frame (pad "zero", the reference's SAME padding, applied
@@ -164,8 +165,13 @@ stencil_kernel(const float* __restrict__ x, float* __restrict__ out,
                int wcoff, int r, int zero_pad) {
   __shared__ float win[kWinMax * kWinMax * 3];   // the prologue's output
   __shared__ float aux[kWinMax * kWinMax];       // luminance (nlm, sharpen)
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
+  // (frame, tile row, tile column) on gridDim.x, the column fastest
+  const int tiles_x = (W + kTile - 1) / kTile;
+  const int tiles_y = (H + kTile - 1) / kTile;
+  const int rest = (int)(blockIdx.x / tiles_x);
+  const int b = rest / tiles_y;
+  const int y0 = (rest - b * tiles_y) * kTile;
+  const int x0 = (int)(blockIdx.x - rest * tiles_x) * kTile;
   const int ws = kTile + 2 * r;                  // window side
   const float* pv = pvec + (int64_t)b * P;
   const float* st = stats + (int64_t)b * S;
@@ -324,9 +330,12 @@ extern "C" int isp_stencil_launch(const float* x, float* out,
     case kSharpen: ok = ok && r == 1 && Cin == 3 && Cout == 3; break;
     default: ok = false;
   }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B);
-  stencil_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int64_t blocks = (int64_t)((W + kTile - 1) / kTile) *
+                         ((H + kTile - 1) / kTile) * B;
+  if (!ok || B < 1 || blocks >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  stencil_kernel<<<(unsigned)blocks, kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       x, out, pvec, stats, consts, lut, H, W, Cin, Cout, P, S, ch, wop, wpoff,
       wcoff, r, zero_pad);
   return static_cast<int>(cudaGetLastError());

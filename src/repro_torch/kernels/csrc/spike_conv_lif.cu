@@ -11,7 +11,8 @@
 // [20480, 24] = 1.97 MB, so the statistics set the fusion boundary.
 //
 // Design (a), channel slices: one block of 256 threads per (batch element
-// b, slice of NC channels), NC a power of two (1..64) chosen by the caller
+// b, slice of NC channels), both on gridDim.x (any batch up to 2^31 - 1
+// blocks in all), NC a power of two (1..64) chosen by the caller
 // so that the block's [T*HW, NC] accumulator fits in dynamic shared memory
 // (spike_conv_lif.py's smem_bytes mirrors the layout below).  The block
 //   1. computes its slab tile by tile (BM rows x NC channels, each thread
@@ -108,8 +109,10 @@ spike_conv_lif_kernel(const float* __restrict__ P,
   const int tid = threadIdx.x;
   const int n = tid % NC;             // this thread's channel in the slice
   const int g = tid / NC;             // its row group in a tile
-  const int c0 = blockIdx.x * NC;
-  const int b = blockIdx.y;
+  // (batch element, channel slice) on gridDim.x, the slice fastest
+  const int slices = (N + NC - 1) / NC;
+  const int b = (int)(blockIdx.x / slices);
+  const int c0 = ((int)blockIdx.x - b * slices) * NC;
   const int R = T * HW;
   const int kblocks = (K + kKBlock - 1) / kKBlock;
   const int n_rc = (R + kMaskBM - 1) / kMaskBM;
@@ -244,12 +247,14 @@ int launch(const float* P, const float* Wm, const int32_t* occ,
            int HW, int K, int N, float decay, float v_th, float v_reset,
            float eps, cudaStream_t stream) {
   const size_t smem = smem_bytes<NC>(T * HW);
+  const int64_t blocks = (int64_t)((N + NC - 1) / NC) * B;
+  if (B < 1 || blocks >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto kern = spike_conv_lif_kernel<NC, GATE>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((N + NC - 1) / NC, B);
-  kern<<<grid, kThreads, smem, stream>>>(P, Wm, occ, scale, bias, out, T, B,
+  kern<<<(unsigned)blocks, kThreads, smem, stream>>>(P, Wm, occ, scale, bias, out, T, B,
                                          HW, K, N, decay, v_th, v_reset, eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,7 +20,6 @@ _SIG = ("event_voxel_launch",
 _MODE_IDS = {"binary": 0, "count": 1, "signed": 2}
 _DTYPES = {"t": torch.float32, "x": torch.int32, "y": torch.int32,
            "p": torch.int32, "valid": torch.bool}
-_MAX_GRID_YZ = 65535
 
 
 def _check_stream(evs: EventStream) -> torch.device:
@@ -57,9 +56,6 @@ def event_voxel(evs: EventStream, *, time_steps: int, height: int,
                                      height=height, width=width,
                                      window=window, mode=mode, oob=oob)
     B, N = evs.t.shape
-    if B > _MAX_GRID_YZ or time_steps > _MAX_GRID_YZ:
-        raise ValueError(f"event_voxel: batch {B} or time_steps "
-                         f"{time_steps} exceeds the grid")
     out = torch.empty((B, time_steps, height, width, 2), dtype=torch.float32,
                       device=dev)
     if out.numel() == 0:

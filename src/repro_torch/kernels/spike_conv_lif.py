@@ -120,8 +120,6 @@ def spike_conv_lif(patches: torch.Tensor, wmat: torch.Tensor,
         return spike_conv_lif_plain(patches, wmat, scale, bias, T=T, B=B,
                                     HW=HW, tau=tau, v_th=v_th,
                                     v_reset=v_reset, eps=eps)
-    if B > 65535:
-        raise ValueError(f"spike_conv_lif: batch {B} exceeds the grid")
     occ_ptr = 0
     if gate == "mask":
         if occ is None:

@@ -28,9 +28,16 @@ under every gate and channel-slice width.  The backbone segment kernel
 sums its convs and statistics as the per-layer kernels do, so its spikes
 equal the per-layer kernel route's (equal, both gates, every cluster
 size), and each of its layers is held to the plain layer on the route's
-own input by the near-threshold rule (1e-4).
+own input by the near-threshold rule (1e-4).  The norm kernel keeps the
+statistics contract of csrc/lif_common.cuh, so its spikes equal the
+contract's CPU replay (testing.norm_affine_lif_contract) under every
+launch plan.  The five kernels that once held the batch on gridDim.y or
+.z run at batch 65537 (chip_smoke.batch_cap_run), equal on the checked
+batch elements to a run on those elements alone.
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -53,6 +60,7 @@ from repro_torch.kernels.backbone_segment import (backbone_segment,
                                                   segment_operands)
 from repro_torch.kernels.demosaic import demosaic
 from repro_torch.kernels.event_voxel import event_voxel
+from repro_torch.kernels import lif_scan as klif
 from repro_torch.kernels.lif_scan import lif_scan, norm_affine_lif
 from repro_torch.kernels.max_pool import max_pool
 from repro_torch.kernels.nlm import nlm
@@ -64,7 +72,11 @@ from repro_torch.kernels import spike_dwconv as dw_mod
 from repro_torch.kernels import spike_matmul as mm_mod
 from repro_torch.kernels.spike_dwconv import spike_dwconv
 from repro_torch.kernels.spike_matmul import spike_matmul
-from repro_torch.testing import spike_mismatch
+from repro_torch.testing import norm_affine_lif_contract, spike_mismatch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+# the served norm shapes and the batch-cap runs, shared with the card run
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -108,6 +120,107 @@ def test_norm_affine_lif_matches_plain(dev, T, B, HW, C):
     got = norm_affine_lif(y, scale, bias)
     res = spike_mismatch(instance_norm_affine(y, scale, bias), got, tol=1e-4)
     assert res["far"] == 0, res
+
+
+def _norm_case(shape, seed, case="normal"):
+    """y [T, B, HW, C], scale, bias on the CPU.  "silent": an all-zero
+    slab (no variance: z is the bias); "on_threshold": every other
+    channel has scale 0 and bias v_th, so its normalised current is
+    exactly 1.0 and u - v_th is exactly 0 at t = 0."""
+    rng = np.random.default_rng(seed)
+    T, B, HW, C = shape
+    y = rng.normal(0.3, 1.0, shape).astype(np.float32)
+    scale = rng.normal(1, 0.2, (C,)).astype(np.float32)
+    bias = rng.normal(0, 0.3, (C,)).astype(np.float32)
+    if case == "silent":
+        y[:] = 0.0
+        bias[::2] = 1.0
+    elif case == "on_threshold":
+        scale[::2] = 0.0
+        bias[::2] = 1.0
+    return tuple(torch.tensor(a) for a in (y, scale, bias))
+
+
+def _norm_equals_contract(dev, y, scale, bias, plan=None):
+    args = (y.to(dev), scale.to(dev), bias.to(dev))
+    if plan is None:
+        got = norm_affine_lif(*args)
+    else:
+        got = klif._norm_launch(*args, plan, tau=2.0, v_th=1.0,
+                                v_reset=0.0, eps=klif.NORM_EPS)
+    torch.cuda.synchronize()
+    want = norm_affine_lif_contract(y, scale, bias)
+    assert torch.equal(got.cpu(), want), int((got.cpu() != want).sum())
+    return got
+
+
+@pytest.mark.parametrize("shape", chip_smoke.NORM_SERVED_SHAPES)
+def test_norm_affine_lif_served_shapes_equal_contract(dev, shape):
+    """Every served shape of the four backbones' ticks: the kernel's
+    spikes equal the contract's replay bit for bit."""
+    _norm_equals_contract(dev, *_norm_case(shape, sum(shape)))
+
+
+@pytest.mark.parametrize("T", [1, 3, 5])
+@pytest.mark.parametrize("HW", [1, 16, 100, 33])
+@pytest.mark.parametrize("C", [1, 24, 33, 66])
+def test_norm_affine_lif_ragged_equal_contract(dev, T, HW, C):
+    _norm_equals_contract(dev, *_norm_case((T, 3, HW, C), T * HW + C))
+
+
+@pytest.mark.parametrize("case", ["silent", "on_threshold"])
+@pytest.mark.parametrize("shape", [(5, 2, 256, 24), (3, 2, 33, 66)])
+def test_norm_affine_lif_edge_values_equal_contract(dev, case, shape):
+    got = _norm_equals_contract(dev, *_norm_case(shape, 7, case))
+    if case == "on_threshold":
+        assert bool((got[0, :, :, ::2] == 1.0).all())
+
+
+def _plans(shape):
+    """The default plan and others: every cluster size, narrow and wide
+    tiles, 4-byte copies, the slab streamed from L2."""
+    T, B, HW, C = shape
+    base = klif.norm_lif_plan(*shape)
+    out = [base, dataclasses.replace(base, staged=False),
+           dataclasses.replace(base, vec=1)]
+    for cluster in (1, 2, 4, 8, 16):
+        for ct in sorted({1, min(C, 8), min(C, 32), base.ct}):
+            classes = 32 // cluster
+            p = dataclasses.replace(
+                base, ct=ct, cluster=cluster, vec=1,
+                threads=max(256, -(-classes * ct // 32) * 32))
+            if p.smem_bytes > klif.MAX_SMEM:
+                p = dataclasses.replace(p, staged=False)
+            out.append(p)
+    return out
+
+
+@pytest.mark.parametrize("shape", [(5, 2, 1024, 32), (5, 3, 100, 33),
+                                   (3, 2, 33, 66), (2, 2, 16, 24)])
+def test_norm_affine_lif_under_other_plans(dev, shape):
+    """The contract fixes the bits, not the plan: every plan gives the
+    replay's spikes."""
+    y, scale, bias = _norm_case(shape, 3)
+    for plan in _plans(shape):
+        _norm_equals_contract(dev, y, scale, bias, plan)
+
+
+def test_norm_affine_lif_refuses_a_bad_plan(dev):
+    y, scale, bias = (t.to(dev) for t in _norm_case((2, 1, 4, 6), 0))
+    bad = dataclasses.replace(klif.norm_lif_plan(2, 1, 4, 6), vec=4)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        klif._norm_launch(y, scale, bias, bad, tau=2.0, v_th=1.0,
+                          v_reset=0.0, eps=klif.NORM_EPS)
+
+
+@pytest.mark.parametrize("kernel", chip_smoke.BATCH_CAP_KERNELS)
+def test_batch_past_the_old_grid_cap(dev, kernel):
+    """Batch 65537 (65537 time steps for event_voxel_steps) on a tiny
+    spatial shape: the last batch elements equal a run on them alone
+    (the steps: the plain version)."""
+    got, want = chip_smoke.batch_cap_run(kernel, dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
 
 
 # (N, H, W, cin, cout, k, stride, density, silent frames)
