@@ -29,11 +29,11 @@ Phases (any failure raises and exits non-zero):
              membrane lies within 1e-4 of v_th; spike_conv also on a partly silent
              input so the gates skip; on every firing conv
              the fused spike_conv_lif under each gate ("mask", "inline",
-             "none") on the layer's own patches and on a copy whose first
-             half of the batch is silent, its spikes equal to the per-op
-             kernel pair's and its plain version's except where the
-             per-op membrane lies within 1e-4 of v_th (flips and the
-             band's size printed).  Then the all-kernel
+             "none") on the layer's own folded spikes and on a copy whose
+             first half of the batch is silent, its spikes equal to the
+             per-op kernel pair's (torch.equal) and its plain version's
+             except where the per-op membrane lies within 1e-4 of v_th
+             (flips and the band's size printed).  Then the all-kernel
              tick's own encode and ISP inputs: event_voxel equal to its
              plain version in every mode x oob policy on the 8 event
              windows of the request set, and again with NaN, +-inf and
@@ -70,11 +70,13 @@ Phases (any failure raises and exits non-zero):
              first layer at batch 205 (more 64-row tiles than gridDim.y
              holds) through spike_conv and spike_matmul on its patches,
              bit-equal to each other and allclose to the plain GEMM; and
-             the five kernels that once held the batch on gridDim.y or .z
+             the kernels that once held the batch on gridDim.y or .z
              (norm_affine_lif, event_voxel -- also at 65537 time steps --,
-             spike_conv_lif, backbone_segment, isp_stencil_segment) at
-             batch 65537 on a tiny spatial shape, the last 4 batch
-             elements bit-equal to a run on them alone;
+             spike_conv_lif, backbone_segment, isp_stencil_segment, and
+             flash_attention's "mma_sync" and "f32" designs at Sq = 1, one
+             head, d = 64, also within the bar of the plain scan) at batch
+             65537 on a tiny shape, the last 4 batch elements bit-equal to
+             a run on them alone;
 4. timings — per kernel, device-time medians (CUDA events behind a spin
              kernel, so host launch overhead is not counted) over 30 runs
              of every launch of a tick (kernel, plain version, one
@@ -91,12 +93,16 @@ Phases (any failure raises and exits non-zero):
              F.max_pool2d for max_pool; none for norm_affine_lif (its
              earlier design beside it where build/earlier/
              norm_affine_lif.cu holds a copy of its source); none for
-             spike_conv_lif and
-             backbone_segment, printed beside the per-op kernel pair's
-             and the per-layer kernel route's time instead), and the least
-             time the card could
-             take for the same work (bytes at 3.35 TB/s, fp32 operations
-             at 67 TFLOP/s, this run's data), per backbone;
+             spike_conv_lif (its plan's tile, cluster, row tile and ring
+             printed, and the earlier design's time where
+             build/earlier/spike_conv_lif.cu holds a copy of its source:
+             `git show 572391d:src/repro_torch/kernels/csrc/
+             spike_conv_lif.cu`, on the torch-built patches and mask it
+             read) and backbone_segment, printed beside the per-op kernel
+             pair's and the per-layer kernel route's time instead), and
+             the least time the card could take for the same work (bytes
+             at 3.35 TB/s, fp32 operations at 67 TFLOP/s, this run's
+             data), per backbone;
              isp_stencil_segment over the fused default plan's four
              segments, isp_pointwise_segment on fast_preview's
              [awb*+gamma]; plus demosaic, nlm and the fused segments on an
@@ -200,6 +206,17 @@ its source) and under other launch plans; per arch the kernel, earlier
 design, plain and bound times summed over a tick's launches, and each
 plan's, as one JSON line; it prints no result line.
 
+    python3 chip_smoke.py --conv-lif-phase
+
+builds only spike_conv_lif, spike_conv and norm_affine_lif and runs the
+fused kernel alone at every firing conv of the four backbones (each
+layer's input shape, kernel and stride; numpy-seeded 15% spikes, batch
+8): equal to the per-op kernel pair under each gate; per arch the
+kernel at its plan and at every other cluster size that holds the slab,
+the per-op pair, the plain version, the earlier design (where
+build/earlier holds its source) and the bound, as one JSON line; it
+prints no result line.
+
     python3 chip_smoke.py --flash-phase
 
 builds only flash_attention and runs it alone at one qwen2-7b prefill
@@ -238,13 +255,16 @@ SPIN_CYCLES_PER_S = 2e9         # ~ the H100's SM clock, for the spin kernel
 # the grid-cap check: VGG's first layer at this batch has more 64-row
 # tiles (5 * 205 * 64 * 64 rows) than gridDim.y holds (65535)
 GRID_CAP_BATCH = 205
-# the batch-cap check: five kernels once held B on gridDim.y or .z
+# the batch-cap check: these kernels once held B on gridDim.y or .z
 # (at most 65535); each runs at this batch on a tiny spatial shape, its
 # last BATCH_CAP_TAIL batch elements held to a run on them alone
+# (flash_attention's "mma_sync" and "f32" designs at Sq = 1, one head,
+# d = 64, also to the plain scan)
 BIG_BATCH = 65537
 BATCH_CAP_TAIL = 4
 BATCH_CAP_KERNELS = ("norm_affine_lif", "event_voxel", "event_voxel_steps",
-                     "spike_conv_lif", "backbone_segment", "stencil_segment")
+                     "spike_conv_lif", "backbone_segment", "stencil_segment",
+                     "flash_mma_sync", "flash_f32")
 # [T, B, HW, C] of every norm_affine_lif launch of the four backbones'
 # untuned ticks at batch 8 (norm_shapes; tests/test_torch_norm_lif.py
 # holds this list to it)
@@ -254,6 +274,22 @@ NORM_SERVED_SHAPES = (
     (5, 8, 256, 64), (5, 8, 256, 66), (5, 8, 256, 128), (5, 8, 1024, 24),
     (5, 8, 1024, 32), (5, 8, 1024, 60), (5, 8, 1024, 64), (5, 8, 4096, 24),
     (5, 8, 4096, 32), (5, 8, 4096, 48))
+# (T, B, HW, K, N) of every conv_lif dispatch (a firing non-depthwise
+# conv) of the four backbones' ticks at batch 8 (conv_lif_dims;
+# tests/test_torch_conv_lif.py holds this list to it)
+CONV_LIF_SERVED_SHAPES = (
+    (5, 8, 16, 128, 256), (5, 8, 16, 1152, 256), (5, 8, 16, 2304, 256),
+    (5, 8, 64, 64, 128), (5, 8, 64, 576, 128), (5, 8, 64, 594, 66),
+    (5, 8, 64, 1152, 128), (5, 8, 64, 1152, 256), (5, 8, 64, 2304, 256),
+    (5, 8, 256, 32, 64), (5, 8, 256, 132, 66), (5, 8, 256, 288, 64),
+    (5, 8, 256, 540, 24), (5, 8, 256, 576, 64), (5, 8, 256, 576, 128),
+    (5, 8, 256, 756, 24), (5, 8, 256, 972, 24), (5, 8, 256, 1152, 128),
+    (5, 8, 1024, 18, 32), (5, 8, 1024, 32, 32), (5, 8, 1024, 120, 60),
+    (5, 8, 1024, 288, 32), (5, 8, 1024, 288, 64), (5, 8, 1024, 432, 24),
+    (5, 8, 1024, 576, 64), (5, 8, 1024, 648, 24), (5, 8, 1024, 864, 24),
+    (5, 8, 4096, 18, 24), (5, 8, 4096, 18, 32), (5, 8, 4096, 96, 48),
+    (5, 8, 4096, 216, 24), (5, 8, 4096, 288, 32), (5, 8, 4096, 432, 24),
+    (5, 8, 4096, 648, 24))
 # LM serving: full-width qwen2-7b, 2 prompts of train_4k's 4096 tokens
 LM_ARCH = "qwen2-7b"
 LM_BATCH = 2
@@ -355,20 +391,20 @@ def npu_launches_per_tick(cfg, fused=0, segments=()):
     return out
 
 
-def conv_lif_dims(params, cfg, batch, skip=()):
-    """The launch-table dims (T, B, HW, K, N) of every firing
+def conv_lif_layers(params, cfg, batch, skip=()):
+    """(name, T, B, H, W, C, kh, stride, N) of every firing
     non-depthwise conv of one forward, in order (the backbone's, then
-    head_conv): each one ``conv_lif`` dispatch; the layers named in
-    ``skip`` left out."""
-    dims = []
+    head_conv): its input [T, B, H, W, C], its kh x kh kernel, stride and
+    output channels; the layers named in ``skip`` left out."""
+    layers = []
 
     def conv(name, p, x, stride, depthwise):
         T, B, H, W, _ = x
         kh, kw, cin, cout = p["w"].shape
-        Ho, Wo = -(-H // stride), -(-W // stride)
         if not depthwise and name not in skip:
-            dims.append(dict(T=T, B=B, HW=Ho * Wo, K=kh * kw * cin, N=cout))
-        return (T, B, Ho, Wo, cout)
+            layers.append((name, T, B, H, W, cin, kh, stride, cout))
+        return (T, B, -(-H // stride), -(-W // stride),
+                x[4] if depthwise else cout)
 
     def pool(name, x, window):
         return x[:2] + (x[2] // window, x[3] // window, x[4])
@@ -378,7 +414,17 @@ def conv_lif_dims(params, cfg, batch, skip=()):
                        cfg.in_channels), conv, pool,
                       lambda fs: fs[0][:4] + (sum(f[4] for f in fs),))
     conv("head_conv", params["head"]["conv"], x, 1, False)
-    return dims
+    return layers
+
+
+def conv_lif_dims(params, cfg, batch, skip=()):
+    """The launch-table dims (T, B, HW, K, N) of every firing
+    non-depthwise conv of one forward, in order (the backbone's, then
+    head_conv): each one ``conv_lif`` dispatch; the layers named in
+    ``skip`` left out."""
+    return [dict(T=T, B=B, HW=-(-H // s) * -(-W // s), K=k * k * C, N=N)
+            for _, T, B, H, W, C, k, s, N in conv_lif_layers(
+                params, cfg, batch, skip)]
 
 
 def norm_shapes(params, cfg, batch):
@@ -567,6 +613,45 @@ def earlier_norm():
                  lif_kw["v_th"], lif_kw["v_reset"], NORM_EPS,
                  torch.cuda.current_stream(y.device).cuda_stream)
         check(err == 0, f"the earlier norm_affine_lif failed to launch: "
+              f"cudaError {err}")
+        return out
+    return run
+
+
+def earlier_conv_lif():
+    """spike_conv_lif's earlier design (one block per (batch element,
+    channel slice) holding the slice's slab, reading a torch-built patch
+    matrix and, under "mask", a torch-built occupancy mask), from a copy
+    of its source at build/earlier/spike_conv_lif.cu (`git show
+    572391d:src/repro_torch/kernels/csrc/spike_conv_lif.cu`), as a
+    function (patches, wmat, occ, scale, bias, T, B, HW, lif_kw) ->
+    spikes on CUDA tensors, gate "mask", at the widest slice whose slab
+    fits a block (that design's own rule); None where there is no copy."""
+    import ctypes
+    import torch
+    from repro_torch.core.layers import NORM_EPS
+    from repro_torch.core.lif import f32_decay
+    fn = _earlier("spike_conv_lif", [ctypes.c_void_p] * 6
+                  + [ctypes.c_int] * 7 + [ctypes.c_float] * 4
+                  + [ctypes.c_void_p])
+    if fn is None:
+        return None
+
+    def smem(rows, nc):
+        return 8 * 32 * nc + 4 * (2 * nc + 64 * (max(64, 256 // nc) + 4)
+                                  + 64 * nc + rows * nc)
+
+    def run(patches, wmat, occ, scale, bias, T, B, HW, lif_kw):
+        K, N = wmat.shape
+        nc = next(w for w in (64, 32, 16, 8, 4, 2, 1)
+                  if w < 2 * N and smem(T * HW, w) <= 232448)
+        out = torch.empty((T, B, HW, N), device=patches.device)
+        err = fn(patches.data_ptr(), wmat.data_ptr(), occ.data_ptr(),
+                 scale.data_ptr(), bias.data_ptr(), out.data_ptr(), T, B, HW,
+                 K, N, nc, 0, f32_decay(lif_kw["tau"]), lif_kw["v_th"],
+                 lif_kw["v_reset"], NORM_EPS,
+                 torch.cuda.current_stream(patches.device).cuda_stream)
+        check(err == 0, f"the earlier spike_conv_lif failed to launch: "
               f"cudaError {err}")
         return out
     return run
@@ -1114,30 +1199,28 @@ def fire(p, y5, name, st, lif_kw):
 
 
 def fused_check(p, last, s_pair, name, st, lif_kw):
-    """spike_conv_lif on the layer's own patch matrix, under every gate,
-    and again with the first half of the batch silent: held to the
-    per-op kernel pair (s_pair, its currents from the spike_conv
-    kernel's output) and to its plain version by the near-threshold
-    rule; then timed (gate "mask", the widest channel slice) beside the
-    plain version and the per-op pair."""
+    """spike_conv_lif on the layer's own folded spikes, under every gate,
+    and again with the first half of the batch silent: equal to the
+    per-op kernel pair (s_pair: spike_conv, then norm_affine_lif) and
+    held to its plain version by the near-threshold rule; then timed
+    (gate "mask") beside its plain version, the per-op pair and the PR
+    16 design (where build/earlier holds its source)."""
     import torch
     from repro_torch.core.layers import instance_norm_affine
     from repro_torch.core.layers import spike_im2col
     from repro_torch.kernels.lif_scan import norm_affine_lif
     from repro_torch.kernels.spike_conv import spike_conv
-    from repro_torch.kernels.spike_conv_lif import (GATES,
-                                                    slab_occupancy_mask,
-                                                    slice_widths,
+    from repro_torch.kernels.spike_conv_lif import (GATES, conv_lif_plan,
                                                     spike_conv_lif,
                                                     spike_conv_lif_plain)
-    from repro_torch.testing import spike_mismatch
+    from repro_torch.testing import slab_occupancy_mask, spike_mismatch
     patches, wmat, y = last["patches"], last["wmat"], last["y"]
     xf, w, stride = last["xf"], last["w"], last["stride"]
     T, B, Ho, Wo, N = s_pair.shape
     HW, (M, K) = Ho * Wo, patches.shape
     sc, bi = p["scale"], p["bias"]
-    bn = slice_widths(T * HW, N)[0]
-    kw = dict(T=T, B=B, HW=HW, **lif_kw)
+    kw = dict(T=T, B=B, stride=stride, **lif_kw)
+    plan = conv_lif_plan(T, B, HW, N, K)
 
     def pair(x):
         """The per-op kernel pair on folded spikes x: (spikes, currents)."""
@@ -1155,43 +1238,52 @@ def fused_check(p, last, s_pair, name, st, lif_kw):
     check(int((occ_s == 0).sum()) > 0, f"spike_conv_lif {name}: no silent "
           f"tile in the partly silent check")
     y4 = y.reshape(B, T, HW, N).transpose(0, 1).contiguous()
-    runs = {"main path": (patches, s_pair.reshape(T, B, HW, N),
+    runs = {"main path": (xf, s_pair.reshape(T, B, HW, N),
                           instance_norm_affine(y4, sc, bi)),
-            "partly silent": (silent, *pair(silent_x))}
-    flips, band, equal, err = {}, {}, True, 0.0
+            "partly silent": (silent_x, *pair(silent_x))}
+    flips, band, err = {}, {}, 0.0
     for label, (x, s_ref, z) in runs.items():
-        plain = spike_conv_lif_plain(x, wmat, sc, bi, **kw)
+        plain = spike_conv_lif_plain(x, w, sc, bi, **kw)
         res_p = spike_mismatch(z, plain, tol=NEAR_TOL, **lif_kw)
         check(res_p["far"] == 0, f"spike_conv_lif {name} ({label}): its "
               f"plain version differs away from threshold: {res_p}")
         for gate in GATES:
-            got = spike_conv_lif(x, wmat, sc, bi, gate=gate, bn=bn, **kw)
+            got = spike_conv_lif(x, w, sc, bi, gate=gate, **kw)
             torch.cuda.synchronize()
-            res = spike_mismatch(z, got, tol=NEAR_TOL, **lif_kw)
-            check(res["far"] == 0, f"spike_conv_lif {name} ({label}, gate "
-                  f"{gate}): {res['far']} spikes differ from the per-op "
-                  f"pair away from threshold")
-            flips[f"{label}/{gate}"] = int((got != s_ref).any(dim=0).sum())
-            band[label] = res["near"]
-            equal = equal and torch.equal(got, s_ref)
+            check(torch.equal(got, s_ref), f"spike_conv_lif {name} "
+                  f"({label}, gate {gate}): {int((got != s_ref).sum())} "
+                  f"spikes differ from the per-op kernel pair's")
+            flips[label] = int((plain != s_ref).any(dim=0).sum())
+            band[label] = spike_mismatch(z, got, tol=NEAR_TOL,
+                                         **lif_kw)["near"]
             err = max(err, float((got - plain).abs().max()))
     occ = slab_occupancy_mask(patches.reshape(B, T * HW, K))
     live = sum(live_tile_elems(occ[b], T * HW, K) for b in range(B))
-    ms = time_ms(lambda: spike_conv_lif(patches, wmat, sc, bi, bn=bn,
-                                        occ=occ, **kw))
-    plain_ms = time_ms(lambda: spike_conv_lif_plain(patches, wmat, sc, bi,
-                                                    **kw))
+    ms = time_ms(lambda: spike_conv_lif(xf, w, sc, bi, **kw))
+    plain_ms = time_ms(lambda: spike_conv_lif_plain(xf, w, sc, bi, **kw))
     pair_ms = time_ms(lambda: norm_affine_lif(
         spike_conv(xf, w, stride=stride).reshape(B, T, HW, N)
         .transpose(0, 1).contiguous(), sc, bi, **lif_kw))
+    earlier = earlier_conv_lif()
+    old_ms, old_equal = None, None
+    if earlier:
+        def old():
+            return earlier(patches, wmat, occ, sc, bi, T, B, HW, lif_kw)
+        old_equal = bool(torch.equal(old(), runs["main path"][1]))
+        old_ms = time_ms(old)
     st["spike_conv_lif"].add(
-        (T, B, HW, K, N, bn), ms, plain_ms,
-        live * 4 + (K * N + M * N + occ.numel() + 2 * N) * 4,
-        2.0 * N * live, err, per_op_ms=pair_ms)
-    print(f"  spike_conv_lif {name:9s} [T,B,HW,K,N]={(T, B, HW, K, N)} "
-          f"bn {bn}: bit-equal to the per-op pair: {equal}; flips per "
-          f"input/gate {flips}; near-threshold band {band}; ms kernel "
-          f"{ms:.4f} plain {plain_ms:.4f} per-op pair {pair_ms:.4f}")
+        (T, B, HW, K, N, plan.ct, plan.cluster), ms, plain_ms,
+        (xf.numel() + K * N + M * N + 2 * N) * 4, 2.0 * N * live, err,
+        per_op_ms=pair_ms, extra={"earlier_design_ms": old_ms})
+    print(f"  spike_conv_lif {name:9s} [T,B,HW,K,N]={(T, B, HW, K, N)} plan "
+          f"tile {plan.ct} cluster {plan.cluster} bm {plan.bm} stages "
+          f"{plan.stages} ({plan.blocks} blocks, {plan.smem_bytes} B "
+          f"shared): equal to the per-op pair under "
+          f"{'/'.join(GATES)}, also partly silent; plain flips {flips}; "
+          f"near-threshold band {band}; ms kernel {ms:.5f} plain "
+          f"{plain_ms:.4f} per-op pair {pair_ms:.5f} earlier design "
+          + (f"{old_ms:.5f} (equal to the pair: {old_equal})" if earlier
+             else "not built"))
 
 
 def event_windows(reqs, dev):
@@ -1827,14 +1919,15 @@ def batch_cap_run(name, dev):
         return got[-n:], event_voxel(EventStream(*(a[-n:] for a in evs)),
                                      **kw)
     if name == "spike_conv_lif":
-        T, HW, K, N = 2, 2, 9, 4
-        patches = spikes(B * T * HW, K)
-        w = torch.randn(K, N, device=dev, generator=g)
+        T, N = 2, 4
+        xf = spikes(B * T, 1, 2, 2)
+        w = torch.randn(3, 3, 2, N, device=dev, generator=g)
         sc, bi = rand(N) + 0.5, rand(N) - 0.5
-        kw = dict(T=T, HW=HW)
-        return (spike_conv_lif(patches, w, sc, bi, B=B, **kw)[:, -n:],
-                spike_conv_lif(patches[-n * T * HW:].contiguous(), w, sc, bi,
-                               B=n, **kw))
+        return (spike_conv_lif(xf, w, sc, bi, T=T, B=B)[:, -n:],
+                spike_conv_lif(xf[-n * T:].contiguous(), w, sc, bi, T=T,
+                               B=n))
+    if name.startswith("flash_"):
+        return flash_batch_cap(name[len("flash_"):], B, n, g, dev)
     if name == "backbone_segment":
         specs = (LayerSpec("", cin=2, cout=4),)
         x = spikes(1, B, 4, 4, 2)
@@ -1858,6 +1951,34 @@ def batch_cap_run(name, dev):
     raise ValueError(f"batch_cap_run: no kernel {name!r}")
 
 
+def flash_batch_cap(design, B, n, g, dev):
+    """flash_attention's ``design`` ("mma_sync" or "f32") at batch B, Sq
+    = 1 against 16 keys (causal, the query last), one head, d = 64: held
+    to the plain scan (bf16: within bf16_error_bound; f32: F32_TOL),
+    then (the last n batch elements, a run on them alone)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    dt = torch.bfloat16 if design == "mma_sync" else torch.float32
+    Sk = 16
+    q, k, v = (torch.randn(B, S, 1, 64, device=dev, generator=g).to(dt)
+               for S in (1, Sk, Sk))
+    kw = dict(causal=True, q_offset=Sk - 1, window=0)
+    got = fa._launch(q, k, v, design=design, **kw)
+    chunk = 8192                # the bound's plain scans, a slice at a time
+    for b0 in range(0, B, chunk):
+        sl = slice(b0, b0 + chunk)
+        want = fa.flash_attention_plain(q[sl], k[sl], v[sl], block=Sk, **kw)
+        diff = (got[sl].float() - want.float()).abs()
+        bar = F32_TOL if design == "f32" else fa.bf16_error_bound(
+            q[sl], k[sl], v[sl], got[sl], want, causal=True,
+            q_offset=Sk - 1)
+        check(bool((diff <= bar).all()), f"flash_attention {design} at "
+              f"batch {B}: {int((diff > bar).sum())} outputs past the "
+              f"bar against the plain scan (batch {b0}..)")
+    tail = [t[-n:].contiguous() for t in (q, k, v)]
+    return got[-n:], fa._launch(*tail, design=design, **kw)
+
+
 def batch_cap_phase(dev):
     """Each of BATCH_CAP_KERNELS past the old grid cap, bit-equal on the
     checked batch elements."""
@@ -1870,7 +1991,9 @@ def batch_cap_phase(dev):
         print(f"  {name}: past the old 65535 grid cap "
               f"({'time steps' if name.endswith('steps') else 'batch'} "
               f"{BIG_BATCH}), bit-equal on the checked "
-              f"{'grid' if name.endswith('steps') else 'batch elements'}")
+              f"{'grid' if name.endswith('steps') else 'batch elements'}"
+              + (", within the bar of the plain scan"
+                 if name.startswith("flash_") else ""))
         del got, want
         torch.cuda.empty_cache()
 
@@ -1958,6 +2081,121 @@ def norm_phase(params_by_arch, dev, card):
             for v in variants:
                 var_ms[v] += c["vms"][v]
         report[arch] = dict(st.summary(), plans_ms=var_ms)
+    return report
+
+
+def conv_lif_phase(params_by_arch, dev, card):
+    """spike_conv_lif alone at every firing conv of the four backbones
+    (its input shape, kernel and stride; numpy-seeded 15% spikes and
+    weights, batch 8): equal to the per-op kernel pair under each gate,
+    then per arch the kernel at its plan, at every other cluster size
+    that holds the slab, the per-op pair, the plain version, the earlier
+    design (where build/earlier holds its source) and the bound summed
+    over a tick's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.lif_scan import norm_affine_lif
+    from repro_torch.kernels.spike_conv import spike_conv
+    from repro_torch.kernels.spike_conv_lif import (CLUSTERS, GATES,
+                                                    MAX_SMEM, ROW_TILES,
+                                                    STAGES,
+                                                    _conv_lif_launch,
+                                                    conv_lif_plan,
+                                                    spike_conv_lif,
+                                                    spike_conv_lif_plain)
+    from repro_torch.core.layers import NORM_EPS, spike_im2col
+    from repro_torch.testing import slab_occupancy_mask
+    lif_kw = dict(tau=2.0, v_th=1.0, v_reset=0.0)
+    earlier = earlier_conv_lif()
+    report = {"card": card}
+    cache = {}
+    for arch, (p, cfg) in params_by_arch.items():
+        st = KernelStats()
+        cl_ms = {}
+        for name, T, B, H, W, C, k, stride, N in conv_lif_layers(p, cfg,
+                                                                 BATCH):
+            shape = (T, B, H, W, C, k, stride, N)
+            if shape not in cache:
+                rng = np.random.default_rng(sum(shape))
+                xf = torch.tensor((rng.random((B * T, H, W, C)) < 0.15)
+                                  .astype(np.float32), device=dev)
+                w = torch.tensor(rng.normal(0, 1, (k, k, C, N))
+                                 .astype(np.float32), device=dev)
+                sc = torch.tensor(rng.normal(1, 0.2, N).astype(np.float32),
+                                  device=dev)
+                bi = torch.tensor(rng.normal(0, 0.2, N).astype(np.float32),
+                                  device=dev)
+                kw = dict(T=T, B=B, stride=stride, **lif_kw)
+
+                def pair():
+                    y4 = spike_conv(xf, w, stride=stride).reshape(
+                        B, T, -1, N).transpose(0, 1).contiguous()
+                    return norm_affine_lif(y4, sc, bi, **lif_kw)
+                want = pair()
+                for gate in GATES:
+                    got = spike_conv_lif(xf, w, sc, bi, gate=gate, **kw)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want), f"spike_conv_lif {shape} "
+                          f"(gate {gate}): {int((got != want).sum())} "
+                          f"spikes differ from the per-op pair's")
+                HW = want.shape[2]
+                plan = conv_lif_plan(T, B, HW, N, k * k * C)
+                by_cluster, variants = {}, {}
+                for c in CLUSTERS:
+                    try:
+                        pc = conv_lif_plan(T, B, HW, N, k * k * C,
+                                           cluster=c)
+                    except ValueError:
+                        continue
+                    by_cluster[c] = time_ms(lambda c=c: spike_conv_lif(
+                        xf, w, sc, bi, cluster=c, **kw))
+                    # the other row tiles and ring depths at this cluster
+                    for bm in ROW_TILES:
+                        for stages in STAGES:
+                            pv = dataclasses.replace(pc, bm=bm,
+                                                     stages=stages)
+                            if pv.smem_bytes > MAX_SMEM or pv == pc or \
+                                    bm > 2 * pc.rows:
+                                continue
+                            def run(pv=pv):
+                                return _conv_lif_launch(
+                                    xf, w, sc, bi, pv, stride=stride,
+                                    gate="mask", eps=NORM_EPS, **lif_kw)
+                            check(torch.equal(run(), want),
+                                  f"spike_conv_lif {shape} under {pv}: "
+                                  f"differs from the per-op pair")
+                            variants[f"{c}/{bm}/{stages}"] = time_ms(run)
+                patches = spike_im2col(xf, k, k, stride)[0]
+                wmat = w.reshape(-1, N).contiguous()
+                occ = slab_occupancy_mask(patches.reshape(B, T * HW, -1))
+                live = sum(live_tile_elems(occ[b], T * HW, k * k * C)
+                           for b in range(B))
+                old_ms = time_ms(lambda: earlier(
+                    patches, wmat, occ, sc, bi, T, B, HW, lif_kw)) \
+                    if earlier else None
+                cache[shape] = dict(
+                    ms=by_cluster[plan.cluster], by_cluster=by_cluster,
+                    plain_ms=time_ms(lambda: spike_conv_lif_plain(
+                        xf, w, sc, bi, **kw)),
+                    pair_ms=time_ms(pair), old_ms=old_ms,
+                    nbytes=(xf.numel() + w.numel() + want.numel() + 2 * N)
+                    * 4, nops=2.0 * N * live)
+                best = min(variants.items(), key=lambda kv: kv[1],
+                           default=("none", None))
+                print(f"  {name} {shape}: plan tile {plan.ct} cluster "
+                      f"{plan.cluster} bm {plan.bm} stages {plan.stages}; "
+                      f"equal to the pair under {'/'.join(GATES)}; ms by "
+                      f"cluster {by_cluster}, fastest other (cluster/bm/"
+                      f"stages) {best}, per-op pair "
+                      f"{cache[shape]['pair_ms']:.5f}, earlier design "
+                      f"{old_ms}; all {variants}")
+            c = cache[shape]
+            st.add(shape, c["ms"], c["plain_ms"], c["nbytes"], c["nops"],
+                   0.0, per_op_ms=c["pair_ms"],
+                   extra={"earlier_design_ms": c["old_ms"]})
+            best = min(c["by_cluster"].values())
+            cl_ms["best_cluster"] = cl_ms.get("best_cluster", 0.0) + best
+        report[arch] = dict(st.summary(), **cl_ms)
     return report
 
 
@@ -2463,8 +2701,9 @@ def main() -> int:
         else None
     flash_only = sys.argv[1:] == ["--flash-phase"]
     norm_only = sys.argv[1:] == ["--norm-phase"]
+    conv_lif_only = sys.argv[1:] == ["--conv-lif-phase"]
     if sys.argv[1:] and not kernel_archs and not flash_only \
-            and not norm_only:
+            and not norm_only and not conv_lif_only:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -2477,7 +2716,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = (["flash_attention"] if flash_only else
-             ["norm_affine_lif"] if norm_only else list(build.SOURCES))
+             ["norm_affine_lif"] if norm_only else
+             ["spike_conv_lif", "spike_conv", "norm_affine_lif"]
+             if conv_lif_only else list(build.SOURCES))
     build.build_all(built)
     print(f"[2/7] build: {time.perf_counter() - t0:.1f} s")
     for name in built:
@@ -2498,6 +2739,10 @@ def main() -> int:
                                 device=dev), acfg)
     if norm_only:
         print(json.dumps({"norm_phase": norm_phase(
+            {"spiking_yolo": (params, cfg), **archs}, dev, card)}))
+        return 0
+    if conv_lif_only:
+        print(json.dumps({"conv_lif_phase": conv_lif_phase(
             {"spiking_yolo": (params, cfg), **archs}, dev, card)}))
         return 0
     reqs = make_requests(cfg, np.random.default_rng(0))

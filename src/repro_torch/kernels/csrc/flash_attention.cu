@@ -64,7 +64,8 @@
 // "mma_sync" (bf16, every other (D, DV); the first design, also
 // callable at (128, 128) for timing): mma.sync m16n8k16 (about a third
 // of wgmma's rate on Hopper), one 128-thread block per (64-row query
-// tile, query head, batch element), each warp owning 16 query rows; K
+// tile, query head, batch element), all on gridDim.x (block_work: any
+// batch the int arguments hold), each warp owning 16 query rows; K
 // and V tiles of 64 keys in two cp.async stages; B fragments by
 // ldmatrix (V's transposing).
 //
@@ -114,10 +115,20 @@ __device__ __forceinline__ void key_range(const Shape& s, int q0, int q1,
   if (hi < lo) hi = lo;
 }
 
-__device__ __forceinline__ int query_tile(const Shape& s) {
-  // causal tiles with more rows see more keys: schedule them first
-  const int n = gridDim.x;
-  return s.causal ? n - 1 - (int)blockIdx.x : (int)blockIdx.x;
+// the (64-row query tile, query head, batch element) of this block of
+// the "mma_sync" and "f32" grids: blockIdx.x runs the query head fastest,
+// then the batch element, then the query tile -- causal tiles with more
+// rows see more keys, so the last tile comes first
+struct BlockWork {
+  int q_tile, h, b;
+};
+
+__device__ __forceinline__ BlockWork block_work(const Shape& s, int B) {
+  const int per_tile = s.Hq * B;
+  const int x = static_cast<int>(blockIdx.x);
+  const int t = x / per_tile, rest = x - t * per_tile;
+  const int tiles = (s.Sq + kBR - 1) / kBR;
+  return {s.causal ? tiles - 1 - t : t, rest % s.Hq, rest / s.Hq};
 }
 
 // ---------------------------------------------------------------------------
@@ -195,14 +206,15 @@ __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ Q,
                   const __nv_bfloat16* __restrict__ K,
                   const __nv_bfloat16* __restrict__ V,
-                  __nv_bfloat16* __restrict__ O, Shape s) {
+                  __nv_bfloat16* __restrict__ O, Shape s, int B) {
   static_assert(D % 16 == 0 && DV % 16 == 0, "D and DV: multiples of 16");
   using T = Bf16Tiles<D, DV>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem_raw);
 
-  const int q0 = query_tile(s) * kBR;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / s.G;
+  const BlockWork work = block_work(s, B);
+  const int q0 = work.q_tile * kBR;
+  const int h = work.h, b = work.b, hk = h / s.G;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = q0 + warp * 16 + g;        // this thread's rows r0, r0 + 8
@@ -1185,7 +1197,8 @@ constexpr size_t f32_smem_bytes() {
 template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                 const float* __restrict__ V, float* __restrict__ O, Shape s) {
+                 const float* __restrict__ V, float* __restrict__ O, Shape s,
+                 int B) {
   static_assert(DV % 8 == 0, "DV: a multiple of 8");
   extern __shared__ float smem[];
   float* Qs = smem;                       // [kBR][D + 1]
@@ -1194,8 +1207,9 @@ flash_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   float* Ps = Vs + kBC * DV;              // [kBR][kBC + 1]
   constexpr int NO = DV / 8;
 
-  const int q0 = query_tile(s) * kBR;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / s.G;
+  const BlockWork work = block_work(s, B);
+  const int q0 = work.q_tile * kBR;
+  const int h = work.h, b = work.b, hk = h / s.G;
   const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
 
   const size_t q_row = (size_t)s.Hq * D, k_row = (size_t)s.Hq / s.G * D;
@@ -1310,7 +1324,10 @@ flash_f32_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 template <int D, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            const Shape& s, int bf16, cudaStream_t stream) {
-  const dim3 grid((s.Sq + kBR - 1) / kBR, s.Hq, B);
+  const int64_t blocks = (int64_t)((s.Sq + kBR - 1) / kBR) * s.Hq * B;
+  if (blocks >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
   if (bf16) {
     constexpr size_t smem = Bf16Tiles<D, DV>::BYTES;
     cudaError_t err = cudaFuncSetAttribute(
@@ -1321,7 +1338,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(o), s);
+        static_cast<__nv_bfloat16*>(o), s, B);
   } else {
     constexpr size_t smem = f32_smem_bytes<D, DV>();
     cudaError_t err = cudaFuncSetAttribute(
@@ -1330,7 +1347,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     if (err != cudaSuccess) return static_cast<int>(err);
     flash_f32_kernel<D, DV><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), s);
+        static_cast<const float*>(v), static_cast<float*>(o), s, B);
   }
   return static_cast<int>(cudaGetLastError());
 }

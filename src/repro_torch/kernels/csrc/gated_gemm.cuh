@@ -1,8 +1,8 @@
 // Tiled fp32 GEMM on CUDA cores with a per-tile activity gate: the
 // spike-matmul kernel (in-kernel all-zero check), and on materialised
 // patches the oracle of the spike-conv kernel (spike_conv.cu reads the
-// folded spikes with the same accumulation order); the fused conv->LIF
-// kernel (spike_conv_lif.cu) keeps its block constants and order.
+// folded spikes with the same accumulation order, as does the fused
+// conv->LIF kernel, spike_conv_lif.cu).
 //
 //   C[M, N] = A[M, K] @ B[K, N]     row-major, fp32 in, fp32 out
 //

@@ -26,8 +26,9 @@
 //      and y and out are 16-byte aligned, else 4), in kStages commit
 //      groups where a class has kStagedRows rows or more, else in one;
 //   1. one thread per (class, channel) sums its class in row order in
-//      double, stage by stage as the copies land, the next kGroup terms
-//      loaded and widened while the current ones are added (chain_sum);
+//      double, stage by stage as the copies land, the next kChainAhead
+//      terms loaded and widened while the current ones are added
+//      (cluster_slab.cuh chain_sum, shared with spike_conv_lif.cu);
 //      the block publishes its class sums, and after a cluster barrier
 //      every block gathers all 32 through distributed shared memory and
 //      adds them in class order (repro::class_total), so every block
@@ -61,23 +62,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_slab.cuh"
 #include "lif_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using repro::chain_sum;
+using repro::cluster_arrive;
+using repro::cluster_wait;
+using repro::FastDiv;
 using repro::kRowClasses;
+using repro::Lane;
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxCluster = 16;
 constexpr int kStages = 4;            // commit groups of the slab's copy...
 constexpr int kStagedRows = 128;      // ...where a class has this many rows
-constexpr int kGroup = 4;             // a chain's terms loaded ahead
 constexpr int kMaxSmem = 232448;      // a block's shared memory, bytes
 constexpr int kMaxTile = 32;          // channels a cluster at most
-// the cluster could not be scheduled on this card (returned as an error)
-constexpr int kErrClusterUnschedulable = -1;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -97,63 +101,6 @@ __device__ __forceinline__ void stage<1>(float* dst, const float* src) {
                :: "r"(smem_addr(dst)), "l"(src));
 }
 
-// V consecutive floats: loaded (global, shared or a cluster peer's shared
-// memory through a generic pointer) and stored, 16 bytes at a time for 4
-template <int V>
-struct Lane {
-  __device__ static void load(float* d, const float* p) { d[0] = *p; }
-  __device__ static void store(float* p, const float* d) { *p = d[0]; }
-};
-template <>
-struct Lane<4> {
-  __device__ static void load(float* d, const float* p) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    d[0] = v.x;
-    d[1] = v.y;
-    d[2] = v.z;
-    d[3] = v.w;
-  }
-  __device__ static void store(float* p, const float* d) {
-    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
-  }
-};
-
-// acc + term(j) + term(j + 1) + ... + term(j1 - 1), in that order, one
-// double add at a time; the next kGroup terms are loaded and widened
-// while the current kGroup are added, so the chain waits on the adds
-template <class F>
-__device__ __forceinline__ double chain_sum(double acc, int j, int j1,
-                                            F term) {
-  if (j + kGroup <= j1) {
-    double nxt[kGroup];
-#pragma unroll
-    for (int g = 0; g < kGroup; ++g) nxt[g] = term(j + g);
-    for (j += kGroup; j + kGroup <= j1; j += kGroup) {
-      double cur[kGroup];
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) cur[g] = nxt[g];
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) nxt[g] = term(j + g);
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) acc += cur[g];
-    }
-#pragma unroll
-    for (int g = 0; g < kGroup; ++g) acc += nxt[g];
-  }
-  for (; j < j1; ++j) acc += term(j);
-  return acc;
-}
-
-// the two halves of a cluster barrier: arrive (release) and wait
-// (acquire), so a block can go on working between them; every thread of
-// the block executes both (.aligned)
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -168,22 +115,6 @@ __device__ __forceinline__ void wait_groups(int pending) {
     default: asm volatile("cp.async.wait_group 3;\n" ::); break;
   }
 }
-
-// x / d for 0 <= x < 2^31 by a multiply and a shift (the divisor's magic
-// number made on the host)
-struct FastDiv {
-  uint32_t d, m, s;
-  FastDiv() = default;
-  explicit FastDiv(uint32_t div) : d(div), s(0) {
-    while ((uint64_t(1) << s) < d) ++s;
-    m = static_cast<uint32_t>(
-        ((uint64_t(1) << 32) * ((uint64_t(1) << s) - d)) / d + 1);
-  }
-  __device__ __forceinline__ int div(int x) const {
-    return static_cast<int>((__umulhi(static_cast<uint32_t>(x), m) +
-                             static_cast<uint32_t>(x)) >> s);
-  }
-};
 
 struct NormArgs {
   const float* y;
@@ -381,67 +312,11 @@ norm_affine_lif_kernel(const __grid_constant__ NormArgs a) {
   }
 }
 
-int log2_exact(int v) {
-  int l = 0;
-  while ((1 << l) < v) ++l;
-  return (1 << l) == v ? l : -1;
-}
-
 template <int V, bool STAGED>
 int launch(const NormArgs& a, int blocks, int cluster, int threads,
            size_t smem, cudaStream_t stream) {
-  auto kern = norm_affine_lif_kernel<V, STAGED>;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // once per instance and device: any shared memory up to kMaxSmem,
-  // clusters of 16
-  constexpr int kDevices = 64;
-  static bool ready[kDevices] = {};
-  if (dev >= kDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!ready[dev]) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMaxSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ready[dev] = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks, 1, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cluster > 1 ? 1 : 0;   // one block: a plain launch
-  // whether the card can hold one such cluster, asked once per
-  // (device, cluster, threads, shared memory)
-  struct Seen { int dev, cluster, threads; size_t smem; int ok; };
-  static Seen seen[64];
-  static int n_seen = 0;
-  int ok = -1;
-  for (int k = 0; k < n_seen; ++k)
-    if (seen[k].dev == dev && seen[k].cluster == cluster &&
-        seen[k].threads == threads && seen[k].smem == smem)
-      ok = seen[k].ok;
-  if (cluster == 1) ok = 1;
-  if (ok < 0) {
-    int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ok = clusters >= 1;
-    if (n_seen < 64) seen[n_seen++] = {dev, cluster, threads, smem, ok};
-  }
-  if (!ok) return kErrClusterUnschedulable;
-  e = cudaLaunchKernelEx(&cfg, kern, a);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return repro::launch_cluster(norm_affine_lif_kernel<V, STAGED>, a, blocks,
+                               cluster, threads, smem, kMaxSmem, stream);
 }
 
 }  // namespace
@@ -457,7 +332,7 @@ extern "C" int norm_affine_lif_launch(const float* y, const float* scale,
                                       int threads, float decay, float v_th,
                                       float v_reset, float eps,
                                       void* stream) {
-  const int cs_log = log2_exact(cluster);
+  const int cs_log = repro::log2_exact(cluster);
   const int64_t R = (int64_t)T * HW;
   if (T < 1 || B < 1 || HW < 1 || C < 1 || R >= (int64_t(1) << 31) ||
       ct < 1 || ct > kMaxTile || cs_log < 0 || cluster > kMaxCluster ||
@@ -486,7 +361,7 @@ extern "C" int norm_affine_lif_launch(const float* y, const float* scale,
   a.J = (int)((R + kRowClasses - 1) / kRowClasses);
   a.ct = ct;
   a.cs_log = cs_log;
-  a.cpb_log = log2_exact(cpb);
+  a.cpb_log = repro::log2_exact(cpb);
   a.cpr = cpr;
   a.qstep = threads / cpr;
   a.stages = a.J >= kStagedRows ? kStages : 1;

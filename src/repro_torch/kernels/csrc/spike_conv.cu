@@ -28,7 +28,8 @@
 //     a canonical block) in dynamic shared memory: the next slices' copies
 //     are in flight during this slice's FMAs.  A is fetched as 16-, 8- or
 //     4-byte channel chunks (C % 4, C % 2, else) with src-size 0 zero-fill
-//     for padding taps and ragged edges, B as 16-byte rows (4-byte when
+//     for padding taps and ragged edges (patch_stage.cuh, shared with the
+//     fused conv->LIF kernel), B as 16-byte rows (4-byte when
 //     cout % 4 != 0);
 //   * split-K at canonical-block granularity where the output tiles alone
 //     are fewer than the SMs: a block takes kgroup consecutive K blocks of
@@ -48,22 +49,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "patch_stage.cuh"
 #include "spike_mac.cuh"
 
 namespace {
 
+using repro::cp_async;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 using repro::kCanonicalK;
 using repro::kblock_add;
 using repro::kblock_fma;
 
 constexpr int kBM = 128;                 // output rows per block
-constexpr int kBK = 32;                  // K slice per ring stage
-constexpr int kSPB = kCanonicalK / kBK;  // slices per canonical block
+constexpr int kBK = repro::kPatchBK;     // K slice per ring stage
+constexpr int kSPB = repro::kSlicesPerBlock;  // slices per canonical block
 constexpr int kStages = 3;
 constexpr int kTM = 8;                   // output rows per thread
 constexpr int kTY = kBM / kTM;           // thread rows of a block
-constexpr int kLDA = kBK + 4;            // padded A row (floats)
-static_assert(kCanonicalK % kBK == 0, "a slice must not straddle a block");
+constexpr int kLDA = repro::kPatchLDA;   // padded A row (floats)
 
 // columns per thread, threads across the columns, threads of a block
 template <int BN>
@@ -86,45 +90,6 @@ struct ConvArgs {
   int gate, kgroup, bvec;  // kgroup > 0: split-K, K blocks per block
 };
 
-// any non-zero among the V floats at p (aligned to V floats)
-template <int V>
-__device__ __forceinline__ bool chunk_nonzero(const float* p) {
-  if (V == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
-  }
-  if (V == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    return v.x != 0.f || v.y != 0.f;
-  }
-  return *p != 0.f;
-}
-
-template <int V>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? 4 * V : 0;          // src-size 0: zero-fill
-  if (V == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n));
-  else if (V == 2)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // column of a thread's j-th output within the tile: groups of 4 adjacent
 // columns, 4 * tile_x apart, so a warp's shared reads of B are
 // conflict-free
@@ -141,9 +106,6 @@ spike_conv_kernel(const ConvArgs a) {
   constexpr int kThreads = threads<BN>();
   constexpr int kAStage = kBM * kLDA;
   constexpr int kBStage = kBK * BN;
-  constexpr int ACH = kBK / V;           // A chunks per row of a slice
-  constexpr int AROWS = kThreads / ACH;  // rows per pass of the threads
-  constexpr int APASS = kBM / AROWS;
   extern __shared__ __align__(16) float smem[];
   float* As = smem;
   float* Bs = As + kStages * kAStage;
@@ -169,13 +131,10 @@ spike_conv_kernel(const ConvArgs a) {
       const long long n = m / a.HWo;
       const int rem = static_cast<int>(m - n * a.HWo);
       const int ho = rem / a.Wo, wo = rem - ho * a.Wo;
-      rpix[r] = n * a.H * a.W;
-      rh[r] = ho * a.stride - a.pad_h;
-      rw[r] = wo * a.stride - a.pad_w;
+      repro::set_patch_row(rpix, rh, rw, r, n, a.H, a.W, ho, wo, a.stride,
+                           a.pad_h, a.pad_w);
     } else {
-      rpix[r] = 0;
-      rh[r] = -(1 << 29);
-      rw[r] = 0;
+      repro::clear_patch_row(rpix, rh, rw, r);
     }
   }
   for (int i = tid; i < kb1 - kb0; i += kThreads)
@@ -192,35 +151,12 @@ spike_conv_kernel(const ConvArgs a) {
                             a.col_tiles] = 0;
   }
   __syncthreads();
+  const repro::PatchSrc g{a.x, a.H, a.W, a.C, a.kw, a.K};
   if (a.gate == kGateMask) {
     // a K block is live if a patch element of it at one of this block's
-    // rows is non-zero.  One item is 4 chunks of V consecutive k at one
-    // row, its 4 loads in flight together; items run K block fastest, then
-    // k, then row, so the first pass of the threads looks at every K block
-    // and the later items mostly find theirs marked already
-    constexpr int SEG = 4 * V;
-    constexpr int NSEG = kCanonicalK / SEG;
-    const int nkb = kb1 - kb0;
-    for (int i = tid; i < kBM * nkb * NSEG; i += kThreads) {
-      const int b = i % nkb, rest = i / nkb;
-      const int r = rest / NSEG;
-      if (live[b]) continue;
-      const int k0 = (kb0 + b) * kCanonicalK + (rest % NSEG) * SEG;
-      bool any = false;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k = k0 + j * V;
-        const int t = k / a.C, c = k - t * a.C;
-        const int dy = t / a.kw, dx = t - dy * a.kw;
-        const int h = rh[r] + dy, w = rw[r] + dx;
-        if (k < a.K && h >= 0 && h < a.H && w >= 0 && w < a.W)
-          any |= chunk_nonzero<V>(
-              a.x + static_cast<size_t>(rpix[r] +
-                                        static_cast<long long>(h) * a.W + w) *
-                        a.C + c);
-      }
-      if (any) live[b] = 1;
-    }
+    // rows is non-zero (the 128 x 128 occupancy tiles of the patch matrix)
+    repro::mark_live_blocks<V, kBM, kThreads>(g, rpix, rh, rw, live, kb0,
+                                              kb1 - kb0, tid);
     __syncthreads();
   }
   // the first slice at or after s inside a live K block
@@ -229,31 +165,10 @@ spike_conv_kernel(const ConvArgs a) {
     return s;
   };
 
-  // A loader: each thread copies one fixed chunk column of APASS rows
-  const int a_kc = tid % ACH, a_r0 = tid / ACH;
+  // A: the implicit patches; B: the weights' rows of the slice
   auto load_slice = [&](int s, int st) {
-    float* as = As + st * kAStage;
-    const int k = s * kBK + a_kc * V;
-    const bool kin = k < a.K;
-    int c = 0, dy = 0, dx = 0;
-    if (kin) {
-      const int tap = k / a.C;
-      c = k - tap * a.C;
-      dy = tap / a.kw;
-      dx = tap - dy * a.kw;
-    }
-#pragma unroll
-    for (int p = 0; p < APASS; ++p) {
-      const int r = a_r0 + p * AROWS;
-      const int h = rh[r] + dy, w = rw[r] + dx;
-      const bool ok = kin && h >= 0 && h < a.H && w >= 0 && w < a.W;
-      const float* src =
-          ok ? a.x + (static_cast<size_t>(rpix[r] +
-                                          static_cast<long long>(h) * a.W +
-                                          w) * a.C + c)
-             : a.x;
-      cp_async<V>(as + r * kLDA + a_kc * V, src, ok);
-    }
+    repro::load_patch_slice<V, kBM, kThreads>(g, rpix, rh, rw,
+                                              As + st * kAStage, s, tid);
     float* bs = Bs + st * kBStage;
     if (a.bvec) {
       constexpr int BCH = BN / 4;
@@ -278,19 +193,6 @@ spike_conv_kernel(const ConvArgs a) {
       }
     }
   };
-  // "inline": any non-zero among the chunks this thread copied
-  auto own_any = [&](int st) {
-    const float* as = As + st * kAStage;
-    int any = 0;
-#pragma unroll
-    for (int p = 0; p < APASS; ++p) {
-      const float* q = as + (a_r0 + p * AROWS) * kLDA + a_kc * V;
-#pragma unroll
-      for (int v = 0; v < V; ++v) any |= q[v] != 0.f;
-    }
-    return any;
-  };
-
   const int tx = tid % TX, ty = tid / TX;
   float acc[kTM][TN], part[kTM][TN];
 #pragma unroll
@@ -364,7 +266,8 @@ spike_conv_kernel(const ConvArgs a) {
     cp_async_wait<kStages - 2>();
     int slive = 1;
     if (a.gate == kGateInline)
-      slive = __syncthreads_or(own_any(stage));
+      slive = __syncthreads_or(repro::patch_slice_any<V, kBM, kThreads>(
+          As + stage * kAStage, tid));
     else
       __syncthreads();
     // refill the stage every thread finished with last iteration

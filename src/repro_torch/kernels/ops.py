@@ -23,7 +23,7 @@ from typing import Iterable
 
 import torch
 
-from repro_torch.core.layers import _same_pads, fold, spike_im2col, unfold
+from repro_torch.core.layers import _same_pads, fold, unfold
 from repro_torch.kernels import tune
 from repro_torch.kernels.backbone_fuse import (segment_activation_elems,
                                                segment_edge_elems,
@@ -35,7 +35,7 @@ from repro_torch.kernels.backbone_segment import (DEFAULT_CLUSTER,
 from repro_torch.kernels.lif_scan import lif_scan, norm_affine_lif
 from repro_torch.kernels.max_pool import max_pool
 from repro_torch.kernels.spike_conv import spike_conv
-from repro_torch.kernels.spike_conv_lif import slice_widths, spike_conv_lif
+from repro_torch.kernels.spike_conv_lif import conv_lif_plan, spike_conv_lif
 from repro_torch.kernels.spike_dwconv import spike_dwconv
 from repro_torch.kernels.spike_matmul import spike_matmul
 
@@ -99,13 +99,13 @@ def conv_out_hw(xf: torch.Tensor, kh: int, kw: int, stride: int):
 def _conv_lif_apply(cfg: tune.LaunchConfig, xf, w, scale, bias, *, T, B,
                     stride, lif):
     """One firing conv layer on the route ``cfg`` names -> spikes
-    [T, B, Ho, Wo, cout]."""
-    kh, kw = w.shape[:2]
+    [T, B, Ho, Wo, cout].  The fused kernel, like the per-op conv, reads
+    xf itself (no patch matrix, no occupancy mask in torch)."""
     if cfg.fused:
-        patches, (Ho, Wo) = spike_im2col(xf, kh, kw, stride)
-        wmat = w.reshape(kh * kw * w.shape[2], w.shape[3]).contiguous()
-        out = spike_conv_lif(patches, wmat, scale, bias, T=T, B=B,
-                             HW=Ho * Wo, gate=cfg.gate, bn=cfg.bn, **lif)
+        Ho, Wo = conv_out_hw(xf, w.shape[0], w.shape[1], stride)
+        out = spike_conv_lif(xf.contiguous(), w.contiguous(), scale, bias,
+                             T=T, B=B, stride=stride, gate=cfg.gate,
+                             cluster=cfg.bm, **lif)
         return out.reshape(T, B, Ho, Wo, -1)
     y = unfold(spike_conv_op(xf, w, stride=stride, gate=cfg.gate), T, B)
     return norm_affine_lif_op(y, scale, bias, **lif)
@@ -138,18 +138,16 @@ def spike_conv_lif_op(xf, w, scale, bias, *, T: int, B: int,
 def fused_conv_lif_table(keys: Iterable[str],
                          gate: str = "mask") -> tune.TuningTable:
     """A table that routes every ``conv_lif`` key of ``keys`` to the
-    fused kernel under ``gate``, at the widest channel slice that fits
-    (entries forced, not timed: their µs are NaN).  Other keys are
-    left out."""
+    fused kernel under ``gate``, at its plan's default cluster size
+    (entries forced, not timed: their µs are NaN).  Other keys are left
+    out."""
     table = tune.TuningTable()
     for key in keys:
         op, d = tune.parse_key(key)
         if op != "conv_lif":
             continue
-        widths = slice_widths(d["T"] * d["HW"], d["N"])
-        if not widths:
-            raise ValueError(f"{key}: no channel slice fits a block")
-        table.record(key, tune.LaunchConfig(bn=widths[0], gate=gate,
+        p = conv_lif_plan(d["T"], d["B"], d["HW"], d["N"], d["K"])
+        table.record(key, tune.LaunchConfig(bm=p.cluster, gate=gate,
                                             fused=True),
                      float("nan"), float("nan"))
     return table

@@ -5,11 +5,12 @@ For each (op, layer shape) a sweep times the launch choices the port's
 kernels really take against the layer's own inputs and keeps the winner
 in a table.  Two ops have choices.  ``conv_lif``, a whole firing conv
 layer, runs either the fused kernel (``spike_conv_lif``, under its gate
-and channel-slice width ``bn``) or the per-op pair (``spike_conv`` then
-``norm_affine_lif``, under the conv's gate).  ``backbone_seg``, a
-planned backbone segment, runs either the ``backbone_segment`` kernel
-(under the gate "inline" or "none", ``bm`` blocks per batch element) or
-the per-layer route, each layer through its own dispatch.  Every other
+and cluster size ``bm``) or the per-op pair
+(``spike_conv`` then ``norm_affine_lif``, under the conv's gate).
+``backbone_seg``, a planned backbone segment, runs either the
+``backbone_segment`` kernel (under the gate "inline" or "none", ``bm``
+blocks per batch element) or the per-layer route, each layer through
+its own dispatch.  Every other
 op resolves to its one default until its kernels take launch choices.
 A segment's key carries each layer's shape token (``L0k3s1c64n64d0p0``,
 no layer name), so same-shaped segments share one entry.
@@ -58,13 +59,14 @@ from repro_torch.configs.registry import get_tune_config
 from repro_torch.kernels.backbone_segment import MAX_LAYERS
 from repro_torch.kernels.blocks import DEFAULT_BK, DEFAULT_BM, DEFAULT_BN
 from repro_torch.kernels.spike_conv import conv_tiles
-from repro_torch.kernels.spike_conv_lif import slice_widths
+from repro_torch.kernels.spike_conv_lif import (CLUSTERS, TILE_N,
+                                                channel_tile, conv_lif_plan)
 from repro_torch.launch.roofline import SMS, kernel_launch_estimate
 
 TUNE_SCHEMA_VERSION = 1
 # the port's kernels: bump when their numerics, launch semantics or
 # speed change (a table's winners were timed on them)
-KERNELS_VERSION = "h100-3"
+KERNELS_VERSION = "h100-4"
 ENV_VAR = "REPRO_TORCH_TUNE_TABLE"
 DEFAULT_TABLE_PATH = os.path.join(os.path.dirname(__file__),
                                   "tuned_defaults.json")
@@ -73,9 +75,10 @@ DEFAULT_TABLE_PATH = os.path.join(os.path.dirname(__file__),
 @dataclasses.dataclass(frozen=True)
 class LaunchConfig:
     """One launch decision: tile shapes, gate mode, fusion variant.  For
-    the fused ``conv_lif`` kernel ``bn`` is its channels per block; for
-    the ``backbone_segment`` kernel ``bm`` is its blocks per batch
-    element (the cluster size)."""
+    the fused ``conv_lif`` kernel ``bm`` is its cluster size (its plan
+    sets the channel tile; a table entry whose ``bm`` is no cluster that
+    holds the slab resolves to the plan's); for the ``backbone_segment``
+    kernel ``bm`` is its blocks per batch element (the cluster size)."""
     bm: int = DEFAULT_BM
     bn: int = DEFAULT_BN
     bk: int = DEFAULT_BK
@@ -93,6 +96,27 @@ _OP_DEFAULTS: Dict[str, LaunchConfig] = {
 
 def default_config(op: str) -> LaunchConfig:
     return _OP_DEFAULTS.get(op, LaunchConfig())
+
+
+def _fused_cluster(key: str, cfg: LaunchConfig) -> LaunchConfig:
+    """A fused ``conv_lif`` entry with its ``bm`` made a cluster size
+    that holds the key's slab: the plan's where the entry's is none (an
+    entry recorded without one holds ``DEFAULT_BM``).  Other entries,
+    and shapes no cluster holds, are left as they are."""
+    try:
+        op, d = parse_key(key)
+        shape = tuple(int(d[k]) for k in ("T", "B", "HW", "N", "K"))
+    except (KeyError, ValueError):
+        return cfg
+    if op != "conv_lif":
+        return cfg
+    for cluster in ((cfg.bm,) if cfg.bm in CLUSTERS else ()) + (None,):
+        try:
+            return dataclasses.replace(
+                cfg, bm=conv_lif_plan(*shape, cluster=cluster).cluster)
+        except ValueError:
+            continue
+    return cfg
 
 
 def shape_key(op: str, **dims) -> str:
@@ -133,9 +157,10 @@ class TuningTable:
         e = self.entries.get(key)
         if e is None:
             return None
-        return LaunchConfig(bm=int(e["bm"]), bn=int(e["bn"]),
-                            bk=int(e["bk"]), gate=str(e["gate"]),
-                            fused=bool(e["fused"]))
+        cfg = LaunchConfig(bm=int(e["bm"]), bn=int(e["bn"]),
+                           bk=int(e["bk"]), gate=str(e["gate"]),
+                           fused=bool(e["fused"]))
+        return _fused_cluster(key, cfg) if cfg.fused else cfg
 
     def record(self, key: str, cfg: LaunchConfig, us: float,
                default_us: float) -> None:
@@ -313,11 +338,33 @@ def _resolve_cached(op: str, key: str, epoch: int) -> LaunchConfig:
 
 _CONV_GATES = ("mask", "inline", "none")
 SEGMENT_CLUSTERS = (16, 8)  # backbone_segment cluster sizes swept
-_FUSED_WIDTHS = 3           # the widest slice widths that fit, per gate
-_MASK_OPS = 4               # device ops of the fused route's plain mask
+# the fused kernel's cluster sizes tried per gate beside its plan's: twice
+# and half it, where the slab fits
+_FUSED_CLUSTER_SCALES = (2, 0.5)
 
 
 _SEG_GATES = ("inline", "none")
+
+
+def _fused_plans(dims: Dict):
+    """The fused kernel's plans at a ``conv_lif`` key: its default, and
+    the other cluster sizes of ``_FUSED_CLUSTER_SCALES`` that hold the
+    slab; none where no cluster does."""
+    shape = (dims["T"], dims["B"], dims["HW"], dims["N"], dims["K"])
+    try:
+        p = conv_lif_plan(*shape)
+    except ValueError:
+        return []
+    out = [p]
+    for f in _FUSED_CLUSTER_SCALES:
+        c = int(p.cluster * f)
+        try:
+            q = conv_lif_plan(*shape, cluster=c)
+        except ValueError:
+            continue
+        if q not in out:
+            out.append(q)
+    return out
 
 
 def _segment_layers(dims: Dict) -> int:
@@ -339,10 +386,11 @@ def candidates(op: str, dims: Dict, tune_cfg: TuneConfig) -> List[LaunchConfig]:
                     out.append(LaunchConfig(bm=cs, gate=gate, fused=True))
         out.append(LaunchConfig(fused=False))
     elif op == "conv_lif":
-        widths = slice_widths(dims["T"] * dims["HW"], dims["N"])
+        plans = _fused_plans(dims)
         for gate in _CONV_GATES:
-            for w in widths[:_FUSED_WIDTHS]:
-                out.append(LaunchConfig(bn=w, gate=gate, fused=True))
+            for p in plans:
+                out.append(LaunchConfig(bm=p.cluster, gate=gate,
+                                        fused=True))
         for gate in _CONV_GATES:
             out.append(LaunchConfig(gate=gate, fused=False))
     else:
@@ -380,15 +428,15 @@ def estimate(op: str, dims: Dict, cfg: LaunchConfig,
     frac = live if cfg.gate != "none" else 1.0
     flops = 2.0 * M * K * N * frac
     if cfg.fused:
-        # every channel slice re-reads its batch element's patch slab,
-        # and B * slices blocks may leave SMs idle; the patches and the
-        # mask are plain torch before the launch
-        slices = math.ceil(N / cfg.bn)
-        reads = slices * (2 if cfg.gate == "inline" else 1)
-        nbytes = 4.0 * (M * K * frac * reads + B * slices * K * cfg.bn
-                        + M * N)
-        flops *= max(1.0, SMS / (B * slices))
-        launches = 1 + (_MASK_OPS if cfg.gate == "mask" else 0)
+        # one launch: the kernel reads the activation (about M*C, once
+        # per channel tile; each tap's re-read comes from L2) and the
+        # weights and writes the spikes once; its GEMM computes 32
+        # columns a tile, and B * tiles * cluster blocks may leave SMs
+        # idle
+        tiles = math.ceil(N / channel_tile(N))
+        flops *= tiles * TILE_N / N * max(1.0, SMS / (B * tiles * cfg.bm))
+        nbytes = 4.0 * (M * K / taps * tiles + K * N + M * N)
+        launches = 1
     else:
         # the conv kernel reads the activation (about M*C: each tap's
         # re-read comes from L2, as does the "mask" gate's check) and

@@ -1,5 +1,7 @@
 """The parity rule for spikes, shared by the tests and ``chip_smoke.py``,
-and a plain replay of the norm kernels' statistics contract.
+a plain replay of the norm kernels' statistics contract, and the slab
+occupancy mask that ``chip_smoke.py`` counts the fused conv's live work
+with.
 
 Two implementations of a spiking layer agree when their pre-activations
 agree to float rounding, so a spike can only flip where the reference
@@ -14,9 +16,11 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.layers import NORM_EPS
 from repro_torch.core.lif import f32_decay
+from repro_torch.kernels.blocks import CANONICAL_K_BLOCK, DEFAULT_BM
 
 CLASSES = 32                # row classes of the statistics contract
 
@@ -134,3 +138,18 @@ def norm_affine_lif_contract(y: torch.Tensor, scale: torch.Tensor,
         u = u * (one - s) + vr * s
         out.append(s)
     return torch.stack(out)
+
+
+def slab_occupancy_mask(x3: torch.Tensor, *,
+                        bm: int = DEFAULT_BM) -> torch.Tensor:
+    """Per-(batch, row chunk, canonical K block) occupancy of the batched
+    patch slab x3 [B, T*HW, K]: int32 [B, ceil(T*HW/bm), ceil(K/128)],
+    1 where the tile holds a live activation (a copy of the reference's
+    ``slab_occupancy_mask``; K is padded here, not by the caller)."""
+    B, THW, K = x3.shape
+    pr, pk = (-THW) % bm, (-K) % CANONICAL_K_BLOCK
+    if pr or pk:
+        x3 = F.pad(x3, (0, pk, 0, pr))
+    t = x3.reshape(B, (THW + pr) // bm, bm, (K + pk) // CANONICAL_K_BLOCK,
+                   CANONICAL_K_BLOCK)
+    return (t != 0).any(dim=4).any(dim=2).to(torch.int32)

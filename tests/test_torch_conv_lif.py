@@ -1,11 +1,20 @@
 """Port parity: the fused spiking-conv layer (``spike_conv_lif``) and its
 place in the tick, on the CPU, where its wrapper runs the plain version.
 
-- The fused plain version equals the per-op pair's plain composition bit
-  for bit under every gate: stride 1 and 2, T*HW not a multiple of the
-  128-row chunk, K not a multiple of 128, an all-silent input (every tile
-  skipped) and a layer whose membrane sits on v_th.
-- Its slab occupancy mask equals the reference's ``slab_occupancy_mask``.
+- The fused wrapper on the folded spikes (xf and HWIO weights, its plain
+  version here) equals the per-op pair's plain composition bit for bit
+  under every gate: stride 1 and 2, T*HW not a multiple of the 128-row
+  chunk, K not a multiple of 128, an all-silent input (every tile
+  skipped) and a layer whose membrane sits on v_th; and it is held to the
+  reference's interpret-mode fused kernel (on spike_im2col's patches)
+  under each gate by the near-threshold rule.
+- The kernel's launch plan (``conv_lif_plan``) at the four backbones'
+  served shapes and at batch 65537: every conv row computed once, every
+  (b, c, class) summed by one thread in row order, every neuron fired
+  once, shared memory within 227 KB, clusters of at most 16, gridDim.x
+  in range; DenseNet's 64x64 layers on 24-channel tiles.
+- The slab occupancy mask ``chip_smoke.py`` counts the kernel's live work
+  with equals the reference's ``slab_occupancy_mask``.
 - ``spike_conv_lif_op`` gives the same spikes under an empty, a
   forced-fused and a swept table.
 - Every firing conv of the four reduced archs, on the fused route, held
@@ -39,13 +48,14 @@ from repro_torch.configs.registry import (ENCODING_CONFIGS, ISP_CONFIGS,
 from repro_torch.core import layers as tl
 from repro_torch.core.npu import init_npu, npu_forward
 from repro_torch.kernels import ops, tune
-from repro_torch.kernels.spike_conv_lif import (GATES, slab_occupancy_mask,
+from repro_torch.kernels import spike_conv_lif as kcl
+from repro_torch.kernels.spike_conv_lif import (GATES, conv_lif_plan,
                                                 spike_conv_lif,
                                                 spike_conv_lif_plain)
 from repro_torch.kernels.tune import TuningTable
 from repro_torch.serve.cognitive_engine import (CognitiveEngine,
                                                 PerceptionRequest)
-from repro_torch.testing import spike_mismatch
+from repro_torch.testing import slab_occupancy_mask, spike_mismatch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
@@ -99,35 +109,155 @@ def _per_op_plain(T, Bn, stride, xf, w, scale, bias, gate):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_fused_plain_equals_per_op_plain(case, gate):
     T, Bn, stride, xf, w, scale, bias = _case(case)
-    patches, (Ho, Wo) = tl.spike_im2col(xf, 3, 3, stride)
-    wmat = w.reshape(-1, w.shape[-1]).contiguous()
-    got = spike_conv_lif(patches, wmat, scale, bias, T=T, B=Bn, HW=Ho * Wo,
+    got = spike_conv_lif(xf, w, scale, bias, T=T, B=Bn, stride=stride,
                          gate=gate, **LIF)
     want = _per_op_plain(T, Bn, stride, xf, w, scale, bias, gate)
     assert torch.equal(got.reshape(want.shape), want)
     assert torch.equal(got, spike_conv_lif_plain(
-        patches, wmat, scale, bias, T=T, B=Bn, HW=Ho * Wo, **LIF))
+        xf, w, scale, bias, T=T, B=Bn, stride=stride, **LIF))
     if case == "on_threshold":
         assert torch.equal(got[0], torch.ones_like(got[0]))
     if case == "all_silent":
+        patches, (Ho, Wo) = tl.spike_im2col(xf, 3, 3, stride)
         occ = slab_occupancy_mask(patches.reshape(Bn, T * Ho * Wo, -1))
         assert int(occ.sum()) == 0
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     T, Bn, stride, xf, w, scale, bias = _case("stride1")
-    patches, (Ho, Wo) = tl.spike_im2col(xf, 3, 3, stride)
-    wmat = w.reshape(-1, w.shape[-1]).contiguous()
-    kw = dict(T=T, B=Bn, HW=Ho * Wo)
-    with pytest.raises(ValueError, match="slice"):
-        spike_conv_lif(patches, wmat, scale, bias, bn=128, **kw)
+    kw = dict(T=T, B=Bn, stride=stride)
+    with pytest.raises(ValueError, match="stride"):
+        spike_conv_lif(xf, w, scale, bias, T=T, B=Bn, stride=0)
+    with pytest.raises(ValueError, match="cluster"):
+        spike_conv_lif(xf, w, scale, bias, cluster=3, **kw)
     with pytest.raises(ValueError, match="gate"):
-        spike_conv_lif(patches, wmat, scale, bias, gate="tiles", **kw)
-    with pytest.raises(ValueError, match="rows"):
-        spike_conv_lif(patches, wmat, scale, bias, T=T, B=Bn + 1,
-                       HW=Ho * Wo)
+        spike_conv_lif(xf, w, scale, bias, gate="tiles", **kw)
+    with pytest.raises(ValueError, match="folded frames"):
+        spike_conv_lif(xf, w, scale, bias, T=T, B=Bn + 1, stride=stride)
     with pytest.raises(ValueError, match="scale"):
-        spike_conv_lif(patches, wmat, scale[:3], bias, **kw)
+        spike_conv_lif(xf, w, scale[:3], bias, **kw)
+    with pytest.raises(ValueError, match="fits no cluster"):
+        conv_lif_plan(10 ** 5, 1, 64, 8, 36)     # 6.4M slab rows
+
+
+@pytest.mark.parametrize("gate", GATES)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_xf_plain_matches_the_interpret_fused_kernel(case, gate):
+    """The xf entry point (its plain version here) against the
+    reference's interpret-mode ``spike_conv_lif_pallas`` on the same
+    spikes' patches under the same gate: spikes equal except where the
+    membrane over the port's own currents lies within 1e-4 of v_th (the
+    Pallas outputs are never an exact oracle); the currents are the
+    per-op pair's."""
+    T, Bn, stride, xf, w, scale, bias = _case(case)
+    patches, (Ho, Wo) = tl.spike_im2col(xf, 3, 3, stride)
+    wmat = w.reshape(-1, w.shape[-1])
+    pallas = np.asarray(jsc.spike_conv_lif_pallas(
+        jnp.asarray(patches.numpy()), jnp.asarray(wmat.numpy()),
+        jnp.asarray(scale.numpy()), jnp.asarray(bias.numpy()), T=T, B=Bn,
+        HW=Ho * Wo, eps=tl.NORM_EPS, gate=gate, interpret=True, **LIF))
+    got = spike_conv_lif(xf, w, scale, bias, T=T, B=Bn, stride=stride,
+                         gate=gate, **LIF)
+    y = tl.spike_conv(xf, w, stride=stride).reshape(Bn, T, Ho * Wo, -1)
+    z = tl.instance_norm_affine(y.transpose(0, 1).contiguous(), scale, bias)
+    for spikes in (pallas, got):
+        assert spike_mismatch(z, spikes, tol=TOL, **LIF)["far"] == 0
+    assert int((got.numpy() != pallas).any(axis=0).sum()) <= \
+        spike_mismatch(z, got, tol=TOL, **LIF)["near"]
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch plan
+# ---------------------------------------------------------------------------
+
+def test_served_shapes_are_the_conv_lif_dispatches():
+    served = set()
+    for cfg in SNN_ARCHS.values():
+        params = init_npu(torch.Generator().manual_seed(0), cfg,
+                          device="cpu")
+        served |= {(d["T"], d["B"], d["HW"], d["K"], d["N"])
+                   for d in chip_smoke.conv_lif_dims(params, cfg, 8)}
+    assert sorted(served) == sorted(chip_smoke.CONV_LIF_SERVED_SHAPES)
+
+
+def _plan_cases():
+    return list(chip_smoke.CONV_LIF_SERVED_SHAPES) + [
+        (2, chip_smoke.BIG_BATCH, 2, 18, 4), (3, 2, 126, 54, 10),
+        (2, 3, 63, 180, 12), (1, 1, 1, 9, 1), (5, 1, 33, 27, 66)]
+
+
+@pytest.mark.parametrize("shape", _plan_cases())
+def test_plan_computes_sums_and_fires_each_once(shape):
+    """The plan at (T, B, HW, K, N), decoded as the kernel decodes it:
+    every conv row of every (batch element, channel tile) computed once,
+    by the block that owns its class, in whole row tiles; every (b, c,
+    class) summed by one thread over its rows in increasing order; every
+    neuron fired once; shared memory, cluster and grid within the card's
+    limits."""
+    T, B, HW, K, N = shape
+    p = conv_lif_plan(T, B, HW, N, K)
+    R = T * HW
+    assert p.cluster in kcl.CLUSTERS and p.cluster <= 16
+    assert p.smem_bytes <= kcl.MAX_SMEM == 232448
+    assert p.blocks < 2 ** 31 and p.grid == (p.blocks, 1, 1)
+    assert p.blocks == B * p.tiles * p.cluster
+    assert 1 <= p.ct <= kcl.TILE_N and (p.vec == 1 or p.ct % 4 == 0)
+    assert p.bm in kcl.ROW_TILES and p.stages in kcl.STAGES
+    tiles = p.row_tiles()
+    assert [q for t in tiles for q in t] == list(range(p.rows))
+    assert all(len(t) <= p.bm for t in tiles)
+    # rows, chains and neurons of one (b, tile): the same for every one
+    computed = np.zeros(R, np.int64)
+    fired = np.zeros(HW, np.int64)
+    summed = {}
+    for rank in range(p.cluster):
+        classes = range(rank * p.classes, (rank + 1) * p.classes)
+        for q in range(p.rows):
+            i = p.slab_row(rank, q)
+            if i < R:
+                assert i % 32 in classes and p.owner(i) == (rank, q)
+                computed[i] += 1
+        for thread, cls, ch, qs in p.chains(rank):
+            assert 0 <= thread < kcl.THREADS and cls in classes
+            rows = [p.slab_row(rank, q) for q in qs]
+            assert rows == list(range(cls, R, 32))
+            summed[cls, ch] = summed.get((cls, ch), 0) + 1
+        hws = p.neurons(rank)
+        assert all(hw % 32 in classes for hw in hws)
+        fired[hws] += 1
+    assert (computed == 1).all() and (fired == 1).all()
+    assert summed == {(cls, ch): 1 for cls in range(32)
+                      for ch in range(p.ct)}
+    # every (batch element, tile, class share) once on gridDim.x
+    ks = range(p.blocks) if p.blocks <= 4096 else \
+        list(range(2048)) + list(range(p.blocks - 2048, p.blocks))
+    seen = set()
+    for k in ks:
+        b, chans, classes = p.block(k)
+        assert 0 <= b < B and chans.start % p.ct == 0 and len(chans) >= 1
+        seen.add((b, chans.start, classes.start))
+    assert len(seen) == len(ks)
+    assert p.block(p.blocks - 1)[0] == B - 1
+    if HW == 4096:
+        assert p.ct > 2                  # DenseNet's 64x64: wide tiles
+
+
+def test_plan_pins_and_refusals():
+    p = conv_lif_plan(5, 8, 4096, 24, 216)        # DenseNet 64x64
+    assert (p.ct, p.cluster) == (24, 16)
+    assert conv_lif_plan(5, 8, 4096, 24, 216, cluster=p.cluster) == p
+    with pytest.raises(ValueError, match="fits no cluster"):
+        conv_lif_plan(5, 8, 4096, 24, 216, cluster=8)
+    with pytest.raises(ValueError, match="cluster 3"):
+        conv_lif_plan(5, 8, 1024, 32, 288, cluster=3)
+    # the channel tile: N split evenly into tiles of at most 32, a
+    # multiple of 4 where N is
+    assert [kcl.channel_tile(n) for n in (24, 30, 36, 66, 256)] == \
+        [24, 30, 20, 22, 32]
+    with pytest.raises(ValueError, match="int range"):
+        conv_lif_plan(2, 2 ** 31 - 1, 1, 64, 9)     # two tiles a batch
+    with pytest.raises(ValueError, match="empty"):
+        conv_lif_plan(5, 0, 16, 8, 9)
 
 
 @pytest.mark.parametrize("shape,density", [((2, 126, 36), 0.2),
@@ -242,8 +372,8 @@ def test_interpret_fused_kernel_within_the_rule():
         {"w": jnp.asarray(w.numpy()), "scale": jnp.asarray(scale.numpy()),
          "bias": jnp.asarray(bias.numpy())}, x.numpy(),
         jax_reduced_snn("spiking_yolo"), fire=False)).reshape(pallas.shape)
-    got = spike_conv_lif(patches, wmat.contiguous(), scale, bias, T=T, B=Bn,
-                         HW=Ho * Wo, **LIF).numpy()
+    got = spike_conv_lif(xf, w, scale, bias, T=T, B=Bn, stride=stride,
+                         **LIF).numpy()
     for spikes in (pallas, got):
         assert spike_mismatch(z, spikes, tol=TOL)["far"] == 0
     np.testing.assert_allclose(got.mean(), pallas.mean(), atol=0.02)

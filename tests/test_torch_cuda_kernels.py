@@ -21,19 +21,22 @@ small path (the control head's) sums the tiled path's canonical chain
 (equal to it).  The spike conv kernel reads the folded spikes (implicit im2col)
 and gives the gated GEMM's bits on the materialised patches under every
 gate (equal to spike_matmul on spike_im2col's patches).  The fused
-conv->LIF kernel sums its conv as spike_conv and its
-statistics as norm_affine_lif do, so its spikes are held to the per-op
-kernel pair and to its plain version by the near-threshold rule (1e-4),
-under every gate and channel-slice width.  The backbone segment kernel
-sums its convs and statistics as the per-layer kernels do, so its spikes
+conv->LIF kernel reads the folded spikes too, sums its conv as
+spike_conv and its statistics as norm_affine_lif do, so its spikes equal
+the per-op kernel pair's (equal, every gate, every served shape of the
+four backbones, also with silent frames, and under other cluster sizes)
+and are held to its plain version by the near-threshold rule (1e-4).
+The backbone segment kernel sums its convs and statistics as the
+per-layer kernels do, so its spikes
 equal the per-layer kernel route's (equal, both gates, every cluster
 size), and each of its layers is held to the plain layer on the route's
 own input by the near-threshold rule (1e-4).  The norm kernel keeps the
 statistics contract of csrc/lif_common.cuh, so its spikes equal the
 contract's CPU replay (testing.norm_affine_lif_contract) under every
-launch plan.  The five kernels that once held the batch on gridDim.y or
-.z run at batch 65537 (chip_smoke.batch_cap_run), equal on the checked
-batch elements to a run on those elements alone.
+launch plan.  The kernels that once held the batch on gridDim.y or .z
+(flash_attention's "mma_sync" and "f32" designs among them) run at batch
+65537 (chip_smoke.batch_cap_run), equal on the checked batch elements to
+a run on those elements alone.
 """
 import dataclasses
 import sys
@@ -66,7 +69,7 @@ from repro_torch.kernels.max_pool import max_pool
 from repro_torch.kernels.nlm import nlm
 from repro_torch.kernels.spike_conv import GATES as CONV_GATES
 from repro_torch.kernels.spike_conv import conv_tiles, spike_conv
-from repro_torch.kernels.spike_conv_lif import (GATES, slice_widths,
+from repro_torch.kernels.spike_conv_lif import (GATES, conv_lif_plan,
                                                 spike_conv_lif)
 from repro_torch.kernels import spike_dwconv as dw_mod
 from repro_torch.kernels import spike_matmul as mm_mod
@@ -301,37 +304,72 @@ CONV_LIF_CASES = {
 }
 
 
-@pytest.mark.parametrize("gate", GATES)
-@pytest.mark.parametrize("case", sorted(CONV_LIF_CASES))
-def test_spike_conv_lif_matches_per_op_pair_and_plain(dev, case, gate):
-    T, B, h, w_, cin, cout, stride, dens, silent = CONV_LIF_CASES[case]
-    rng = np.random.default_rng(len(case) + cout)
-    xf = _spikes(rng, (B * T, h, w_, cin), dens, silent).to(dev)
-    w = torch.tensor(rng.normal(0, 1, (3, 3, cin, cout)).astype(np.float32),
+def _conv_lif_pair(xf, w, scale, bias, T, B, stride, gate="mask"):
+    """The per-op kernel pair on the same spikes: (spikes [T, B, HW, N],
+    the pair's normalised currents)."""
+    y = spike_conv(xf, w, stride=stride, gate=gate)
+    y4 = y.reshape(B, T, -1, w.shape[3]).transpose(0, 1).contiguous()
+    return norm_affine_lif(y4, scale, bias), instance_norm_affine(
+        y4, scale, bias)
+
+
+def _conv_lif_params(rng, cin, cout, k, dev):
+    w = torch.tensor(rng.normal(0, 1, (k, k, cin, cout)).astype(np.float32),
                      device=dev)
     scale = torch.tensor(rng.normal(1, 0.2, cout).astype(np.float32),
                          device=dev)
     bias = torch.tensor(rng.normal(0, 0.2, cout).astype(np.float32),
                         device=dev)
-    patches, (Ho, Wo) = spike_im2col(xf, 3, 3, stride)
-    wmat = w.reshape(-1, cout).contiguous()
-    HW = Ho * Wo
-    # the per-op kernel pair on the same spikes, and its currents
-    y = spike_conv(xf, w, stride=stride)
-    y4 = y.reshape(B, T, HW, cout).transpose(0, 1).contiguous()
-    pair = norm_affine_lif(y4, scale, bias)
-    z = instance_norm_affine(y4, scale, bias)
-    for bn in slice_widths(T * HW, cout)[:2]:
-        got = spike_conv_lif(patches, wmat, scale, bias, T=T, B=B, HW=HW,
-                             gate=gate, bn=bn)
-        res = spike_mismatch(z, got, tol=1e-4)
-        assert res["far"] == 0, (bn, res)
-        assert spike_mismatch(z, pair, tol=1e-4)["far"] == 0
-        plain = spike_conv_lif(patches.cpu(), wmat.cpu(), scale.cpu(),
-                               bias.cpu(), T=T, B=B, HW=HW, bn=bn)
-        zp = instance_norm_affine(y4.cpu(), scale.cpu(), bias.cpu())
-        assert spike_mismatch(zp, plain, tol=1e-4)["far"] == 0
-        assert spike_mismatch(zp, got, tol=1e-4)["far"] == 0
+    return w, scale, bias
+
+
+@pytest.mark.parametrize("gate", GATES)
+@pytest.mark.parametrize("case", sorted(CONV_LIF_CASES))
+def test_spike_conv_lif_matches_per_op_pair_and_plain(dev, case, gate):
+    """Equal to the per-op kernel pair at the plan's cluster size and at
+    the others that hold the slab; the plain version by the rule."""
+    T, B, h, w_, cin, cout, stride, dens, silent = CONV_LIF_CASES[case]
+    rng = np.random.default_rng(len(case) + cout)
+    xf = _spikes(rng, (B * T, h, w_, cin), dens, silent).to(dev)
+    w, scale, bias = _conv_lif_params(rng, cin, cout, 3, dev)
+    pair, z = _conv_lif_pair(xf, w, scale, bias, T, B, stride)
+    HW = pair.shape[2]
+    for cluster in (1, 2, 4, 8, 16):
+        try:
+            conv_lif_plan(T, B, HW, cout, 9 * cin, cluster=cluster)
+        except ValueError:
+            continue
+        got = spike_conv_lif(xf, w, scale, bias, T=T, B=B, stride=stride,
+                             gate=gate, cluster=cluster)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pair), (cluster, int((got != pair).sum()))
+    plain = spike_conv_lif(xf.cpu(), w.cpu(), scale.cpu(), bias.cpu(), T=T,
+                           B=B, stride=stride)
+    assert spike_mismatch(z.cpu(), plain, tol=1e-4)["far"] == 0
+    assert spike_mismatch(z.cpu(), got, tol=1e-4)["far"] == 0
+
+
+@pytest.mark.parametrize("shape", chip_smoke.CONV_LIF_SERVED_SHAPES)
+def test_spike_conv_lif_served_shapes_equal_per_op_pair(dev, shape):
+    """Every served (T, B, HW, K, N) of the four backbones (a 3x3 conv
+    where 9 divides K, else 1x1; stride 1 on a square frame), under each
+    gate, on 15% spikes and again with the first half of the batch
+    silent (the "mask" and "inline" gates skip tiles): torch.equal to the
+    per-op kernel pair."""
+    T, B, HW, K, N = shape
+    k = 3 if K % 9 == 0 else 1
+    side = int(round(HW ** 0.5))
+    rng = np.random.default_rng(HW + K + N)
+    xf = _spikes(rng, (B * T, side, side, K // (k * k)), 0.15).to(dev)
+    w, scale, bias = _conv_lif_params(rng, K // (k * k), N, k, dev)
+    silent = xf.clone()
+    silent[: B * T // 2] = 0.0
+    for x in (xf, silent):
+        pair, _ = _conv_lif_pair(x, w, scale, bias, T, B, 1)
+        for gate in GATES:
+            got = spike_conv_lif(x, w, scale, bias, T=T, B=B, gate=gate)
+            torch.cuda.synchronize()
+            assert torch.equal(got, pair), (gate, int((got != pair).sum()))
 
 
 # (N, H, W, C, stride, density, silent frames)
@@ -700,11 +738,11 @@ def test_launch_counters(dev):
     max_pool(xf, gated=True)
     max_pool(xf, gated=False)
     max_pool(xf.cpu())                                      # plain
-    p = torch.ones(2 * 3 * 4, 9, device=dev)
     one = torch.ones(4, device=dev)
-    spike_conv_lif(p, torch.ones(9, 4, device=dev), one, one, T=3, B=2, HW=4)
-    spike_conv_lif(p.cpu(), torch.ones(9, 4), one.cpu(), one.cpu(), T=3,
-                   B=2, HW=4)                               # plain
+    w4 = torch.ones(3, 3, 4, 4, device=dev)
+    spike_conv_lif(xf, w4, one, one, T=1, B=2)
+    spike_conv_lif(xf.cpu(), w4.cpu(), one.cpu(), one.cpu(), T=1,
+                   B=2)                                     # plain
     seg = (LayerSpec("", cin=4, cout=4, pool=2),)
     flat = (torch.ones(128, 4, device=dev), one, one)
     x5 = xf.reshape(2, 1, 8, 8, 4)

@@ -23,7 +23,7 @@ from repro_torch.configs.registry import (TUNE_CONFIGS, get_tune_config,
 from repro_torch.core.encoding import EventStream
 from repro_torch.core.npu import init_npu, npu_forward
 from repro_torch.kernels import ops, tune
-from repro_torch.kernels.spike_conv_lif import slice_widths, smem_bytes
+from repro_torch.kernels.spike_conv_lif import conv_lif_plan
 from repro_torch.kernels.tune import LaunchConfig, TuningTable, shape_key
 from repro_torch.launch.roofline import kernel_launch_estimate
 from repro_torch.serve.engine_core import EngineCore
@@ -101,8 +101,10 @@ def test_table_roundtrip_and_invalidation(tmp_path):
     t.save(p)
     loaded = TuningTable.load(p)
     assert loaded.entries == t.entries
+    # recorded without a cluster size: it resolves to the plan's
     assert loaded.config_for("conv_lif|B2,HW64,K36,N8,T3") == LaunchConfig(
-        bn=8, gate="inline", fused=True)
+        bn=8, bm=conv_lif_plan(3, 2, 64, 8, 36).cluster, gate="inline",
+        fused=True)
     assert loaded.config_for("conv_lif|B1") is None
     for field, val in (("schema", 999), ("kernels_version", 999),
                        ("kernels_version", jtune.KERNELS_VERSION)):
@@ -192,6 +194,29 @@ def test_table_swap_changes_dispatch_no_stale_cache(monkeypatch):
     assert calls == ["inline"]          # back on the per-op route
 
 
+def test_fused_entries_resolve_to_a_cluster_that_holds_the_slab():
+    """A fused conv_lif entry resolves to a cluster size its slab fits:
+    its own where that holds the slab, else the plan's (an entry made
+    without one holds DEFAULT_BM, which is no cluster size)."""
+    dense = shape_key("conv_lif", T=5, B=8, HW=4096, K=648, N=24)
+    yolo = shape_key("conv_lif", T=5, B=8, HW=1024, K=288, N=32)
+    huge = shape_key("conv_lif", T=5, B=1, HW=200000, K=9, N=8)
+    t = TuningTable()
+    for key, cfg, bm in (
+            (dense, LaunchConfig(fused=True), 16),
+            (dense, LaunchConfig(bm=8, gate="none", fused=True), 16),
+            (yolo, LaunchConfig(bm=8, fused=True), 8),
+            (yolo, LaunchConfig(fused=True),
+             conv_lif_plan(5, 8, 1024, 32, 288).cluster),
+            (yolo, LaunchConfig(gate="inline"), 128),       # the pair
+            (huge, LaunchConfig(fused=True), 128),           # no cluster
+            ("backbone_seg|B8,L0k3s1c64n64d0p0",
+             LaunchConfig(bm=8, fused=True), 8)):
+        t.record(key, cfg, 1.0, 2.0)
+        assert t.config_for(key) == dataclasses.replace(cfg, bm=bm), key
+        assert t.entries[key]["bm"] == cfg.bm       # stored as recorded
+
+
 def test_tuning_context_sweeps_once_then_caches(monkeypatch):
     xf, w, sc, bi = _layer(1)
     want = ops.spike_conv_lif_op(xf, w, sc, bi, T=3, B=2, **LIF)
@@ -233,22 +258,31 @@ def test_pinned_none_is_a_noop_and_empty_pins_per_op(monkeypatch):
 
 
 def test_candidates_launch_where_they_fit():
-    """Fused candidates only at slice widths whose slab fits a block,
-    every gate of both routes, the default always among them."""
+    """Fused candidates only at plans whose slab fits a cluster (the
+    plan's channel tile, its cluster size and the others that hold the
+    slab), every gate of both routes, the default always among them."""
     big = dict(T=5, B=8, HW=4096, K=648, N=24)      # DenseNet 64x64
-    widths = slice_widths(5 * 4096, 24)
-    assert widths == (2, 1)
-    assert smem_bytes(5 * 4096, 4) > 232448 >= smem_bytes(5 * 4096, 2)
+    p = conv_lif_plan(5, 8, 4096, 24, 648)
+    assert (p.ct, p.cluster) == (24, 16)            # no 1- or 2-channel
+    assert p.smem_bytes <= 232448                   # slices any more
+    with pytest.raises(ValueError, match="fits no cluster"):
+        conv_lif_plan(5, 8, 4096, 24, 648, cluster=8)
     cands = tune.candidates("conv_lif", big, TUNE_CONFIGS["default"])
     fused = [c for c in cands if c.fused]
-    assert {c.bn for c in fused} == set(widths)
+    assert {c.bm for c in fused} == {16}
     assert {c.gate for c in fused} == {c.gate for c in cands
                                        if not c.fused} \
         == {"mask", "inline", "none"}
     assert tune.default_config("conv_lif") in cands
-    assert slice_widths(5 * 1024, 32) == (8, 4, 2, 1)
-    assert slice_widths(80, 256)[0] == 64
-    assert slice_widths(10 ** 6, 8) == ()
+    # YOLO's 32x32 layer: 16-block clusters, and the 8-block ones beside
+    # them
+    yolo = dict(T=5, B=8, HW=1024, K=288, N=32)
+    assert {c.bm for c in tune.candidates(
+        "conv_lif", yolo, TUNE_CONFIGS["default"]) if c.fused} == {16, 8}
+    # the smallest head layer: three cluster sizes hold its slab
+    head = dict(T=5, B=8, HW=16, K=2304, N=256)
+    assert len({c.bm for c in tune.candidates(
+        "conv_lif", head, TUNE_CONFIGS["default"]) if c.fused}) == 3
     huge = dict(T=5, B=1, HW=200000, K=9, N=8)
     assert not any(c.fused for c in tune.candidates(
         "conv_lif", huge, TUNE_CONFIGS["default"]))
@@ -259,36 +293,56 @@ def test_candidates_launch_where_they_fit():
 
 
 def test_estimate_ranks_slices_and_sparsity():
+    """A fused plan that leaves SMs idle (fewer, fuller clusters) ranks
+    after the plan's own; a sparse input ranks the gated routes first."""
     dims = dict(T=5, B=8, HW=1024, K=288, N=32)
-    wide = tune.estimate("conv_lif", dims, LaunchConfig(bn=8, fused=True))
-    narrow = tune.estimate("conv_lif", dims, LaunchConfig(bn=1, fused=True))
-    assert wide < narrow                 # fewer slab re-reads
-    # where the patch bytes outweigh the mask pass's launches, a sparse
-    # input ranks the gated route first
+    p = conv_lif_plan(5, 8, 1024, 32, 288)
+    wide = tune.estimate("conv_lif", dims,
+                         LaunchConfig(bm=p.cluster, fused=True))
+    narrow = tune.estimate("conv_lif", dims,
+                           LaunchConfig(bm=p.cluster // 4, fused=True))
+    assert wide < narrow                 # 128 blocks against 32
+    # where the conv's operations outweigh the launches, a sparse input
+    # ranks the gated route first, on either route
     big = dict(T=5, B=8, HW=4096, K=648, N=24)
     sparse = tune.estimate("conv_lif", big, LaunchConfig(), live=0.05)
     dense = tune.estimate("conv_lif", big, LaunchConfig(gate="none"),
                           live=0.05)
     assert sparse < dense
+    fused = dict(bm=16, fused=True)
+    assert tune.estimate("conv_lif", big, LaunchConfig(**fused),
+                         live=0.05) < \
+        tune.estimate("conv_lif", big, LaunchConfig(gate="none", **fused),
+                      live=0.05)
     a = kernel_launch_estimate(1e9, 1e6, 1)
     assert kernel_launch_estimate(1e9, 1e6, 100) > a
     assert kernel_launch_estimate(2e9, 1e6, 1) > a
 
 
 def test_pair_estimate_reads_the_activation_not_the_patches():
-    """The per-op pair's conv reads xf (implicit im2col): at a fixed
-    input width C its bytes no longer grow with kh*kw, while the fused
-    kernel, which still reads the patch matrix, does.  DenseNet's first
-    dense layer (C = N = 24) as a 1x1 and as a 3x3 conv; bytes-bound."""
+    """Both routes read xf (implicit im2col): at a fixed input width C
+    their bytes do not grow with kh*kw, so where the launches and the
+    bytes outweigh the operations their estimates do not either.
+    DenseNet's first dense layer (C = N = 24) and VGG's stem (C = 2) as
+    a 1x1 and as a 3x3 conv."""
     one = dict(T=5, B=8, HW=4096, K=24, N=24)
     three = dict(one, K=9 * 24)
     pair1 = tune.estimate("conv_lif", one, LaunchConfig(), taps=1)
     pair3 = tune.estimate("conv_lif", three, LaunchConfig(), taps=9)
     assert pair3 == pytest.approx(pair1, rel=1e-3)
-    fused = LaunchConfig(bn=8, fused=True)
-    assert tune.estimate("conv_lif", three, fused, taps=9) > \
-        1.5 * tune.estimate("conv_lif", one, fused, taps=1)
-    # no occupancy launches on the pair: every gate costs three launches
+    stem1 = dict(T=5, B=8, HW=4096, K=2, N=32)
+    stem3 = dict(stem1, K=18)
+    fused = LaunchConfig(bm=16, fused=True)
+    assert tune.estimate("conv_lif", stem3, fused, taps=9) == \
+        pytest.approx(tune.estimate("conv_lif", stem1, fused, taps=1),
+                      rel=1e-3)
+    # one launch on the fused route, no occupancy launches under "mask";
+    # no occupancy launches on the pair either: every gate costs three
+    assert tune.estimate("conv_lif", stem3, dataclasses.replace(
+        fused, gate="inline"), taps=9) == pytest.approx(
+        tune.estimate("conv_lif", stem3, fused, taps=9), rel=1e-9)
+    assert tune.estimate("conv_lif", stem3, LaunchConfig(), taps=9) > \
+        tune.estimate("conv_lif", stem3, fused, taps=9)
     assert tune.estimate("conv_lif", three, LaunchConfig(gate="inline"),
                          taps=9) == pytest.approx(pair3, rel=1e-9)
 
