@@ -61,10 +61,14 @@ Phases (any failure raises and exits non-zero):
              and on a copy with an all-silent frame.  Each arch's segment
              plan at the default budget is printed, and every
              fused-route segment (YOLO 2, MobileNet 2, VGG 1, DenseNet 1)
-             runs through backbone_segment on the walk's own input to it,
-             under "inline" and "none" at cluster sizes 16 and 8, and
-             again with half the batch silent: bit-equal to the
-             per-layer kernel route each time, and each layer of the
+             runs through backbone_segment on the walk's own input to it
+             (its plan printed: cluster, blocks an SM, ring, shared
+             memory, each layer's tile), under "inline" and "none" at
+             every cluster size a launch table may choose (the plan's,
+             twice and half it), and again with half the batch silent:
+             bit-equal to the per-layer kernel route each time (and to
+             the PR 17 design, where build/earlier holds its source),
+             and each layer of the
              route held to the plain layer on its own input by the
              near-threshold rule (flips and band printed).  Last, VGG's
              first layer at batch 205 (more 64-row tiles than gridDim.y
@@ -111,7 +115,8 @@ Phases (any failure raises and exits non-zero):
              as its forced-fused tick runs it), spike_dwconv from
              MobileNet's, max_pool from VGG's plus DenseNet's and
              backbone_segment from the four archs' fused-route segments
-             (gate "inline", cluster 8: the forced-segment tick's; its
+             (its plan's default, gate "inline"; the PR 17 design's time
+             beside it where build/earlier holds its source; its
              operations bound from the MACs this input needs);
 5. serve   — first the launch table: per arch one eager npu_forward at
              batch 8 under tune.tuning with the "smoke" sweep policy,
@@ -216,6 +221,17 @@ kernel at its plan and at every other cluster size that holds the slab,
 the per-op pair, the plain version, the earlier design (where
 build/earlier holds its source) and the bound, as one JSON line; it
 prints no result line.
+
+    python3 chip_smoke.py --segment-phase
+
+builds only backbone_segment and the per-layer route's kernels and runs
+every fused-route segment of the four backbones alone, on the input the
+per-layer kernel route gives it from the tick's voxels (batch 8): equal
+to the route under both gates at every cluster size a launch table may
+choose and to the PR 17 design (where build/earlier holds its source);
+the kernel, the PR 17 design, the per-layer route, the plain version,
+the bound and every (cluster, row tile, ring) plan timed; per arch as
+one JSON line; it prints no result line.
 
     python3 chip_smoke.py --flash-phase
 
@@ -657,6 +673,80 @@ def earlier_conv_lif():
     return run
 
 
+def earlier_segment():
+    """backbone_segment's earlier design (one cluster per batch element
+    sharing an L2 scratch: 64x64 register-staged conv tiles dealt round
+    the cluster, the conv output, the statistics' class sums and the
+    spikes in global memory, four fenced barriers a layer), from a copy
+    of its source at build/earlier/backbone_segment.cu (`git show
+    5b9eb78:src/repro_torch/kernels/csrc/backbone_segment.cu`), as a
+    function (x, params, specs, gate, cluster, lif_kw) -> spikes on CUDA
+    tensors; it takes the canonical-padded weight matrices and the
+    scratch it always took.  None where there is no copy."""
+    import ctypes
+    import torch
+    from repro_torch.core.layers import NORM_EPS, _same_pads
+    from repro_torch.core.lif import f32_decay
+    from repro_torch.kernels.backbone_fuse import (conv_out_hw, layer_out_hw,
+                                                   out_channels)
+    fn = _earlier("backbone_segment", [ctypes.c_void_p, ctypes.c_void_p]
+                  + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+                  + [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p,
+                                             ctypes.c_int64, ctypes.c_void_p]
+                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    if fn is None:
+        return None
+
+    def operands(params, specs):
+        flat = []
+        for (w, scale, bias), s in zip(params, specs):
+            wmat = w.reshape(-1, w.shape[-1])
+            if not s.depthwise:
+                pad = -wmat.shape[0] % 128
+                wmat = torch.cat([wmat, wmat.new_zeros((pad, wmat.shape[1]))])
+            flat += [wmat.contiguous(), scale, bias]
+        return flat
+
+    def run(x, params, specs, gate, cluster, lif_kw, flat=None):
+        flat = flat if flat is not None else operands(params, specs)
+        T, B, H, W, _ = x.shape
+        dims, ptrs = [], []
+        act_elems = acc_elems = max_n = 1
+        h, w = H, W
+        for i, s in enumerate(specs):
+            ho, wo = conv_out_hw(s, h, w)
+            n = out_channels(s)
+            dims += [h, w, s.cin, ho, wo, n, s.kernel, s.stride,
+                     _same_pads(h, s.kernel, s.stride)[0],
+                     _same_pads(w, s.kernel, s.stride)[0], int(s.depthwise),
+                     s.pool]
+            ptrs += [t.data_ptr() for t in flat[3 * i:3 * i + 3]]
+            acc_elems = max(acc_elems, T * ho * wo * n)
+            max_n = max(max_n, n)
+            h, w = layer_out_hw(s, h, w)
+            if i + 1 < len(specs):
+                act_elems = max(act_elems, T * h * w * n)
+        out = torch.empty((T, B, h, w, out_channels(specs[-1])),
+                          device=x.device)
+        act = torch.empty((2, B, act_elems), device=x.device)
+        acc = torch.empty((B, acc_elems), device=x.device)
+        red = torch.empty((B, 64 * max_n), dtype=torch.float64,
+                          device=x.device)
+        err = fn((ctypes.c_int * len(dims))(*dims),
+                 (ctypes.c_void_p * len(ptrs))(*ptrs), len(specs), T, B,
+                 {"inline": 1, "none": 2}[gate], f32_decay(lif_kw["tau"]),
+                 lif_kw["v_th"], lif_kw["v_reset"], NORM_EPS, x.data_ptr(),
+                 out.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
+                 act_elems, acc.data_ptr(), acc_elems, red.data_ptr(),
+                 max_n, cluster,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+        check(err == 0, f"the earlier backbone_segment failed to launch: "
+              f"cudaError {err}")
+        return out
+    run.operands = operands
+    return run
+
+
 def _sum_or_none(a, b):
     return None if a is None or b is None else a + b
 
@@ -1055,33 +1145,43 @@ def kernel_phase(params, cfg, vox):
     return st
 
 
-def segment_check(bb, cfg, seg, x, st, lif_kw):
+def segment_check(bb, cfg, seg, x, st, lif_kw, rings=False):
     """One fused-route segment on the layer walk's own input x: the
-    backbone_segment kernel under both gates and each cluster size,
-    bit-equal to the per-layer kernel route, also with half the batch
-    silent; each layer of the route held to the plain layer on the
-    route's own input by the near-threshold rule; then timed beside its
-    plain version and the per-layer route."""
+    backbone_segment kernel under both gates at every cluster size a
+    launch table may choose (``plan_clusters``), bit-equal to the
+    per-layer kernel route, also with half the batch silent, and to the
+    PR 17 design (where build/earlier holds its source); each layer of
+    the route held to the plain layer on the route's own input by the
+    near-threshold rule; then timed beside the PR 17 design, its plain
+    version and the per-layer route.  ``rings``: also time every (row
+    tile cap, ring depth) that fits at each cluster size."""
     import torch
-    from repro_torch.core.layers import _patch_slices, fold, \
-        instance_norm_affine
+    from repro_torch.core.layers import (NORM_EPS, _patch_slices, fold,
+                                         instance_norm_affine)
     from repro_torch.kernels import ops, tune
     from repro_torch.kernels.backbone_fuse import (segment_edge_elems,
                                                    segment_macs)
+    from repro_torch.kernels import backbone_segment as BS
     from repro_torch.kernels.backbone_segment import (
-        DEFAULT_CLUSTER, GATES, backbone_segment, backbone_segment_plain,
-        segment_layer_plain, segment_operands)
-    from repro_torch.kernels.tune import SEGMENT_CLUSTERS
+        GATES, OCCUPANCIES, backbone_segment, backbone_segment_plain,
+        plan_clusters, segment_layer_plain, segment_operands, segment_plan)
     from repro_torch.testing import spike_mismatch
     specs = tuple(s.anon() for s in seg.layers)
     params = tuple((bb[s.name]["w"], bb[s.name]["scale"], bb[s.name]["bias"])
                    for s in seg.layers)
     flat = segment_operands(params, specs)
+    check(all(f.data_ptr() == p[0].data_ptr()
+              for f, p in zip(flat[::3], params)),
+          f"{seg.describe()}: segment_operands copied a weight")
     T, B, H, W, _ = x.shape
+    plan = segment_plan(specs, T, B, H, W)
+    clusters = plan_clusters(specs, T, B, H, W)
     silent = x.clone()
     silent[:, : B // 2] = 0
     check(bool((silent != 0).any()), f"{seg.describe()}: the partly silent "
           f"input has no spike")
+    earlier = earlier_segment()
+    old_flat = earlier.operands(params, specs) if earlier else None
 
     def route(inp):
         with tune.off():
@@ -1091,7 +1191,7 @@ def segment_check(bb, cfg, seg, x, st, lif_kw):
     for label, inp in (("walk", x), ("partly silent", silent)):
         want = route(inp)
         for gate in GATES:
-            for cs in SEGMENT_CLUSTERS:
+            for cs in clusters:
                 got = backbone_segment(inp, flat, specs=specs, gate=gate,
                                        cluster=cs, **lif_kw)
                 torch.cuda.synchronize()
@@ -1100,6 +1200,12 @@ def segment_check(bb, cfg, seg, x, st, lif_kw):
                       f"{cs}): {int((got != want).sum())} spikes differ from "
                       f"the per-layer kernel route")
                 runs += 1
+            if earlier:
+                old = earlier(inp, params, specs, gate, 8, lif_kw, old_flat)
+                torch.cuda.synchronize()
+                check(torch.equal(old, want), f"backbone_segment "
+                      f"{seg.describe()} ({label}, gate {gate}): the PR 17 "
+                      f"design differs from the per-layer kernel route")
     # each layer of the route on its own input against the plain layer;
     # the live MACs of this input (zero activations skipped) for the bound
     cur, near, flips, live_macs = x, [], [], 0
@@ -1120,34 +1226,100 @@ def segment_check(bb, cfg, seg, x, st, lif_kw):
             nz = sum(int((t != 0).sum()) for t in taps)
             live_macs += nz if s.depthwise else nz * s.cout
             cur = ops._seg_unfused(cur, (p,), (s,), lif_kw)
-    kernel = backbone_segment(x, flat, specs=specs, cluster=DEFAULT_CLUSTER,
-                              **lif_kw)
+    kernel = backbone_segment(x, flat, specs=specs, **lif_kw)
     plain = backbone_segment_plain(x, flat, specs=specs, **lif_kw)
     torch.cuda.synchronize()
     err = float((kernel - plain).abs().max())
     differ = int((kernel != plain).sum())
     kw = dict(H=H, W=W, T=T, B=B)
-    ms = time_ms(lambda: backbone_segment(x, flat, specs=specs,
-                                          cluster=DEFAULT_CLUSTER, **lif_kw))
-    ms_c = {f"{g}/{cs}": time_ms(lambda: backbone_segment(
+    ms = time_ms(lambda: backbone_segment(x, flat, specs=specs, **lif_kw))
+    ms_c = {f"{g}/{cs}": time_ms(lambda g=g, cs=cs: backbone_segment(
         x, flat, specs=specs, gate=g, cluster=cs, **lif_kw))
-        for g in GATES for cs in SEGMENT_CLUSTERS}
+        for g in GATES for cs in clusters}
     plain_ms = time_ms(lambda: backbone_segment_plain(x, flat, specs=specs,
                                                       **lif_kw))
     route_ms = time_ms(lambda: route(x))
+    old_ms = time_ms(lambda: earlier(x, params, specs, "inline", 8, lif_kw,
+                                     old_flat)) if earlier else None
+    # the other plans at each cluster: blocks an SM, row tile cap, ring
+    ring_ms, seen = {}, {plan}
+    shapes = BS._segment_shapes(specs, T, H, W)
+    want = route(x)
+    for cs, occ, ring in ((c, o, r) for c in clusters for o in OCCUPANCIES
+                          for r in BS._RINGS) if rings else ():
+        q = BS._fit(specs, shapes, T, B, cs, occ, (ring,))
+        if q is None or q in seen:
+            continue
+        seen.add(q)
+
+        def run(q=q):
+            return BS.segment_launch(x, flat, q, gate="inline",
+                                     eps=NORM_EPS, **lif_kw)
+        check(torch.equal(run(), want), f"backbone_segment "
+              f"{seg.describe()} under {q.describe()}: differs from the "
+              f"per-layer kernel route")
+        ring_ms[f"{cs}/{occ}/{ring[0]}/{ring[1]}"] = time_ms(run)
+    nbytes = 4 * segment_edge_elems(specs, **kw)
+    bound = max(nbytes / HBM_BYTES_PER_S, 2.0 * live_macs / FP32_FLOPS) * 1e3
     st["backbone_segment"].add(
-        (seg.describe(),) + tuple(x.shape), ms, plain_ms,
-        4 * segment_edge_elems(specs, **kw), 2.0 * live_macs, err,
-        per_op_ms=route_ms)
+        (seg.describe(),) + tuple(x.shape), ms, plain_ms, nbytes,
+        2.0 * live_macs, err, per_op_ms=route_ms,
+        extra={"earlier_design_ms": old_ms})
     print(f"  backbone_segment {seg.describe()} in {tuple(x.shape)} -> "
-          f"{tuple(kernel.shape)}: bit-equal to the per-layer kernel route "
-          f"in {runs} input/gate/cluster runs; layer-by-layer vs "
-          f"plain flips {flips}, near-threshold band {near}; whole-chain "
-          f"plain differs at {differ} of {kernel.numel()}; MACs dense "
-          f"{segment_macs(specs, **kw)} live {live_macs}; ms kernel "
-          f"(inline, cluster {DEFAULT_CLUSTER}) {ms:.4f}, by gate/cluster "
-          f"{ms_c}, plain {plain_ms:.4f}, per-layer route "
-          f"{route_ms:.4f}")
+          f"{tuple(kernel.shape)}: plan {plan.describe()}; bit-equal to the "
+          f"per-layer kernel route in {runs} input/gate/cluster runs"
+          f"{' and the PR 17 design too' if earlier else ''}; "
+          f"layer-by-layer vs plain flips {flips}, near-threshold band "
+          f"{near}; whole-chain plain differs at {differ} of "
+          f"{kernel.numel()}; MACs dense {segment_macs(specs, **kw)} live "
+          f"{live_macs}; ms kernel {ms:.5f}, by gate/cluster {ms_c}, PR 17 "
+          f"design " + (f"{old_ms:.5f}" if earlier else "not built")
+          + f", plain {plain_ms:.4f}, per-layer route {route_ms:.5f}, "
+          f"bound {bound:.5f}"
+          + (f"; by cluster/blocks an SM/row tile cap/ring {ring_ms}"
+             if rings else ""))
+
+
+def segment_phase(params_by_arch, vox):
+    """Every fused-route segment of the four backbones alone, on the
+    input the per-layer kernel route gives it from the tick's voxels:
+    ``segment_check`` with every (cluster, row tile, ring) plan timed.
+    Returns per arch the segment kernel's numbers."""
+    import torch
+    from repro_torch.core.backbones import fused_route_segments
+    from repro_torch.kernels import ops, tune
+    from repro_torch.kernels.backbone_fuse import LayerSpec
+    out = {}
+    for arch, (params, cfg) in params_by_arch.items():
+        lif_kw = dict(tau=cfg.tau_mem, v_th=cfg.v_threshold,
+                      v_reset=cfg.v_reset)
+        starts = {seg.layers[0].name: seg
+                  for seg, _, _ in fused_route_segments(cfg, BATCH)}
+        st = {"backbone_segment": KernelStats()}
+        bb = params["backbone"]
+
+        def conv(name, p, x, stride, depthwise):
+            if name in starts:
+                segment_check(bb, cfg, starts.pop(name), x.contiguous(), st,
+                              lif_kw, rings=True)
+            w = p["w"]
+            spec = LayerSpec("", kernel=w.shape[0], stride=stride,
+                             depthwise=depthwise, cin=x.shape[-1],
+                             cout=w.shape[-1])
+            with tune.off():
+                return ops._seg_unfused(x, ((w, p["scale"], p["bias"]),),
+                                        (spec,), lif_kw)
+
+        def pool(name, x, window):
+            T, B = x.shape[:2]
+            return ops.unfold(ops.max_pool_op(ops.fold(x), window=window),
+                              T, B)
+        print(f"  --- {arch}: fused-route segments alone")
+        backbone_walk(cfg, bb, vox, conv, pool,
+                      lambda feats: torch.cat(feats, dim=-1))
+        check(not starts, f"{arch}: segments {list(starts)} never reached")
+        out[arch] = st["backbone_segment"].summary()
+    return out
 
 
 def fire(p, y5, name, st, lif_kw):
@@ -2702,8 +2874,9 @@ def main() -> int:
     flash_only = sys.argv[1:] == ["--flash-phase"]
     norm_only = sys.argv[1:] == ["--norm-phase"]
     conv_lif_only = sys.argv[1:] == ["--conv-lif-phase"]
+    segment_only = sys.argv[1:] == ["--segment-phase"]
     if sys.argv[1:] and not kernel_archs and not flash_only \
-            and not norm_only and not conv_lif_only:
+            and not norm_only and not conv_lif_only and not segment_only:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -2718,7 +2891,10 @@ def main() -> int:
     built = (["flash_attention"] if flash_only else
              ["norm_affine_lif"] if norm_only else
              ["spike_conv_lif", "spike_conv", "norm_affine_lif"]
-             if conv_lif_only else list(build.SOURCES))
+             if conv_lif_only else
+             ["backbone_segment", "spike_conv", "norm_affine_lif",
+              "spike_dwconv", "max_pool"] if segment_only
+             else list(build.SOURCES))
     build.build_all(built)
     print(f"[2/7] build: {time.perf_counter() - t0:.1f} s")
     for name in built:
@@ -2748,6 +2924,10 @@ def main() -> int:
     reqs = make_requests(cfg, np.random.default_rng(0))
     vox = torch.stack([torch.as_tensor(r.voxels)
                        for r in reqs[:BATCH]], dim=1).to(dev)
+    if segment_only:
+        print(json.dumps({"segment_phase": segment_phase(
+            {"spiking_yolo": (params, cfg), **archs}, vox), "card": card}))
+        return 0
     if kernel_archs:
         all_archs = {"spiking_yolo": (params, cfg), **archs}
         for arch in kernel_archs:

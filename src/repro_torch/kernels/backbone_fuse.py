@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import re
 from typing import List, Optional, Tuple
 
 import torch
@@ -67,6 +68,19 @@ class LayerSpec:
 
     def anon(self) -> "LayerSpec":
         return dataclasses.replace(self, name="")
+
+
+_TOKEN = re.compile(r"k(\d+)s(\d+)c(\d+)n(\d+)d([01])p(\d+)")
+
+
+def spec_from_token(token: str) -> LayerSpec:
+    """The anonymous ``LayerSpec`` of a ``dim_token``."""
+    m = _TOKEN.fullmatch(token)
+    if m is None:
+        raise ValueError(f"bad layer token {token!r}")
+    k, s, c, n, d, p = (int(v) for v in m.groups())
+    return LayerSpec("", kernel=k, stride=s, depthwise=bool(d), cin=c,
+                     cout=n, pool=p)
 
 
 def conv_out_hw(spec: LayerSpec, h: int, w: int) -> Tuple[int, int]:

@@ -1,7 +1,8 @@
 // Implicit im2col: the patch matrix of a SAME conv staged straight from
 // the folded spikes into shared memory, shared by the per-op conv
-// (spike_conv.cu) and the fused conv->LIF layer (spike_conv_lif.cu), so
-// both read the same patch elements in the same order.
+// (spike_conv.cu), the fused conv->LIF layer (spike_conv_lif.cu) and the
+// fused backbone segment (backbone_segment.cu), so all read the same
+// patch elements in the same order.
 //
 //   x [Nimg, H, W, C] fp32 NHWC; patch row m = (n, ho, wo), column
 //   k = tap*C + c with tap = dy*kw + dx (spike_im2col's order); a tap
@@ -15,6 +16,13 @@
 // the caller picks V from C and x's alignment), src-size 0 zero-filling
 // padding taps and k >= K.  The "mask" gate's check (mark_live_blocks)
 // reads the same elements in x before any copy.
+//
+// Copies go through L1 (cp.async.ca) unless the caller asks for L2 only
+// (L2 = true): data that another SM wrote during the same launch (the
+// fused segment's spike buffers) must not be read from a stale L1 line.
+// cp.async.cg takes 16-byte chunks only, so 8- and 4-byte chunks are
+// then read by __ldcg and stored to shared memory directly.  The cache
+// operator never enters the arithmetic.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,13 +58,20 @@ __device__ __forceinline__ bool chunk_nonzero(const float* p) {
   return *p != 0.f;
 }
 
-// V floats global -> shared; ok false: V zeros (src-size 0)
-template <int V>
+// V floats global -> shared; ok false: V zeros (src-size 0).  L2: past
+// the SM's L1 (see above)
+template <int V, bool L2 = false>
 __device__ __forceinline__ void cp_async(float* dst, const float* src,
                                          bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = ok ? 4 * V : 0;
-  if (V == 4)
+  if (L2 && V == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n));
+  else if (L2) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) dst[v] = ok ? __ldcg(src + v) : 0.f;
+  } else if (V == 4)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                  "l"(src), "r"(n));
   else if (V == 2)
@@ -134,8 +149,8 @@ __device__ __forceinline__ void mark_live_blocks(const PatchSrc& g,
 
 // A slice s (columns [s*kPatchBK, (s+1)*kPatchBK)) of the tile's ROWS
 // rows into as [ROWS][kPatchLDA]: each of the NT threads copies one fixed
-// chunk column of ROWS / (NT / (kPatchBK / V)) rows
-template <int V, int ROWS, int NT>
+// chunk column of ROWS / (NT / (kPatchBK / V)) rows; L2: past L1
+template <int V, int ROWS, int NT, bool L2 = false>
 __device__ __forceinline__ void load_patch_slice(const PatchSrc& g,
                                                  const long long* rpix,
                                                  const int* rh, const int* rw,
@@ -164,9 +179,68 @@ __device__ __forceinline__ void load_patch_slice(const PatchSrc& g,
                                         static_cast<long long>(h) * g.W + w) *
                         g.C + c)
            : g.x;
-    cp_async<V>(as + r * kPatchLDA + a_kc * V, src, ok);
+    cp_async<V, L2>(as + r * kPatchLDA + a_kc * V, src, ok);
   }
 }
+
+// The copies of one tile's A slices in order, slice 0, 1, 2, ...: each of
+// the NT threads keeps its chunk column's channel and tap and its rows'
+// windows in registers, so a slice costs its copies and a few adds
+// (load_patch_slice re-reads the windows and divides every slice, which
+// lets the "mask" gate's callers jump over dead K blocks).  The same
+// chunks as load_patch_slice<4, ROWS, NT, L2>, 16-byte chunks only.
+template <int ROWS, int NT, bool L2 = false>
+struct PatchCursor {
+  static constexpr int ACH = kPatchBK / 4;      // chunks per row of a slice
+  static constexpr int AROWS = NT / ACH;        // rows per pass
+  static constexpr int APASS = ROWS / AROWS;
+  static_assert(ROWS % AROWS == 0, "the tile's rows: whole passes");
+  const float* base[APASS];   // each row's image, at channel 0
+  int h[APASS], w[APASS];     // each row's window, top left
+  int H, W, C, kw, K;
+  int k, c, dy, dx;           // the next slice's chunk column: k, its tap
+  int dst;                    // the chunk's offset into a stage
+
+  // the tile's row windows (set_patch_row / clear_patch_row) -> slice 0
+  __device__ __forceinline__ PatchCursor(const PatchSrc& g,
+                                         const long long* rpix,
+                                         const int* rh, const int* rw,
+                                         int tid)
+      : H(g.H), W(g.W), C(g.C), kw(g.kw), K(g.K) {
+    const int a_kc = tid % ACH, a_r0 = tid / ACH;
+#pragma unroll
+    for (int p = 0; p < APASS; ++p) {
+      const int r = a_r0 + p * AROWS;
+      base[p] = g.x + static_cast<size_t>(rpix[r]) * g.C;
+      h[p] = rh[r];
+      w[p] = rw[r];
+    }
+    k = a_kc * 4;
+    const int tap = k / C;
+    c = k - tap * C;
+    dy = tap / kw;
+    dx = tap - dy * kw;
+    dst = a_r0 * kPatchLDA + a_kc * 4;
+  }
+
+  // this slice into the stage at as, then on to the next slice
+  __device__ __forceinline__ void load(float* as) {
+    const bool kin = k < K;
+#pragma unroll
+    for (int p = 0; p < APASS; ++p) {
+      const int hh = h[p] + dy, ww = w[p] + dx;
+      const bool ok = kin && hh >= 0 && hh < H && ww >= 0 && ww < W;
+      cp_async<4, L2>(as + dst + p * AROWS * kPatchLDA,
+                      ok ? base[p] + (hh * W + ww) * C + c : base[0], ok);
+    }
+    k += kPatchBK;
+    for (c += kPatchBK; c >= C; c -= C)
+      if (++dx == kw) {
+        dx = 0;
+        ++dy;
+      }
+  }
+};
 
 // "inline": any non-zero among the chunks this thread copied of a slice
 // (after its own copies landed)

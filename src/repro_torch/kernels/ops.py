@@ -19,7 +19,7 @@ only: the backward kernels come with training.
 """
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 
@@ -29,9 +29,9 @@ from repro_torch.kernels.backbone_fuse import (segment_activation_elems,
                                                segment_edge_elems,
                                                segment_macs,
                                                segment_unfused_launches)
-from repro_torch.kernels.backbone_segment import (DEFAULT_CLUSTER,
-                                                  backbone_segment,
-                                                  segment_operands)
+from repro_torch.kernels.backbone_segment import (backbone_segment,
+                                                  segment_operands,
+                                                  segment_plan)
 from repro_torch.kernels.lif_scan import lif_scan, norm_affine_lif
 from repro_torch.kernels.max_pool import max_pool
 from repro_torch.kernels.spike_conv import spike_conv
@@ -201,8 +201,9 @@ def backbone_segment_op(x: torch.Tensor, params, *, specs,
     (same-shaped segments share one table entry) -> spikes after the
     last layer, pooling absorbed.  The launch table decides per shape:
     the ``backbone_segment`` kernel under its gate and cluster size
-    (``LaunchConfig.gate``/``bm``) or the per-layer route (the default);
-    both give the same spikes."""
+    (``LaunchConfig.gate``/``bm``; one device op, the weights read in
+    place) or the per-layer route (the default); both give the same
+    spikes."""
     T, B, H, W, _ = x.shape
     specs = tuple(specs)
     dims = segment_dims(specs, T=T, B=B, H=H, W=W)
@@ -222,17 +223,28 @@ def backbone_segment_op(x: torch.Tensor, params, *, specs,
     return run(tune.dispatch("backbone_seg", dims, runner, live=live))
 
 
-def fused_segment_table(keys: Iterable[str], gate: str = "inline",
-                        cluster: int = DEFAULT_CLUSTER) -> tune.TuningTable:
+def fused_segment_table(keys: Iterable[str], gate: str = "none",
+                        cluster: Optional[int] = None) -> tune.TuningTable:
     """A table that routes every ``backbone_seg`` key of ``keys`` to the
     ``backbone_segment`` kernel under ``gate`` with ``cluster`` blocks
-    per batch element (entries forced, not timed: their µs are NaN).
-    Other keys are left out."""
+    per batch element (default: the key's ``segment_plan``'s; entries
+    forced, not timed: their µs are NaN).  Other keys, and segments the
+    plan refuses at that cluster size, are left out.  The default gate
+    is "none": a segment's row tiles span whole images, so a 32-deep
+    slice of them is almost never all zero, and "inline"'s check cost
+    2-13% on the H100 at the served shapes (chip_smoke.py
+    --segment-phase)."""
     table = tune.TuningTable()
     for key in keys:
-        op, _ = tune.parse_key(key)
-        if op == "backbone_seg":
-            table.record(key, tune.LaunchConfig(bm=cluster, gate=gate,
-                                                fused=True),
-                         float("nan"), float("nan"))
+        op, d = tune.parse_key(key)
+        if op != "backbone_seg":
+            continue
+        try:
+            p = segment_plan(tune.segment_specs(d), d["T"], d["B"], d["H"],
+                             d["W"], cluster=cluster)
+        except ValueError:
+            continue
+        table.record(key, tune.LaunchConfig(bm=p.cluster, gate=gate,
+                                            fused=True),
+                     float("nan"), float("nan"))
     return table

@@ -56,7 +56,8 @@ import torch
 
 from repro_torch.configs.base import TuneConfig
 from repro_torch.configs.registry import get_tune_config
-from repro_torch.kernels.backbone_segment import MAX_LAYERS
+from repro_torch.kernels.backbone_fuse import spec_from_token
+from repro_torch.kernels.backbone_segment import plan_clusters, segment_plan
 from repro_torch.kernels.blocks import DEFAULT_BK, DEFAULT_BM, DEFAULT_BN
 from repro_torch.kernels.spike_conv import conv_tiles
 from repro_torch.kernels.spike_conv_lif import (CLUSTERS, TILE_N,
@@ -66,7 +67,7 @@ from repro_torch.launch.roofline import SMS, kernel_launch_estimate
 TUNE_SCHEMA_VERSION = 1
 # the port's kernels: bump when their numerics, launch semantics or
 # speed change (a table's winners were timed on them)
-KERNELS_VERSION = "h100-4"
+KERNELS_VERSION = "h100-5"
 ENV_VAR = "REPRO_TORCH_TUNE_TABLE"
 DEFAULT_TABLE_PATH = os.path.join(os.path.dirname(__file__),
                                   "tuned_defaults.json")
@@ -78,7 +79,9 @@ class LaunchConfig:
     the fused ``conv_lif`` kernel ``bm`` is its cluster size (its plan
     sets the channel tile; a table entry whose ``bm`` is no cluster that
     holds the slab resolves to the plan's); for the ``backbone_segment``
-    kernel ``bm`` is its blocks per batch element (the cluster size)."""
+    kernel ``bm`` is its blocks per batch element (the cluster size; its
+    ``segment_plan`` sets the rest, and an entry whose ``bm`` the plan
+    refuses resolves to the plan's)."""
     bm: int = DEFAULT_BM
     bn: int = DEFAULT_BN
     bk: int = DEFAULT_BK
@@ -99,24 +102,36 @@ def default_config(op: str) -> LaunchConfig:
 
 
 def _fused_cluster(key: str, cfg: LaunchConfig) -> LaunchConfig:
-    """A fused ``conv_lif`` entry with its ``bm`` made a cluster size
-    that holds the key's slab: the plan's where the entry's is none (an
-    entry recorded without one holds ``DEFAULT_BM``).  Other entries,
-    and shapes no cluster holds, are left as they are."""
+    """A fused ``conv_lif`` or ``backbone_seg`` entry with its ``bm``
+    made a cluster size its kernel's plan accepts at the key's shape:
+    the plan's where the entry's is none (an entry recorded without one
+    holds ``DEFAULT_BM``).  Other entries, and shapes no cluster holds,
+    are left as they are."""
     try:
         op, d = parse_key(key)
-        shape = tuple(int(d[k]) for k in ("T", "B", "HW", "N", "K"))
+        if op == "conv_lif":
+            shape = tuple(int(d[k]) for k in ("T", "B", "HW", "N", "K"))
+            plan = functools.partial(conv_lif_plan, *shape)
+        elif op == "backbone_seg":
+            plan = functools.partial(segment_plan, segment_specs(d), d["T"],
+                                     d["B"], d["H"], d["W"])
+        else:
+            return cfg
     except (KeyError, ValueError):
-        return cfg
-    if op != "conv_lif":
         return cfg
     for cluster in ((cfg.bm,) if cfg.bm in CLUSTERS else ()) + (None,):
         try:
-            return dataclasses.replace(
-                cfg, bm=conv_lif_plan(*shape, cluster=cluster).cluster)
+            return dataclasses.replace(cfg, bm=plan(cluster=cluster).cluster)
         except ValueError:
             continue
     return cfg
+
+
+def segment_specs(dims: Dict) -> Tuple:
+    """The anonymous ``LayerSpec``s of a ``backbone_seg`` key's segment
+    (its ``L<i>`` tokens, in order)."""
+    n = sum(1 for k in dims if re.fullmatch(r"L\d+", k))
+    return tuple(spec_from_token(dims[f"L{i}"]) for i in range(n))
 
 
 def shape_key(op: str, **dims) -> str:
@@ -337,7 +352,6 @@ def _resolve_cached(op: str, key: str, epoch: int) -> LaunchConfig:
 # ---------------------------------------------------------------------------
 
 _CONV_GATES = ("mask", "inline", "none")
-SEGMENT_CLUSTERS = (16, 8)  # backbone_segment cluster sizes swept
 # the fused kernel's cluster sizes tried per gate beside its plan's: twice
 # and half it, where the slab fits
 _FUSED_CLUSTER_SCALES = (2, 0.5)
@@ -367,23 +381,23 @@ def _fused_plans(dims: Dict):
     return out
 
 
-def _segment_layers(dims: Dict) -> int:
-    """Layers of a ``backbone_seg`` key's segment (its ``L<i>`` tokens)."""
-    return sum(1 for k in dims if re.fullmatch(r"L\d+", k))
-
-
 def candidates(op: str, dims: Dict, tune_cfg: TuneConfig) -> List[LaunchConfig]:
     """The launch configs the port's kernels take at (op, shape): never
     one that cannot launch there.  Capped at ``max_candidates``."""
     out: List[LaunchConfig] = []
     if op == "backbone_seg":
         # the kernel under both gates (no "mask": interior patch matrices
-        # never exist outside it) at each cluster size, then the
-        # per-layer route
-        if _segment_layers(dims) <= MAX_LAYERS:
-            for gate in _SEG_GATES:
-                for cs in SEGMENT_CLUSTERS:
-                    out.append(LaunchConfig(bm=cs, gate=gate, fused=True))
+        # never exist outside it) at each cluster size its plan accepts
+        # (the plan's, twice and half it), then the per-layer route
+        try:
+            specs = segment_specs(dims)
+        except ValueError:
+            specs = ()
+        clusters = (plan_clusters(specs, dims["T"], dims["B"], dims["H"],
+                                  dims["W"]) if specs else ())
+        for gate in _SEG_GATES:
+            for cs in clusters:
+                out.append(LaunchConfig(bm=cs, gate=gate, fused=True))
         out.append(LaunchConfig(fused=False))
     elif op == "conv_lif":
         plans = _fused_plans(dims)
@@ -400,13 +414,19 @@ def candidates(op: str, dims: Dict, tune_cfg: TuneConfig) -> List[LaunchConfig]:
 
 def _segment_estimate(dims: Dict, cfg: LaunchConfig, live: float) -> float:
     """A segment: the kernel crosses device memory once, at the segment's
-    edges (``E``), in one launch, on B clusters of ``bm`` blocks; the
-    per-layer route round-trips each layer's conv output (``A``: written,
-    copied, read three times by the epilogue, its spikes written and
-    read) in ``U`` device operations."""
+    edges (``E``), in one launch; its time is its busiest block's conv
+    tiles (``SegmentPlan.block_macs``: pad rows and idle tile columns
+    included) at one SM's share of the peak, once per wave of clusters.
+    The per-layer route round-trips each layer's conv output (``A``:
+    written, copied, read three times by the epilogue, its spikes
+    written and read) in ``U`` device operations."""
     frac = live if cfg.gate != "none" else 1.0
     if cfg.fused:
-        flops = 2.0 * dims["F"] * frac * max(1.0, SMS / (dims["B"] * cfg.bm))
+        p = segment_plan(segment_specs(dims), dims["T"], dims["B"],
+                         dims["H"], dims["W"], cluster=cfg.bm)
+        macs = sum(p.block_macs(l) for l in range(len(p.layers)))
+        waves = math.ceil(p.blocks / SMS)
+        flops = 2.0 * macs * frac * SMS * waves
         return kernel_launch_estimate(flops, 4.0 * dims["E"], 1)
     flops = 2.0 * dims["F"] * live
     return kernel_launch_estimate(flops, 4.0 * (dims["E"] + 7 * dims["A"]),

@@ -18,13 +18,16 @@ estimate counts every device op at this rate).
 
 The segment budget: ``L2_BYTES`` is the H100's L2 cache as
 ``cudaDeviceProp.l2CacheSize`` reports it (50 MiB).  The backbone
-segment kernel (``csrc/backbone_segment.cu``) keeps a segment's
-interior activations in a per-batch-element global scratch, which
-stays on chip only while it sits in L2, and the served batch's 8
-elements are all in flight at once; so one element's working set may
-take an eighth of L2: ``SEGMENT_BUDGET_BYTES`` = 6,553,600 bytes.  The
-planner counts that working set with the reference's formula
-(``residency_estimate``, 4 bytes per f32 element).
+segment kernel (``csrc/backbone_segment.cu``) holds each layer's conv
+output in its cluster's shared memory and hands a layer's spikes to the
+next through a per-batch-element buffer that stays on chip only while
+it sits in L2, and the served batch's 8 elements are all in flight at
+once; so one element's working set may take an eighth of L2:
+``SEGMENT_BUDGET_BYTES`` = 6,553,600 bytes.  The planner counts that
+working set with the reference's formula (``residency_estimate``, 4
+bytes per f32 element), which keeps its plans equal to the reference's;
+whether a segment's slab fits a cluster is the kernel's own plan's
+question (``kernels/backbone_segment.py`` ``segment_plan``).
 """
 from __future__ import annotations
 

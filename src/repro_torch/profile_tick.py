@@ -27,7 +27,9 @@ span (``tick.upload``/``encode``/``npu``/``isp``/``fetch``, set by
 ``EngineCore``), the device busy time (the sum of kernel and copy times)
 and so the device's idle share, the number of device operations, and the
 kernels that take the most device time.  The last line is one JSON
-object with those numbers.  Needs a CUDA device; it never falls back to
+object with those numbers and every device op's count a tick, by name
+(so a forced-segment tick shows one ``backbone_segment`` op per
+segment).  Needs a CUDA device; it never falls back to
 the CPU.
 """
 from __future__ import annotations
@@ -155,10 +157,11 @@ def main(argv=None) -> int:
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / n / 1e3
     # the same device time, as the kernels attributed to host operations
     attributed_ms = sum(k.duration for e in events for k in e.kernels) / n / 1e3
-    by_name = {}
+    by_name, count = {}, {}
     for e in dev:
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / n / 1e3)
+        count[e.name] = count.get(e.name, 0) + 1 / n
     wall_ms = total_s / n * 1e3
     print(f"{args.arch}, backend {args.backend} (encoding "
           f"{args.enc_backend}, ISP {args.isp_backend}), batch "
@@ -184,7 +187,9 @@ def main(argv=None) -> int:
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_attributed_ms_per_tick": attributed_ms,
         "device_ops_per_tick": len(dev) / n, "host_span_ms": spans,
-        "top_device_ms": dict(top[:8])}))
+        "top_device_ms": dict(top[:8]),
+        "device_ops_by_name": {name[:100]: c for name, c in sorted(
+            count.items(), key=lambda kv: -kv[1])}}))
     return 0
 
 

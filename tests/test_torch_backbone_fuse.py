@@ -24,7 +24,8 @@ CPU, where the kernel's wrapper runs its plain version.
   activations take the per-layer route; each reduced backbone equals
   JAX's eager jnp backbone.
 - Tune: ``backbone_seg`` defaults to the per-layer route; its candidates
-  (both gates at every cluster size, and the per-layer route), their
+  (both gates at each cluster size the kernel's plan accepts -- its own,
+  twice and half it -- and the per-layer route), their
   estimates, the anonymous key's round trip through ``parse_key`` and
   save/load; an engine under a forced-segment table calls the wrappers
   as often per tick as ``chip_smoke.npu_launches_per_tick`` says.
@@ -60,7 +61,8 @@ from repro_torch.kernels import backbone_fuse as bf
 from repro_torch.kernels import ops, tune
 from repro_torch.kernels.backbone_segment import (
     CLUSTER_SIZES, GATES, MAX_LAYERS, backbone_segment,
-    backbone_segment_plain, segment_layer_plain, segment_operands)
+    backbone_segment_plain, plan_clusters, segment_layer_plain,
+    segment_operands, segment_plan)
 from repro_torch.kernels.tune import LaunchConfig, TuningTable
 from repro_torch.launch import roofline
 from repro_torch.serve.cognitive_engine import (CognitiveEngine,
@@ -492,14 +494,21 @@ def test_backbone_seg_default_is_per_layer():
 
 
 def test_backbone_seg_candidates():
-    cands = tune.candidates("backbone_seg", _seg_dims(),
-                            TUNE_CONFIGS["default"])
+    dims = _seg_dims()
+    cands = tune.candidates("backbone_seg", dims, TUNE_CONFIGS["default"])
     fused = [c for c in cands if c.fused]
     assert LaunchConfig(fused=False) in cands
     assert {c.gate for c in fused} == set(GATES) == {"inline", "none"}
-    assert {c.bm for c in fused} == set(tune.SEGMENT_CLUSTERS)
-    assert set(tune.SEGMENT_CLUSTERS) <= set(CLUSTER_SIZES)
-    assert len(fused) == len(GATES) * len(tune.SEGMENT_CLUSTERS)
+    # the plan's cluster, and twice and half it where the slab fits
+    specs = tune.segment_specs(dims)
+    clusters = plan_clusters(specs, 5, 8, 16, 16)
+    plan = segment_plan(specs, 5, 8, 16, 16)
+    assert clusters[0] == plan.cluster == 8
+    assert set(clusters) <= {plan.cluster, plan.cluster * 2,
+                             plan.cluster // 2}
+    assert {c.bm for c in fused} == set(clusters)
+    assert set(clusters) <= set(CLUSTER_SIZES)
+    assert len(fused) == len(GATES) * len(clusters)
     # a segment deeper than the kernel takes has the per-layer route only
     deep = dict(_seg_dims(), **{f"L{i}": "k3s1c8n8d0p0"
                                 for i in range(MAX_LAYERS + 1)})

@@ -29,7 +29,7 @@ and are held to its plain version by the near-threshold rule (1e-4).
 The backbone segment kernel sums its convs and statistics as the
 per-layer kernels do, so its spikes
 equal the per-layer kernel route's (equal, both gates, every cluster
-size), and each of its layers is held to the plain layer on the route's
+size its plan accepts), and each of its layers is held to the plain layer on the route's
 own input by the near-threshold rule (1e-4).  The norm kernel keeps the
 statistics contract of csrc/lif_common.cuh, so its spikes equal the
 contract's CPU replay (testing.norm_affine_lif_contract) under every
@@ -58,9 +58,12 @@ from repro_torch.isp.nlm import nlm_denoise
 from repro_torch.isp.stages import control_to_stage_params
 from repro_torch.kernels import build, ops, tune
 from repro_torch.kernels.backbone_fuse import LayerSpec
-from repro_torch.kernels.backbone_segment import (backbone_segment,
+from repro_torch.kernels.backbone_segment import (CLUSTER_SIZES,
+                                                  backbone_segment,
+                                                  plan_clusters,
                                                   segment_layer_plain,
-                                                  segment_operands)
+                                                  segment_operands,
+                                                  segment_plan)
 from repro_torch.kernels.demosaic import demosaic
 from repro_torch.kernels.event_voxel import event_voxel
 from repro_torch.kernels import lif_scan as klif
@@ -675,7 +678,16 @@ def test_backbone_segment_equals_per_layer_route(dev, case, gate):
     x, params, specs = _segment_case(case, dev)
     ins, want = _per_layer_route(x, params, specs)
     flat = segment_operands(params, specs)
-    for cluster in (16, 8, 1):
+    T, B, H, W, _ = x.shape
+    clusters = []
+    for cluster in CLUSTER_SIZES:           # every cluster the plan takes
+        try:
+            segment_plan(specs, T, B, H, W, cluster=cluster)
+        except ValueError:
+            continue
+        clusters.append(cluster)
+    assert set(plan_clusters(specs, T, B, H, W)) <= set(clusters)
+    for cluster in clusters:
         got = backbone_segment(x, flat, specs=specs, gate=gate,
                                cluster=cluster, **LIF)
         torch.cuda.synchronize()
@@ -744,7 +756,7 @@ def test_launch_counters(dev):
     spike_conv_lif(xf.cpu(), w4.cpu(), one.cpu(), one.cpu(), T=1,
                    B=2)                                     # plain
     seg = (LayerSpec("", cin=4, cout=4, pool=2),)
-    flat = (torch.ones(128, 4, device=dev), one, one)
+    flat = (torch.ones(36, 4, device=dev), one, one)
     x5 = xf.reshape(2, 1, 8, 8, 4)
     backbone_segment(x5, flat, specs=seg)
     backbone_segment(x5.cpu(), tuple(t.cpu() for t in flat),
