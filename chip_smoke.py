@@ -45,20 +45,27 @@ Phases (any failure raises and exits non-zero):
              orderings, segment by segment: each segment's kernel
              (isp_stencil_segment, isp_pointwise_segment) against its
              plain version on the same inputs, equal for [exposure+dpc],
-             [demosaic] and [awb*+gamma], within 1e-6 otherwise, and the
-             whole fused output against the per-stage "torch" path within
-             1e-6; again on an [8, 512, 512] batch with control vectors
-             drawn in [0, 1); and the fast_preview ordering fused through
-             control_vector_pipeline_batch, with its launches counted.
+             [demosaic] and [awb*+gamma], within 1e-6 otherwise, each
+             stencil segment bit-equal to the earlier design (where
+             build/earlier/isp_fused.cu holds a copy of its source), and
+             the whole fused output against the per-stage "torch" path
+             within 1e-6; again on ragged [2, 37, 53] frames, on an
+             [8, 512, 512] and a VGA [4, 480, 640] batch with control
+             vectors drawn in [0, 1); and the fast_preview ordering fused
+             through control_vector_pipeline_batch, with its launches
+             counted.
              Then the same layer walk (spike_conv_lif included) for
              full-width spiking MobileNet, VGG and DenseNet (the paper's
              other backbones; same voxels):
              spike_dwconv equal to its plain tap loop on each depthwise
              layer's input and on a partly silent copy (the earlier
              grid-stride design too, where build/earlier holds its
-             source), max_pool equal to
-             its plain version in both gate modes on each pool's input
-             and on a copy with an all-silent frame.  Each arch's segment
+             source), max_pool on each pool's [T, B] spikes as the layer
+             gives them (no fold copy) equal to its plain version on the
+             fold in both gate modes, also with an all-silent frame, and
+             its [N, H, W, C] entry and the earlier design (where
+             build/earlier/max_pool.cu holds a copy of its source) on the
+             fold equal too.  Each arch's segment
              plan at the default budget is printed, and every
              fused-route segment (YOLO 2, MobileNet 2, VGG 1, DenseNet 1)
              runs through backbone_segment on the walk's own input to it
@@ -76,7 +83,8 @@ Phases (any failure raises and exits non-zero):
              bit-equal to each other and allclose to the plain GEMM; and
              the kernels that once held the batch on gridDim.y or .z
              (norm_affine_lif, event_voxel -- also at 65537 time steps --,
-             spike_conv_lif, backbone_segment, isp_stencil_segment, and
+             spike_conv_lif, backbone_segment, isp_stencil_segment,
+             max_pool's [T, B] entry, and
              flash_attention's "mma_sync" and "f32" designs at Sq = 1, one
              head, d = 64, also within the bar of the plain scan) at batch
              65537 on a tiny shape, the last 4 batch elements bit-equal to
@@ -94,7 +102,11 @@ Phases (any failure raises and exits non-zero):
              build/earlier/spike_dwconv.cu holds a copy of its source:
              `git show <commit>:src/repro_torch/kernels/csrc/
              spike_dwconv.cu`; null otherwise),
-             F.max_pool2d for max_pool; none for norm_affine_lif (its
+             F.max_pool2d for max_pool (beside it the fold copy and the
+             parent's path, the fold copy then the earlier kernel, where
+             build/earlier/max_pool.cu holds a copy of its source: `git
+             show 2798f1c:src/repro_torch/kernels/csrc/max_pool.cu`);
+             none for norm_affine_lif (its
              earlier design beside it where build/earlier/
              norm_affine_lif.cu holds a copy of its source); none for
              spike_conv_lif (its plan's tile, cluster, row tile and ring
@@ -109,8 +121,14 @@ Phases (any failure raises and exits non-zero):
              data), per backbone;
              isp_stencil_segment over the fused default plan's four
              segments, isp_pointwise_segment on fast_preview's
-             [awb*+gamma]; plus demosaic, nlm and the fused segments on an
-             [8, 512, 512] batch.  The kernels line takes the NPU rows
+             [awb*+gamma]; every stencil segment of the three orderings
+             on the tick's frames and on a VGA batch, printed as one
+             "isp_segments" line per shape beside the earlier design's
+             time (build/earlier/isp_fused.cu: `git show
+             2798f1c:src/repro_torch/kernels/csrc/isp_fused.cu`, timed
+             with the parent wrapper's torch ops), the plain version's
+             and the bound; plus demosaic, nlm and the fused segments on
+             an [8, 512, 512] batch.  The kernels line takes the NPU rows
              from spiking-YOLO's tick (spike_conv_lif at every firing conv,
              as its forced-fused tick runs it), spike_dwconv from
              MobileNet's, max_pool from VGG's plus DenseNet's and
@@ -233,6 +251,17 @@ the kernel, the PR 17 design, the per-layer route, the plain version,
 the bound and every (cluster, row tile, ring) plan timed; per arch as
 one JSON line; it prints no result line.
 
+    python3 chip_smoke.py --isp-pool-phase
+
+builds only isp_fused and max_pool and runs PERF.md's rows 13 and 8
+alone: every stencil segment of the fused orderings at [8, 64, 64],
+[2, 37, 53] and [4, 480, 640] on random frames and controls, bit-equal
+to and timed beside the earlier design (with the wrapper's device ops
+by name under torch.profiler at the first and last shape), and every
+max_pool of VGG and DenseNet on numpy-seeded spikes in [T, B] order,
+beside the fold copy and the parent's path; one JSON line, no result
+line.
+
     python3 chip_smoke.py --flash-phase
 
 builds only flash_attention and runs it alone at one qwen2-7b prefill
@@ -267,6 +296,10 @@ NEAR_TOL = 1e-4
 E2E_TOL = 1e-4                  # end-to-end raw_pred, control and rgb
 NLM_TOL = 1e-6
 LARGE_HW = 512                  # the extra demosaic/nlm timing line
+VGA = (4, 480, 640)             # a VGA batch: the work, not the launch, sets
+#                                 the stencil segments' time
+RAGGED = (2, 37, 53)            # frames that are no whole number of tiles
+POOL_DENSITY = 0.15             # the seeded spikes of --isp-pool-phase
 SPIN_CYCLES_PER_S = 2e9         # ~ the H100's SM clock, for the spin kernel
 # the grid-cap check: VGG's first layer at this batch has more 64-row
 # tiles (5 * 205 * 64 * 64 rows) than gridDim.y holds (65535)
@@ -280,6 +313,7 @@ BIG_BATCH = 65537
 BATCH_CAP_TAIL = 4
 BATCH_CAP_KERNELS = ("norm_affine_lif", "event_voxel", "event_voxel_steps",
                      "spike_conv_lif", "backbone_segment", "stencil_segment",
+                     "max_pool",
                      "flash_mma_sync", "flash_f32")
 # [T, B, HW, C] of every norm_affine_lif launch of the four backbones'
 # untuned ticks at batch 8 (norm_shapes; tests/test_torch_norm_lif.py
@@ -517,6 +551,84 @@ def backbone_walk(cfg, bb, x, conv, pool, cat):
     return x
 
 
+def pool_shapes(params, cfg, batch):
+    """(name, [T, B, H, W, C], window) of every max_pool of one forward,
+    in order."""
+    shapes = []
+
+    def conv(name, p, x, stride, depthwise):
+        T, B, H, W, _ = x
+        return (T, B, -(-H // stride), -(-W // stride),
+                x[4] if depthwise else p["w"].shape[-1])
+
+    def pool(name, x, window):
+        shapes.append((name, x, window))
+        return x[:2] + (x[2] // window, x[3] // window, x[4])
+
+    backbone_walk(cfg, params["backbone"],
+                  (cfg.time_steps, batch, cfg.height, cfg.width,
+                   cfg.in_channels), conv, pool,
+                  lambda fs: fs[0][:4] + (sum(f[4] for f in fs),))
+    return shapes
+
+
+def pool_check(name, x, window, st):
+    """max_pool on a layer's spikes x [T, B, H, W, C] as the main path
+    gives them (contiguous in [T, B] order), read where they lie: both
+    gate modes bit-equal to the plain version on the batch-major fold,
+    also with an all-silent frame, and the [N, H, W, C] entry on the
+    fold (and the earlier design, where build/earlier holds its source)
+    equal too.  Timed beside the plain
+    version, F.max_pool2d on the fold (library), the fold copy alone and
+    the parent's path: the fold copy, then the earlier kernel.  Returns
+    the batch-major output."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import layers as L
+    from repro_torch.kernels.max_pool import max_pool
+    check(x.is_contiguous(), f"max_pool {name}: the spikes are not "
+          f"contiguous in [T, B] order")
+    earlier = earlier_max_pool()
+    silent = x.clone()
+    silent[0, 0] = 0
+    for label, inp in (("main path", x), ("silent frame", silent)):
+        xf = L.fold(inp).contiguous()
+        want = L.pool_slices(xf, window)
+        for gated in (True, False):
+            got = max_pool(inp, window=window, gated=gated)
+            flat = max_pool(xf, window=window, gated=gated)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) and torch.equal(flat, want),
+                  f"max_pool {name} ({label}, gated={gated}) differs from "
+                  f"its plain version")
+        if earlier:
+            check(torch.equal(earlier(xf, window), want), f"max_pool "
+                  f"{name} ({label}): the earlier design differs")
+    y = max_pool(x, window=window)
+    T, B, H, W, C = x.shape
+    ho, wo = H // window, W // window
+    xf = L.fold(x).contiguous()
+    xn = xf.permute(0, 3, 1, 2)                 # channels-last NCHW
+    ms = time_ms(lambda: max_pool(x, window=window))
+    fold_ms = time_ms(lambda: L.fold(x).contiguous())
+    old_ms = time_ms(lambda: earlier(xf, window)) if earlier else None
+    parent_ms = time_ms(lambda: earlier(L.fold(x).contiguous(), window)) \
+        if earlier else None
+    st.add((T, B, H, W, C), ms,
+           time_ms(lambda: L.pool_slices(L.fold(x), window)),
+           (T * B * ho * wo * window * window * C + y.numel()) * 4,
+           (window * window - 1) * int((y != 0).sum()), 0.0,
+           library_ms=time_ms(lambda: F.max_pool2d(xn, window)),
+           extra={"fold_ms": fold_ms, "earlier_design_ms": old_ms,
+                  "parent_path_ms": parent_ms})
+    print(f"  max_pool {name:11s} [T,B,H,W,C]={(T, B, H, W, C)} window "
+          f"{window}: read in [T, B] order, equal in both gate modes, "
+          f"silent frame included; ms {ms:.5f}, parent's path (fold copy "
+          f"{fold_ms:.5f} + earlier kernel) "
+          + (f"{parent_ms:.5f}" if earlier else "not built"))
+    return y
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
@@ -552,10 +664,11 @@ EARLIER = ROOT / "build" / "earlier"  # earlier designs' sources, to time
 _EARLIER_LIBS = {}
 
 
-def _earlier(name, argtypes):
-    """The launch function of kernel ``name``'s earlier design, built with
-    the kernels' nvcc flags from a copy of its source at
-    build/earlier/<source>; None where there is no copy."""
+def _earlier(name, argtypes, symbol=None):
+    """The launch function (``symbol``, default ``<name>_launch``) of
+    kernel ``name``'s earlier design, built with the kernels' nvcc flags
+    from a copy of its source at build/earlier/<source>; None where there
+    is no copy."""
     import ctypes
     from repro_torch.kernels import build
     src = EARLIER / build.SOURCES[name]
@@ -569,11 +682,83 @@ def _earlier(name, argtypes):
             timeout=300)
         check(done.returncode == 0, f"the earlier {name} does not "
               f"build:\n{done.stdout}{done.stderr}")
-        fn = getattr(ctypes.CDLL(str(lib_path)), f"{name}_launch")
+        _EARLIER_LIBS[name] = ctypes.CDLL(str(lib_path))
+    fn = getattr(_EARLIER_LIBS[name], symbol or f"{name}_launch")
+    if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _EARLIER_LIBS[name] = fn
-    return _EARLIER_LIBS[name]
+    return fn
+
+
+def earlier_max_pool():
+    """max_pool's earlier design (a thread an output, a 64-bit index
+    decode, on the batch-major fold that the parent's path copied first),
+    built from a copy of its source at build/earlier/max_pool.cu (`git
+    show 2798f1c:src/repro_torch/kernels/csrc/max_pool.cu >
+    build/earlier/max_pool.cu`), as a function (xf, window) -> out, gated;
+    None where there is no copy."""
+    import ctypes
+    import torch
+    fn = _earlier("max_pool", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                  + [ctypes.c_void_p])
+    if fn is None:
+        return None
+
+    def run(xf, window):
+        N, H, W, C = xf.shape
+        out = torch.empty((N, H // window, W // window, C),
+                          device=xf.device)
+        err = fn(xf.data_ptr(), out.data_ptr(), N, H, W, C, window, 1,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the earlier max_pool failed to launch: "
+              f"cudaError {err}")
+        return out
+    return run
+
+
+def earlier_stencil():
+    """The stencil segment's earlier design (a 16x16 output tile and one
+    thread a pixel a block, the window op and its side chosen at run
+    time, NLM's 49 weights serial in one thread), built from a copy of
+    its source at build/earlier/isp_fused.cu (`git show
+    2798f1c:src/repro_torch/kernels/csrc/isp_fused.cu >
+    build/earlier/isp_fused.cu`), as a function taking the wrapper's
+    arguments and doing what the parent's wrapper did around the launch
+    (the gamma LUT and the flattened constants built by torch ops on
+    every call); None where there is no copy."""
+    import ctypes
+    import torch
+    from repro_torch.isp.gamma import gamma_lut
+    from repro_torch.kernels import isp_fused as IF
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _earlier("isp_fused", [P] * 6 + [I] * 8 + [P] * 3 + [I] * 5 + [P],
+                  symbol="isp_stencil_launch")
+    if fn is None:
+        return None
+
+    def run(x, pvec, stats, consts=(), *, prologue, wstep, radius, pad,
+            out_tail, **_):
+        (n, ops, poffs, coffs), starts = IF._descriptor(prologue, consts)
+        g = IF.gamma_offset(prologue)
+        lut = gamma_lut(pvec[:, g], device=x.device) if g >= 0 else None
+        B, H, W = x.shape[:3]
+        out = torch.empty((B, H, W) + tuple(out_tail), device=x.device)
+        # the parent's wrapper flattened the constants on every call
+        flat = (torch.cat([c.reshape(-1) for c in consts]) if consts
+                else torch.zeros(1, device=x.device))
+        err = fn(x.data_ptr(), out.data_ptr(), pvec.data_ptr(),
+                 stats.data_ptr(), flat.data_ptr(),
+                 0 if lut is None else lut.data_ptr(), B, H, W,
+                 x.shape[3] if x.dim() == 4 else 1,
+                 out_tail[0] if out_tail else 1, pvec.shape[1],
+                 stats.shape[1], n, ops, poffs, coffs,
+                 IF.DEVICE_OPS.index(wstep.op) + 1, wstep.offset,
+                 starts[wstep.c_offset], radius, int(pad == "zero"),
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the earlier stencil segment failed to launch: "
+              f"cudaError {err}")
+        return out
+    return run
 
 
 def earlier_dwconv():
@@ -882,7 +1067,6 @@ def kernel_phase(params, cfg, vox):
     from repro_torch.core import layers as L
     from repro_torch.core.lif import lif_scan as lif_plain
     from repro_torch.kernels.lif_scan import lif_scan
-    from repro_torch.kernels.max_pool import max_pool
     from repro_torch.kernels.spike_conv import GATES as CONV_GATES
     from repro_torch.kernels.spike_conv import (conv_tiles, occupancy_mask,
                                                 spike_conv)
@@ -1035,32 +1219,9 @@ def kernel_phase(params, cfg, vox):
         return s5
 
     def pool(name, x, window):
-        """max_pool, both gate modes equal to the plain version, also with
-        an all-silent frame; the gated mode is the main path's."""
-        xf = L.fold(x).contiguous()
-        silent = xf.clone()
-        silent[0] = 0
-        for label, inp in (("main path", xf), ("silent frame", silent)):
-            want = L.pool_slices(inp, window)
-            for gated in (True, False):
-                got = max_pool(inp, window=window, gated=gated)
-                torch.cuda.synchronize()
-                check(torch.equal(got, want), f"max_pool {name} ({label}, "
-                      f"gated={gated}) differs from its plain version")
-        y = max_pool(xf, window=window)
-        N, H, W, C = xf.shape
-        ho, wo = H // window, W // window
-        xn = xf.permute(0, 3, 1, 2)                 # channels-last NCHW
-        st["max_pool"].add(
-            (N, H, W, C),
-            time_ms(lambda: max_pool(xf, window=window)),
-            time_ms(lambda: L.pool_slices(xf, window)),
-            (N * ho * wo * window * window * C + y.numel()) * 4,
-            (window * window - 1) * int((y != 0).sum()), 0.0,
-            library_ms=time_ms(lambda: F.max_pool2d(xn, window)))
-        print(f"  max_pool {name:11s} [N,H,W,C]={(N, H, W, C)} window "
-              f"{window}: equal in both gate modes, silent frame included")
-        return L.unfold(y, T, B)
+        """max_pool on the layer's spikes as they lie (pool_check)."""
+        return L.unfold(pool_check(name, x, window, st["max_pool"]),
+                        *x.shape[:2])
 
     feats = backbone_walk(cfg, params["backbone"], vox, conv, pool,
                           lambda fs: torch.cat(fs, dim=-1))
@@ -1311,9 +1472,7 @@ def segment_phase(params_by_arch, vox):
                                         (spec,), lif_kw)
 
         def pool(name, x, window):
-            T, B = x.shape[:2]
-            return ops.unfold(ops.max_pool_op(ops.fold(x), window=window),
-                              T, B)
+            return ops.max_pool_op(x, window=window)
         print(f"  --- {arch}: fused-route segments alone")
         backbone_walk(cfg, bb, vox, conv, pool,
                       lambda feats: torch.cat(feats, dim=-1))
@@ -1500,16 +1659,25 @@ def fused_orderings():
             for n in FUSED_ORDERINGS}
 
 
-def fused_isp_check(x, ctrls, label, st=None):
+def fused_isp_check(x, ctrls, label, st=None, seg_rows=None,
+                    profile=False):
     """Each fused ordering on frames x [B, H, W] with control vectors
     ctrls[name] [B, dim]: every segment's kernel against its plain
-    version on the same inputs, and the whole fused output against the
-    per-stage "torch" path.  With ``st``, the default ordering's
-    stencil segments and fast_preview's pointwise one are timed into
-    it.  Returns the printed max |err| per segment."""
+    version on the same inputs (and a stencil segment's against the
+    earlier design's bits, where build/earlier holds its source), and
+    the whole fused output against the per-stage "torch" path.  With
+    ``st``, the default ordering's stencil segments and fast_preview's
+    pointwise one are timed into it; with ``seg_rows``, every stencil
+    segment of every ordering gets a row: the kernel's ms, the earlier
+    design's, the plain version's, the bound and the stencil plan (with
+    ``profile``, also the wrapper's device ops by name under
+    torch.profiler: the kernel and the gamma LUT's torch ops).  Returns
+    the printed max |err| per segment."""
     import torch
     from repro_torch.isp.fuse import compile_plan, segment_call
     from repro_torch.isp.stages import control_to_stage_params, run_stages
+    from repro_torch.kernels.isp_fused import stencil_plan
+    earlier = earlier_stencil()
     errs = {}
     for name, icfg in fused_orderings().items():
         sp = control_to_stage_params(ctrls[name], icfg.stages)
@@ -1519,6 +1687,8 @@ def fused_isp_check(x, ctrls, label, st=None):
                   f"{ex.segment.describe()} launches no kernel")
             kernel, plain, args, kw = segment_call(ex, y, sp)
             got, want = kernel(*args, **kw), plain(*args, **kw)
+            stencil = ex.segment.stencil is not None
+            old = earlier(*args, **kw) if earlier and stencil else None
             torch.cuda.synchronize()
             seg = ex.segment.describe()
             err = float((got - want).abs().max())
@@ -1527,18 +1697,45 @@ def fused_isp_check(x, ctrls, label, st=None):
                       f"bit-exact (max|err| {err:.3g})")
             check(err <= NLM_TOL, f"{label} {name} {seg}: max|err| "
                   f"{err:.3g} > {NLM_TOL}")
+            check(old is None or torch.equal(got, old), f"{label} {name} "
+                  f"{seg}: the kernel's bits differ from the earlier "
+                  f"design's")
             errs[f"{name} {seg}"] = err
-            timed = ((name == "fused" and ex.segment.stencil is not None)
-                     or (name == "fast_preview"
-                         and ex.segment.stencil is None))
-            if st is not None and timed:
+            timed = ((name == "fused" and stencil)
+                     or (name == "fast_preview" and not stencil))
+            ms = plain_ms = None
+            if (st is not None and timed) or (seg_rows is not None
+                                              and stencil):
+                ms = time_ms(lambda: kernel(*args, **kw))
+                plain_ms = time_ms(lambda: plain(*args, **kw))
                 nbytes, nops = segment_work(ex, y, got)
-                k = ("isp_stencil_segment" if ex.segment.stencil
-                     else "isp_pointwise_segment")
-                st[k].add((seg,) + tuple(y.shape),
-                          time_ms(lambda: kernel(*args, **kw)),
-                          time_ms(lambda: plain(*args, **kw)),
-                          nbytes, nops, err)
+            if st is not None and timed:
+                k = "isp_stencil_segment" if stencil else \
+                    "isp_pointwise_segment"
+                st[k].add((seg,) + tuple(y.shape), ms, plain_ms, nbytes,
+                          nops, err)
+            if seg_rows is not None and stencil:
+                one = KernelStats()
+                one.add(tuple(y.shape), ms, plain_ms, nbytes, nops, err)
+                B, H, W = y.shape[:3]
+                pl = stencil_plan(ex.wstep.op, B, H, W,
+                                  y.shape[3] if y.dim() == 4 else 1)
+                seg_rows[f"{name} {seg}"] = {
+                    "ms": ms,
+                    "earlier_design_ms": time_ms(
+                        lambda: earlier(*args, **kw)) if earlier else None,
+                    "plain_ms": plain_ms, "bound_ms": one.bound_ms,
+                    "bound_by": one.row("isp_stencil_segment",
+                                        1)["bound_by"],
+                    "max_abs_err": err, "tile": [pl.th, pl.tw],
+                    "threads": pl.threads, "blocks": pl.blocks,
+                    "smem": pl.smem}
+                if profile:
+                    _, busy, n_ops, by_name = profile_window(
+                        lambda: kernel(*args, **kw), 20)
+                    seg_rows[f"{name} {seg}"]["profile"] = {
+                        "device_ms": busy, "device_ops": n_ops,
+                        "by_name": {k[:60]: v for k, v in by_name.items()}}
             y = want.contiguous()
         whole = run_stages(x, sp, icfg.stages, backend="cuda_fused")
         ref = run_stages(x, sp, icfg.stages, backend="torch")
@@ -1547,16 +1744,38 @@ def fused_isp_check(x, ctrls, label, st=None):
         check(err <= NLM_TOL, f"{label} {name}: fused vs per-stage max|err| "
               f"{err:.3g} > {NLM_TOL}")
         errs[f"{name} whole vs per-stage"] = err
-    print(f"  fused ISP {label} max|err|: "
+    print(f"  fused ISP {label} max|err|"
+          + (" (bit-equal to the earlier design)" if earlier else "") + ": "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
     return errs
 
 
-def fused_isp_phase(params, cfg, reqs, dev):
+def random_isp_inputs(shape, dev, g):
+    """Frames in [0, 1) of ``shape`` and, per fused ordering, control
+    vectors in [0, 1)."""
+    import torch
+    raw = torch.rand(shape, device=dev, generator=g)
+    return raw, {name: torch.rand((shape[0], icfg.control_dim), device=dev,
+                                  generator=g)
+                 for name, icfg in fused_orderings().items()}
+
+
+def isp_segment_line(x, ctrls, label, card, st=None, profile=False):
+    """fused_isp_check with every stencil segment's row, printed as one
+    line and returned."""
+    rows = {}
+    fused_isp_check(x, ctrls, label, st, seg_rows=rows, profile=profile)
+    print("  isp_segments " + json.dumps({"shape": list(x.shape),
+                                          "card": card, **rows}))
+    return rows
+
+
+def fused_isp_phase(params, cfg, reqs, dev, card):
     """The fused ISP backend on the tick's own frames and control (the
     kernel NPU's on the event windows; an ordering wider than the NPU's
-    head draws the rest in [0, 1)), then fast_preview fused through the
-    pipeline entry point with its launches counted."""
+    head draws the rest in [0, 1)), every stencil segment timed beside
+    the earlier design; parity on ragged frames; then fast_preview fused
+    through the pipeline entry point with its launches counted."""
     import torch
     from repro_torch.core.encoding import voxel_batch
     from repro_torch.core.npu import npu_forward
@@ -1576,7 +1795,9 @@ def fused_isp_phase(params, cfg, reqs, dev):
         ctrls[name] = torch.cat([ctrl, torch.rand(
             (ctrl.shape[0], extra), device=dev, generator=g)],
             dim=1)[:, :icfg.control_dim].contiguous()
-    fused_isp_check(x, ctrls, "tick [8, 64, 64]", st)
+    isp_segment_line(x, ctrls, "tick [8, 64, 64]", card, st)
+    # frames that are no whole number of tiles: parity only
+    fused_isp_check(*random_isp_inputs(RAGGED, dev, g), str(list(RAGGED)))
 
     # the pointwise kernel's main path: fast_preview fused, entry point
     icfg = fused_orderings()["fast_preview"]
@@ -1592,6 +1813,34 @@ def fused_isp_phase(params, cfg, reqs, dev):
     print(f"  fast_preview fused through control_vector_pipeline_batch: "
           f"launches {counts}")
     return st, counts
+
+
+def isp_pool_phase(archs, dev, card):
+    """Rows 8 and 13 alone: every stencil segment of the fused orderings
+    on random frames and controls at [8, 64, 64], RAGGED and VGA, beside
+    the earlier design (isp_segment_line); every max_pool of VGG and
+    DenseNet on numpy-seeded spikes (POOL_DENSITY) in [T, B] order,
+    beside the parent's path (pool_check).  Returns the rows per shape
+    and the pool's sums per arch."""
+    import numpy as np
+    import torch
+    g = torch.Generator(dev).manual_seed(5)
+    out = {"card": card, "isp": {}, "max_pool": {}}
+    for shape in ((BATCH, 64, 64), RAGGED, VGA):
+        out["isp"][str(list(shape))] = isp_segment_line(
+            *random_isp_inputs(shape, dev, g), str(list(shape)), card,
+            profile=shape != RAGGED)
+    rng = np.random.default_rng(0)
+    for arch in ("spiking_vgg", "spiking_densenet"):
+        params, cfg = archs[arch]
+        st = KernelStats()
+        print(f"  --- {arch}: every max_pool on seeded spikes")
+        for name, shape, window in pool_shapes(params, cfg, BATCH):
+            x = torch.tensor((rng.random(shape) < POOL_DENSITY)
+                             .astype(np.float32), device=dev)
+            pool_check(name, x, window, st)
+        out["max_pool"][arch] = st.summary()
+    return out
 
 
 def tick_kernel_phase(params, cfg, reqs, dev):
@@ -2063,6 +2312,7 @@ def batch_cap_run(name, dev):
                                                       segment_operands)
     from repro_torch.kernels.event_voxel import event_voxel
     from repro_torch.kernels.lif_scan import norm_affine_lif
+    from repro_torch.kernels.max_pool import max_pool
     from repro_torch.kernels.spike_conv_lif import spike_conv_lif
     g = torch.Generator(device=dev).manual_seed(0)
     B, n = BIG_BATCH, BATCH_CAP_TAIL
@@ -2108,6 +2358,11 @@ def batch_cap_run(name, dev):
                                   rand(4) + 0.5, rand(4) - 0.5),), specs)
         return (backbone_segment(x, flat, specs=specs)[:, -n:],
                 backbone_segment(x[:, -n:].contiguous(), flat, specs=specs))
+    if name == "max_pool":
+        T = 2
+        x = spikes(T, B, 2, 2, 4)
+        return (max_pool(x)[-n * T:],
+                max_pool(x[:, -n:].contiguous()))
     if name == "stencil_segment":
         stages = ISP_CONFIGS["fused"].stages
         ex = next(e for e in compile_plan(stages)
@@ -2875,8 +3130,10 @@ def main() -> int:
     norm_only = sys.argv[1:] == ["--norm-phase"]
     conv_lif_only = sys.argv[1:] == ["--conv-lif-phase"]
     segment_only = sys.argv[1:] == ["--segment-phase"]
+    isp_pool_only = sys.argv[1:] == ["--isp-pool-phase"]
     if sys.argv[1:] and not kernel_archs and not flash_only \
-            and not norm_only and not conv_lif_only and not segment_only:
+            and not norm_only and not conv_lif_only and not segment_only \
+            and not isp_pool_only:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -2894,6 +3151,7 @@ def main() -> int:
              if conv_lif_only else
              ["backbone_segment", "spike_conv", "norm_affine_lif",
               "spike_dwconv", "max_pool"] if segment_only
+             else ["isp_fused", "max_pool"] if isp_pool_only
              else list(build.SOURCES))
     build.build_all(built)
     print(f"[2/7] build: {time.perf_counter() - t0:.1f} s")
@@ -2913,6 +3171,10 @@ def main() -> int:
         acfg = dataclasses.replace(SNN_ARCHS[arch], backend="cuda")
         archs[arch] = (init_npu(torch.Generator().manual_seed(0), acfg,
                                 device=dev), acfg)
+    if isp_pool_only:
+        print(json.dumps({"isp_pool_phase": isp_pool_phase(archs, dev,
+                                                           card)}))
+        return 0
     if norm_only:
         print(json.dumps({"norm_phase": norm_phase(
             {"spiking_yolo": (params, cfg), **archs}, dev, card)}))
@@ -2950,7 +3212,8 @@ def main() -> int:
               f"segments, want {SEGMENTS_PER_TICK[arch]}")
     st = kernel_phase(params, cfg, vox)
     st.update(tick_kernel_phase(params, cfg, reqs, dev))
-    fused_st, preview_counts = fused_isp_phase(params, cfg, reqs, dev)
+    fused_st, preview_counts = fused_isp_phase(params, cfg, reqs, dev,
+                                               card)
     st.update(fused_st)
     arch_st = {"spiking_yolo": {k: st[k] for k in NPU_KERNELS}}
     for arch, (p, acfg) in archs.items():
@@ -2983,6 +3246,9 @@ def main() -> int:
                       + (f" (per-op pair {s.per_op_ms:.4f})"
                          if s.per_op_ms else ""))
     large_isp_line(dev)
+    # every stencil segment on a VGA batch, beside the earlier design
+    isp_segment_line(*random_isp_inputs(VGA, dev, torch.Generator(
+        dev).manual_seed(5)), str(list(VGA)), card)
 
     print("[5/7] the launch table swept on the card (smoke policy, batch "
           f"{BATCH}); serving: CognitiveEngine, full spiking_yolo and "

@@ -254,14 +254,12 @@ def pool_slices(xf: torch.Tensor, window: int) -> torch.Tensor:
 
 def max_pool(x: torch.Tensor, window: int = 2,
              cfg: Optional[SNNConfig] = None) -> torch.Tensor:
-    """x: [T, B, H, W, C] -> [T, B, H//window, W//window, C] on the
-    batch-major fold; through the gated pooling kernel
-    (``max_pool_op``) under a ``"cuda"`` cfg."""
-    T, B = x.shape[:2]
-    xf = fold(x)
+    """x: [T, B, H, W, C] -> [T, B, H//window, W//window, C], the view
+    of a batch-major result (so the next layer's ``fold`` is a view).
+    Under a ``"cuda"`` cfg the gated pooling kernel (``max_pool_op``)
+    reads x where it lies, with no fold copy before it."""
     if cfg is not None and _check_backend(cfg):
         from repro_torch.kernels.ops import max_pool_op
-        y = max_pool_op(xf, window=window)
-    else:
-        y = pool_slices(xf, window)
-    return unfold(y, T, B)
+        return max_pool_op(x, window=window)
+    T, B = x.shape[:2]
+    return unfold(pool_slices(fold(x), window), T, B)

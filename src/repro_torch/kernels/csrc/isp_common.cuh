@@ -23,6 +23,15 @@ __device__ __forceinline__ int wrap(int v, int n) {
   return v < 0 ? v + n : v;
 }
 
+// v mod n in [0, n) for an index at most one period outside [0, n) by a
+// compare and an add; farther out (a frame narrower than the halo) by %
+__device__ __forceinline__ int wrap_near(int v, int n) {
+  if (v < 0) v += n;
+  else if (v >= n) v -= n;
+  return static_cast<unsigned>(v) < static_cast<unsigned>(n) ? v
+                                                             : wrap(v, n);
+}
+
 // ---------------------------------------------------------------------------
 // Malvar-He-Cutler 5x5 demosaic of an RGGB mosaic
 // ---------------------------------------------------------------------------
@@ -102,6 +111,66 @@ __device__ __forceinline__ void mhc_rgb(bool ey, bool ex, float c, At at,
   rgb[2] = clip01(b);
 }
 
+// The same bank as compile-time taps (filter F: 0 kMhcG, 1 kMhcRow, 2
+// kMhcCol, 3 kMhcDiag), for a kernel that knows a pixel's phase when it
+// compiles: the zero taps are skipped by the compiler, not per pixel.
+// mhc_filter_c and mhc_rgb_c do mhc_filter's and mhc_rgb's ops in their
+// order, so they give the same bits.
+template <int F>
+__device__ __forceinline__ float mhc_tap(int i) {
+  constexpr float k[4][25] = {
+      {0, 0, -1.f / 8, 0, 0, 0, 0, 2.f / 8, 0, 0, -1.f / 8, 2.f / 8, 4.f / 8,
+       2.f / 8, -1.f / 8, 0, 0, 2.f / 8, 0, 0, 0, 0, -1.f / 8, 0, 0},
+      {0, 0, 0.5f / 8, 0, 0, 0, -1.f / 8, 0, -1.f / 8, 0, -1.f / 8, 4.f / 8,
+       5.f / 8, 4.f / 8, -1.f / 8, 0, -1.f / 8, 0, -1.f / 8, 0, 0, 0,
+       0.5f / 8, 0, 0},
+      {0, 0, -1.f / 8, 0, 0, 0, -1.f / 8, 4.f / 8, -1.f / 8, 0, 0.5f / 8, 0,
+       5.f / 8, 0, 0.5f / 8, 0, -1.f / 8, 4.f / 8, -1.f / 8, 0, 0, 0,
+       -1.f / 8, 0, 0},
+      {0, 0, -1.5f / 8, 0, 0, 0, 2.f / 8, 0, 2.f / 8, 0, -1.5f / 8, 0,
+       6.f / 8, 0, -1.5f / 8, 0, 2.f / 8, 0, 2.f / 8, 0, 0, 0, -1.5f / 8, 0,
+       0}};
+  return k[F][i];
+}
+
+template <int F, class At>
+__device__ __forceinline__ float mhc_filter_c(At at) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 25; ++i) {
+    const float kv = mhc_tap<F>(i);
+    if (kv == 0.f) continue;
+    acc = __fadd_rn(acc, __fmul_rn(kv, at(i / 5, i % 5)));
+  }
+  return acc;
+}
+
+// mhc_rgb at a phase known when the kernel compiles
+template <bool kEy, bool kEx, class At>
+__device__ __forceinline__ void mhc_rgb_c(float c, At at, float* rgb) {
+  float r, g, b;
+  if constexpr (kEy && kEx) {           // R site
+    r = c;
+    g = mhc_filter_c<0>(at);
+    b = mhc_filter_c<3>(at);
+  } else if constexpr (kEy) {           // G in an R row
+    r = mhc_filter_c<1>(at);
+    g = c;
+    b = mhc_filter_c<2>(at);
+  } else if constexpr (kEx) {           // G in a B row
+    r = mhc_filter_c<2>(at);
+    g = c;
+    b = mhc_filter_c<1>(at);
+  } else {                              // B site
+    r = mhc_filter_c<3>(at);
+    g = mhc_filter_c<0>(at);
+    b = c;
+  }
+  rgb[0] = clip01(r);
+  rgb[1] = clip01(g);
+  rgb[2] = clip01(b);
+}
+
 // ---------------------------------------------------------------------------
 // Non-local means: 7x7 search, 3x3 box-filtered patch distances on
 // luminance
@@ -163,6 +232,27 @@ __device__ __forceinline__ void nlm_pixel(Lum lum, Img img, float hh, int C,
 #pragma unroll
   for (int ch = 0; ch < kNlmMaxC; ++ch)
     if (ch < C) out[ch] = __fdiv_rn(acc[ch], den);
+}
+
+// nlm_pixel's steps, one at a time, for a kernel that shares them between
+// neighbouring pixels (the fused NLM segment of isp_fused.cu): the squared
+// luminance difference at one patch position, a column of the 3x3 box
+// (rows y, y - 1, then y + 1), the box (columns x, x - 1, then x + 1) and
+// the weight.  Each is the op of nlm_pixel in its order, so the weights
+// and the sums over them keep its bits.
+__device__ __forceinline__ float nlm_sq(float centre, float shifted) {
+  const float d = __fsub_rn(centre, shifted);
+  return __fmul_rn(d, d);
+}
+__device__ __forceinline__ float nlm_col(float s_y, float s_up,
+                                         float s_down) {
+  return __fadd_rn(__fadd_rn(s_y, s_up), s_down);
+}
+__device__ __forceinline__ float nlm_weight(float col_x, float col_left,
+                                            float col_right, float hh) {
+  const float box = __fadd_rn(__fadd_rn(col_x, col_left), col_right);
+  const float d2 = __fmul_rn(box, 1.0f / 9.0f);
+  return expf(__fdiv_rn(-d2, hh));
 }
 
 }  // namespace isp

@@ -5,9 +5,13 @@
 //   isp_stencil_launch:   x [B, H, W, Cin] -> out [B, H, W, Cout]
 // (C = 1 for a Bayer mosaic, 3 for RGB), with pvec [B, P] (the planner's
 // packed stage parameters, one row per frame), stats [B, S] (a reduce
-// stage's global statistics), consts (the stages' array constants,
-// flattened) and lut [B, 256] (the gamma stage's per-frame LUT, built by
-// the plain gamma_lut on the device, or null).
+// stage's global statistics) and consts (the stages' array constants,
+// flattened).  The gamma stage's per-frame LUT: the pointwise kernel
+// takes lut [B, 256], built by the plain gamma_lut on the device (or
+// null); a stencil block builds its frame's in shared memory from the
+// gamma parameter at gamma_off in the frame's pvec row (-1: none) with
+// gamma_lut's ops (a clamp, an IEEE reciprocal, i * float32(1/255), powf),
+// so a stencil segment is one device op.
 //
 // Replaces the TPU kernels pointwise_segment_pallas and
 // stencil_segment_pallas (src/repro/kernels/isp_fused.py), which run a
@@ -20,23 +24,49 @@
 // window op of a stencil segment.
 //
 // pointwise: one thread per pixel, all channels.
-// stencil: one block per (16x16 output tile, frame), all on gridDim.x
-// (any batch up to 2^31 - 1 blocks in all).  Its threads read
-// the tile's (16+2r)^2 window straight from the frame, wrapping the
-// indices (pad "wrap", the reference's cyclic roll) or reading zero
-// outside the frame (pad "zero", the reference's SAME padding, applied
-// after the prologue as the per-stage path pads the prologue's output):
-// no padded copy.  Each window pixel gets the prologue chain once, with
-// its own frame's parameters, into shared memory (at r = 4 and 3
-// channels 6.9 KB, plus a luminance plane for NLM and sharpen); then
-// each thread computes its output pixel's window op from shared memory.
-// Frames of any size: the ragged edge is guarded per pixel.
+//
+// stencil: one instance per window op (dpc r = 2, C 1 -> 1; demosaic
+// r = 2, C 1 -> 3; nlm r = 4, C 1 or 3; sharpen r = 1, C 3) and output
+// tile (TH x TW), so the window side, the halo indexing and the loops are
+// compile-time.  The host plan (stencil_plan in kernels/isp_fused.py,
+// cached per shape) picks the tile and this launcher checks its threads
+// and shared bytes against the instance's: dpc, demosaic and sharpen take
+// an 8 x 32 tile, one thread a pixel (on the H100 as fast as any of 8x8
+// to 16x32 at [8, 64, 64], where a launch's latency sets the time, and
+// at [4, 480, 640]); NLM the largest of 16x16, 8x16 and 8x8 whose grid
+// puts two blocks on every SM (8x8 on the tick: 512 blocks).
+// One block per (frame, tile row, tile column), the column fastest, all
+// on gridDim.x (any batch up to 2^31 - 1 blocks in all), decoded by
+// host-made magic numbers.  Its threads read the tile's (TH+2r) x (TW+2r)
+// window row by row (consecutive threads on consecutive pixels), wrapping
+// an index by a compare and an add (pad "wrap", the reference's cyclic
+// roll) or reading zero outside the frame (pad "zero", the reference's
+// SAME padding, applied after the prologue as the per-stage path pads
+// the prologue's output): no padded copy.  Each window pixel gets the
+// prologue chain once, with its own frame's parameters, into shared
+// memory, plus a luminance plane for NLM and sharpen.  Frames of any
+// size: the ragged edge is guarded per pixel.
+//   dpc, demosaic, sharpen: one thread per output pixel; demosaic's
+// threads grouped by Bayer phase, each phase's two filters with the zero
+// taps dropped when the kernel compiles (isp::mhc_rgb_c).
+//   nlm: the 49 weights of a pixel over 7 threads, one a shift row.  A
+// thread walks nlm_walk(TW) pixels along a tile row and computes its 7
+// shifts at each, so the squared differences and box columns of a shift
+// are shared between neighbouring pixels (one column a step, not nine
+// differences a pixel) and the shifted luminances slide through
+// registers (six loads a step for seven weights); the weights go to
+// shared memory, [shift][pixel]; then one thread a pixel sums the
+// weights and the weighted values in nlm_pixel's shift order.  Every op
+// is nlm_pixel's in its order, so the segment keeps the bits of a
+// pixel-per-thread nlm_pixel.
 //
 // What bounds it on the H100: bytes for the pointwise chains, dpc,
 // demosaic and sharpen (one read of the input, one write of the output;
 // the halo re-reads hit L1/L2); operations for NLM (49 weights with an
-// exp each per pixel).  At [8, 64, 64] every segment moves under 1 MB,
-// so a launch's latency dominates.
+// exp and a divide each per pixel).  At [8, 64, 64] every segment moves
+// under 1 MB, so a launch's latency dominates all but NLM; a segment is
+// one device op (the gamma LUT built in the block, the flattened
+// constants cached by the wrapper).
 //
 // Rounding: every step is a round-to-nearest intrinsic in the plain
 // PyTorch version's op order, so nvcc cannot contract FMAs; torch's
@@ -49,16 +79,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_slab.cuh"
 #include "isp_common.cuh"
 
 namespace {
 
+using repro::FastDiv;
+
 constexpr int kMaxSteps = 8;      // kernels/isp_fused.py MAX_STEPS
-constexpr int kTile = 16;         // output tile side of a stencil block
-constexpr int kMaxR = 4;          // the widest halo (NLM)
-constexpr int kWinMax = kTile + 2 * kMaxR;
-constexpr int kThreads = kTile * kTile;
 constexpr int kLut = 256;
+constexpr int kMaxThreads = 256;  // the largest stencil block (8 x 32)
+constexpr int kNlmThreads = 256;  // kernels/isp_fused.py NLM_THREADS
+constexpr int kShifts = 49;       // the 7 x 7 search
+
+// pixels a weight thread walks along a tile row (kernels/isp_fused.py
+// nlm_walk): 2 on the tick's 8-wide tiles (more threads), 8 on wider ones
+__host__ __device__ constexpr int nlm_walk(int tw) { return tw == 8 ? 2 : 8; }
 
 enum Op {
   kExposure = 1, kAwb, kGamma, kTonemap, kCcm,   // pointwise
@@ -155,126 +191,6 @@ __global__ void pointwise_kernel(const float* __restrict__ x,
   for (int c = 0; c < C; ++c) out[i * C + c] = v[c];
 }
 
-__global__ void __launch_bounds__(kThreads)
-stencil_kernel(const float* __restrict__ x, float* __restrict__ out,
-               const float* __restrict__ pvec,
-               const float* __restrict__ stats,
-               const float* __restrict__ consts,
-               const float* __restrict__ lut, int H, int W, int Cin,
-               int Cout, int P, int S, Chain ch, int wop, int wpoff,
-               int wcoff, int r, int zero_pad) {
-  __shared__ float win[kWinMax * kWinMax * 3];   // the prologue's output
-  __shared__ float aux[kWinMax * kWinMax];       // luminance (nlm, sharpen)
-  // (frame, tile row, tile column) on gridDim.x, the column fastest
-  const int tiles_x = (W + kTile - 1) / kTile;
-  const int tiles_y = (H + kTile - 1) / kTile;
-  const int rest = (int)(blockIdx.x / tiles_x);
-  const int b = rest / tiles_y;
-  const int y0 = (rest - b * tiles_y) * kTile;
-  const int x0 = (int)(blockIdx.x - rest * tiles_x) * kTile;
-  const int ws = kTile + 2 * r;                  // window side
-  const float* pv = pvec + (int64_t)b * P;
-  const float* st = stats + (int64_t)b * S;
-  const float* lb = lut ? lut + (int64_t)b * kLut : nullptr;
-  const float* img = x + (int64_t)b * H * W * Cin;
-  const float* wc = consts + wcoff;              // the window op's consts
-
-  for (int k = threadIdx.x; k < ws * ws; k += blockDim.x) {
-    int yy = y0 - r + k / ws, xx = x0 - r + k % ws;
-    float v[3] = {0.f, 0.f, 0.f};
-    const bool inside = yy >= 0 && yy < H && xx >= 0 && xx < W;
-    if (inside || !zero_pad) {
-      yy = isp::wrap(yy, H);
-      xx = isp::wrap(xx, W);
-      const float* src = img + ((int64_t)yy * W + xx) * Cin;
-      for (int c = 0; c < Cin; ++c) v[c] = src[c];
-      apply_chain(ch, pv, st, consts, lb, v, Cin);
-    }
-    for (int c = 0; c < Cin; ++c) win[k * Cin + c] = v[c];
-    if (wop == kNlm) {      // luminance(): ((c0 + c1) + c2) x float32(1/3)
-      aux[k] = Cin == 1 ? v[0]
-                        : __fmul_rn(__fadd_rn(__fadd_rn(v[0], v[1]), v[2]),
-                                    1.f / 3.f);
-    } else if (wop == kSharpen) {   // Y of YCbCr: the matrix's first row
-      aux[k] = __fadd_rn(dot3(v, wc), wc[9]);
-    }
-  }
-  __syncthreads();
-
-  const int ty = threadIdx.x / kTile, tx = threadIdx.x % kTile;
-  const int y = y0 + ty, xo = x0 + tx;
-  if (y >= H || xo >= W) return;
-  const int cidx = (ty + r) * ws + tx + r;       // the pixel in the window
-  float o[3];
-  switch (wop) {
-    case kDpc: {            // 8 same-colour neighbours at distance 2
-      const float t = pv[wpoff];
-      const float nt = -t;
-      const float c = win[cidx];
-      float nb[8];
-      int k = 0;
-      for (int dy = -2; dy <= 2; dy += 2)
-        for (int dx = -2; dx <= 2; dx += 2)
-          if (dy != 0 || dx != 0) nb[k++] = win[cidx - dy * ws - dx];
-      bool hot = true, dead = true;
-      float sum = nb[0], mn = nb[0], mx = nb[0];
-      for (k = 0; k < 8; ++k) {
-        const float d = __fsub_rn(c, nb[k]);
-        hot = hot && d > t;
-        dead = dead && d < nt;
-        if (k > 0) sum = __fadd_rn(sum, nb[k]);
-        mn = nb[k] < mn ? nb[k] : mn;
-        mx = nb[k] > mx ? nb[k] : mx;
-      }
-      const float med =
-          __fmul_rn(__fsub_rn(__fsub_rn(sum, mn), mx), 1.f / 6.f);
-      o[0] = (hot || dead) ? med : c;
-      break;
-    }
-    case kDemosaic: {       // the Bayer phase of the absolute coordinates
-      auto at = [&](int dy, int dx) {
-        return win[cidx + (dy - 2) * ws + dx - 2];
-      };
-      isp::mhc_rgb((y % 2) == 0, (xo % 2) == 0, win[cidx], at, o);
-      break;
-    }
-    case kNlm: {            // h = 1e-3 + 0.2 strength
-      const float h = __fadd_rn(__fmul_rn(0.2f, pv[wpoff]), 1e-3f);
-      const int base = ty * ws + tx;             // the pixel at (-4, -4)
-      auto lum = [&](int ry, int cx) { return aux[base + ry * ws + cx]; };
-      auto pix = [&](int ry, int cx) {
-        return win + (base + ry * ws + cx) * Cin;
-      };
-      isp::nlm_pixel(lum, pix, __fmul_rn(h, h), Cin, o);
-      break;
-    }
-    case kSharpen: {        // luma sharpening: matrix, offset, inverse
-      const float* off = wc + 9;
-      const float* inv = wc + 12;
-      const float yc = aux[cidx];
-      const float blur = __fmul_rn(
-          __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(yc, aux[cidx - ws]),
-                                        aux[cidx + ws]),
-                              aux[cidx - 1]),
-                    aux[cidx + 1]),
-          1.f / 5.f);
-      const float* v = win + cidx * 3;
-      float e[3];
-      const float y2 = isp::clip01(
-          __fadd_rn(yc, __fmul_rn(pv[wpoff], __fsub_rn(yc, blur))));
-      e[0] = __fsub_rn(y2, off[0]);
-      e[1] = __fsub_rn(__fadd_rn(dot3(v, wc + 3), off[1]), off[1]);
-      e[2] = __fsub_rn(__fadd_rn(dot3(v, wc + 6), off[2]), off[2]);
-      for (int d = 0; d < 3; ++d) o[d] = isp::clip01(dot3(e, inv + 3 * d));
-      break;
-    }
-    default:
-      return;
-  }
-  float* dst = out + (((int64_t)b * H + y) * W + xo) * Cout;
-  for (int c = 0; c < Cout; ++c) dst[c] = o[c];
-}
-
 // The descriptor from the host arrays; false if a step is not a
 // pointwise op the C channels allow.
 bool make_chain(int n, const int* ops, const int* poffs, const int* coffs,
@@ -290,6 +206,351 @@ bool make_chain(int n, const int* ops, const int* poffs, const int* coffs,
     if ((ops[s] == kAwb || ops[s] == kCcm) && C != 3) return false;
   }
   return true;
+}
+
+// ---------------------------------------------------------------------------
+// stencil segments
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int op_radius(int op) {
+  return op == kNlm ? 4 : op == kSharpen ? 1 : 2;
+}
+
+// The shared-memory plane layout of one instance, in floats: the window
+// (C channels a pixel; nlm on RGB: a float4 a pixel, so the sums read a
+// pixel at once), a luminance plane (nlm, sharpen) with row pitch
+// LumPitch, and for nlm the weights [shift][pixel], WPitch = TH * TW + 1
+// a shift (one more than a tile, so the seven shifts a weight thread
+// stores at once, and the next threads' pixels, fall on distinct banks).
+template <int kOp, int kC, int TH, int TW>
+struct Layout {
+  static constexpr int R = op_radius(kOp);
+  static constexpr int WY = TH + 2 * R, WX = TW + 2 * R;   // window side
+  static constexpr int kPix = WY * WX;
+  // a 16-float (mod 32) pitch puts two shift rows on one bank; +4 spreads
+  static constexpr int LumPitch = WX % 16 == 0 ? WX + 4 : WX;
+  static constexpr bool kLum = kOp == kNlm || kOp == kSharpen;
+  static constexpr int kWinC = kOp == kNlm && kC == 3 ? 4 : kC;
+  static constexpr int kWin = 0;
+  static constexpr int kAux = kPix * kWinC;
+  static constexpr int kWts = kAux + (kLum ? WY * LumPitch : 0);
+  static constexpr int WPitch = TH * TW + 1;
+  static constexpr int kLutAt = kWts + (kOp == kNlm ? kShifts * WPitch : 0);
+  static constexpr int kFloats = kLutAt + kLut;     // the gamma LUT
+  static constexpr int kThreads = kOp == kNlm ? kNlmThreads : TH * TW;
+  static constexpr int kCout = kOp == kDemosaic ? 3 : kC;
+};
+
+struct StencilArgs {
+  const float* x;
+  float* out;
+  const float* pvec;
+  const float* stats;
+  const float* consts;
+  int gamma_off;                // the gamma step's param in a pvec row, or -1
+  int H, W, P, S, wpoff, wcoff, zero_pad;
+  int tiles_x, tiles_y;
+  FastDiv fx, fy;               // tiles_x, tiles_y
+  Chain ch;
+};
+
+template <int kOp, int kC, int TH, int TW>
+__global__ void __launch_bounds__(kMaxThreads, 4)
+stencil_kernel(const StencilArgs a) {
+  using Lay = Layout<kOp, kC, TH, TW>;
+  constexpr int R = Lay::R, WX = Lay::WX, LP = Lay::LumPitch;
+  extern __shared__ float smem[];
+  float* win = smem + Lay::kWin;      // the prologue's output
+  float* aux = smem + Lay::kAux;      // luminance (nlm) or Y (sharpen)
+  // (frame, tile row, tile column) on gridDim.x, the column fastest
+  const int blk = blockIdx.x;
+  const int rest = a.fx.div(blk);
+  const int b = a.fy.div(rest);
+  const int y0 = (rest - b * a.tiles_y) * TH;
+  const int x0 = (blk - rest * a.tiles_x) * TW;
+  const int H = a.H, W = a.W;
+  const float* pv = a.pvec + (int64_t)b * a.P;
+  const float* st = a.stats + (int64_t)b * a.S;
+  const float* img = a.x + (int64_t)b * H * W * kC;
+  const float* wc = a.consts + a.wcoff;          // the window op's consts
+  float* lb = nullptr;
+  if (a.gamma_off >= 0) {   // gamma_lut: axis ** (1 / clamp(gamma, 1e-3))
+    lb = smem + Lay::kLutAt;
+    const float g = pv[a.gamma_off];
+    const float gc = isnan(g) ? g : (g < 1e-3f ? 1e-3f : g);
+    const float inv = __fdiv_rn(1.f, gc);
+    const float step = static_cast<float>(1.0 / (kLut - 1));
+    for (int i = threadIdx.x; i < kLut; i += blockDim.x)
+      lb[i] = powf(i < kLut - 1 ? __fmul_rn(static_cast<float>(i), step)
+                                : 1.f,
+                   inv);
+    __syncthreads();
+  }
+
+  for (int k = threadIdx.x; k < Lay::kPix; k += blockDim.x) {
+    const int wy = k / WX, wx = k % WX;
+    int yy = y0 - R + wy, xx = x0 - R + wx;
+    float v[3] = {0.f, 0.f, 0.f};
+    const bool inside =
+        static_cast<unsigned>(yy) < static_cast<unsigned>(H) &&
+        static_cast<unsigned>(xx) < static_cast<unsigned>(W);
+    if (inside || !a.zero_pad) {
+      if (!inside) {
+        yy = isp::wrap_near(yy, H);
+        xx = isp::wrap_near(xx, W);
+      }
+      const float* src = img + ((int64_t)yy * W + xx) * kC;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) v[c] = src[c];
+      apply_chain(a.ch, pv, st, a.consts, lb, v, kC);
+    }
+    if constexpr (Lay::kWinC == 4) {
+      reinterpret_cast<float4*>(win)[k] = make_float4(v[0], v[1], v[2], 0.f);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kC; ++c) win[k * kC + c] = v[c];
+    }
+    if constexpr (kOp == kNlm) {   // luminance: ((c0 + c1) + c2) x 1/3f
+      aux[wy * LP + wx] =
+          kC == 1 ? v[0]
+                  : __fmul_rn(__fadd_rn(__fadd_rn(v[0], v[1]), v[2]),
+                              1.f / 3.f);
+    } else if constexpr (kOp == kSharpen) {   // Y of YCbCr: matrix row 0
+      aux[wy * LP + wx] = __fadd_rn(dot3(v, wc), wc[9]);
+    }
+  }
+  __syncthreads();
+
+  float* dst = a.out + (int64_t)b * H * W * Lay::kCout;
+  if constexpr (kOp == kNlm) {
+    // The weights.  Item i = (tile row ty, walker g, shift row dy), dy
+    // fastest: the thread walks kWalk pixels of row ty and computes all
+    // 7 shifts (dx) of its row at each, each shift's box columns kept in
+    // registers from the pixel before.  The box column at window column X
+    // is the squared differences at rows ty, ty - 1, ty + 1 (window rows
+    // Yc, Yc - 1, Yc + 1) against the pixels (dy, dx) away; those shifted
+    // pixels slide one column a step, so a step loads the three centre
+    // and three new shifted luminances into a ring of 7 columns.
+    constexpr int kWalk = nlm_walk(TW), kWalkers = TW / kWalk;
+    static_assert(TW % kWalk == 0, "a tile row is whole walks");
+    float* wts = smem + Lay::kWts;
+    const float h = __fadd_rn(__fmul_rn(0.2f, pv[a.wpoff]), 1e-3f);
+    const float hh = __fmul_rn(h, h);
+    for (int i = threadIdx.x; i < 7 * TH * kWalkers; i += blockDim.x) {
+      const int row = i % 7, r = i / 7;
+      const int g = r % kWalkers, ty = r / kWalkers;
+      const int dy = row - 3;
+      const int X0 = g * kWalk + R;              // the run's first column
+      const float* cen = aux + (ty + R) * LP;    // window row Yc
+      const float* shf = cen - dy * LP;          // window row Yc - dy
+      // ring[k][rr]: shifted luminance at column X - 3 + k, row rr - 1
+      float ring[7][3];
+#pragma unroll
+      for (int k = 0; k < 7; ++k)
+#pragma unroll
+        for (int rr = 0; rr < 3; ++rr)
+          ring[k][rr] = shf[(rr - 1) * LP + X0 - 1 - 3 + k];
+      // shift dx = d - 3's box column at X, whose centre luminances are
+      // c[0..2] (rows Yc - 1, Yc, Yc + 1): it reads ring column X - dx
+      auto col = [&](const float* c, int d) {
+        const float* sv = ring[6 - d];
+        return isp::nlm_col(isp::nlm_sq(c[1], sv[1]),
+                            isp::nlm_sq(c[0], sv[0]),
+                            isp::nlm_sq(c[2], sv[2]));
+      };
+      auto centre = [&](int X, float* c) {
+        c[0] = cen[X - LP];
+        c[1] = cen[X];
+        c[2] = cen[X + LP];
+      };
+      auto slide = [&](int X) {   // the ring from column X's to X + 1's
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+#pragma unroll
+          for (int rr = 0; rr < 3; ++rr) ring[k][rr] = ring[k + 1][rr];
+#pragma unroll
+        for (int rr = 0; rr < 3; ++rr)
+          ring[6][rr] = shf[(rr - 1) * LP + X + 4];
+      };
+      float left[7], mid[7], c[3];
+      centre(X0 - 1, c);
+#pragma unroll
+      for (int d = 0; d < 7; ++d) left[d] = col(c, d);
+      slide(X0 - 1);
+      centre(X0, c);
+#pragma unroll
+      for (int d = 0; d < 7; ++d) mid[d] = col(c, d);
+      float* wp = wts + row * 7 * Lay::WPitch + ty * TW + X0 - R;
+#pragma unroll
+      for (int j = 0; j < kWalk; ++j) {
+        slide(X0 + j);
+        centre(X0 + j + 1, c);
+#pragma unroll
+        for (int d = 0; d < 7; ++d) {
+          const float right = col(c, d);
+          wp[d * Lay::WPitch + j] =
+              isp::nlm_weight(mid[d], left[d], right, hh);
+          left[d] = mid[d];
+          mid[d] = right;
+        }
+      }
+    }
+    __syncthreads();
+    // The sums: one thread a pixel, wsum and the C channels' weighted
+    // values in nlm_pixel's shift order; shift (dy, dx) reads the pixel
+    // at (y - dy, x - dx).
+    for (int p = threadIdx.x; p < TH * TW; p += blockDim.x) {
+      const int ty = p / TW, tx = p % TW;
+      const int y = y0 + ty, x = x0 + tx;
+      if (y >= H || x >= W) continue;
+      const int ctr = (ty + R) * WX + tx + R;    // the pixel in the window
+      float wsum = 0.f, acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int s = 0; s < kShifts; ++s) {
+        const int dy = s / 7 - 3, dx = s % 7 - 3;
+        const int at = ctr - dy * WX - dx;
+        const float w = wts[s * Lay::WPitch + p];
+        wsum = __fadd_rn(wsum, w);
+        if constexpr (kC == 3) {
+          const float4 v = reinterpret_cast<const float4*>(win)[at];
+          acc[0] = __fadd_rn(acc[0], __fmul_rn(w, v.x));
+          acc[1] = __fadd_rn(acc[1], __fmul_rn(w, v.y));
+          acc[2] = __fadd_rn(acc[2], __fmul_rn(w, v.z));
+        } else {
+          acc[0] = __fadd_rn(acc[0], __fmul_rn(w, win[at]));
+        }
+      }
+      // torch.clamp(wsum, min=1e-9): NaN passes through
+      const float den = (!isnan(wsum) && wsum < 1e-9f) ? 1e-9f : wsum;
+      float* o = dst + ((int64_t)y * W + x) * kC;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) o[c] = __fdiv_rn(acc[c], den);
+    }
+    return;
+  } else {
+    for (int p = threadIdx.x; p < TH * TW; p += blockDim.x) {
+      // demosaic: the threads grouped by Bayer phase (a quarter of the
+      // tile each, so a warp takes one or two phases, not four); the
+      // tile's corner is even, so a pixel's phase is its tile parity's
+      constexpr int kQ = TH * TW / 4, kHalfW = TW / 2;
+      const int phase = p / kQ, k = p % kQ;
+      const int ty = kOp == kDemosaic ? 2 * (k / kHalfW) + (phase >> 1)
+                                      : p / TW;
+      const int tx = kOp == kDemosaic ? 2 * (k % kHalfW) + (phase & 1)
+                                      : p % TW;
+      const int y = y0 + ty, xo = x0 + tx;
+      if (y >= H || xo >= W) continue;
+      const int cidx = (ty + R) * WX + tx + R;   // the pixel in the window
+      float o[3];
+      if constexpr (kOp == kDpc) {   // 8 same-colour neighbours at distance 2
+        const float t = pv[a.wpoff];
+        const float nt = -t;
+        const float c = win[cidx];
+        float nb[8];
+        int k = 0;
+#pragma unroll
+        for (int dy = -2; dy <= 2; dy += 2)
+#pragma unroll
+          for (int dx = -2; dx <= 2; dx += 2)
+            if (dy != 0 || dx != 0) nb[k++] = win[cidx - dy * WX - dx];
+        bool hot = true, dead = true;
+        float sum = nb[0], mn = nb[0], mx = nb[0];
+#pragma unroll
+        for (k = 0; k < 8; ++k) {
+          const float d = __fsub_rn(c, nb[k]);
+          hot = hot && d > t;
+          dead = dead && d < nt;
+          if (k > 0) sum = __fadd_rn(sum, nb[k]);
+          mn = nb[k] < mn ? nb[k] : mn;
+          mx = nb[k] > mx ? nb[k] : mx;
+        }
+        const float med =
+            __fmul_rn(__fsub_rn(__fsub_rn(sum, mn), mx), 1.f / 6.f);
+        o[0] = (hot || dead) ? med : c;
+      } else if constexpr (kOp == kDemosaic) {
+        // the Bayer phase of the absolute coordinates
+        auto at = [&](int dy, int dx) {
+          return win[cidx + (dy - 2) * WX + dx - 2];
+        };
+        const float c = win[cidx];
+        switch (phase) {
+          case 0: isp::mhc_rgb_c<true, true>(c, at, o); break;
+          case 1: isp::mhc_rgb_c<true, false>(c, at, o); break;
+          case 2: isp::mhc_rgb_c<false, true>(c, at, o); break;
+          default: isp::mhc_rgb_c<false, false>(c, at, o); break;
+        }
+      } else {                        // sharpen: matrix, offset, inverse
+        const float* off = wc + 9;
+        const float* inv = wc + 12;
+        const int lidx = (ty + R) * LP + tx + R;
+        const float yc = aux[lidx];
+        const float blur = __fmul_rn(
+            __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(yc, aux[lidx - LP]),
+                                          aux[lidx + LP]),
+                                aux[lidx - 1]),
+                      aux[lidx + 1]),
+            1.f / 5.f);
+        const float* v = win + cidx * 3;
+        float e[3];
+        const float y2 = isp::clip01(
+            __fadd_rn(yc, __fmul_rn(pv[a.wpoff], __fsub_rn(yc, blur))));
+        e[0] = __fsub_rn(y2, off[0]);
+        e[1] = __fsub_rn(__fadd_rn(dot3(v, wc + 3), off[1]), off[1]);
+        e[2] = __fsub_rn(__fadd_rn(dot3(v, wc + 6), off[2]), off[2]);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) o[d] = isp::clip01(dot3(e, inv + 3 * d));
+      }
+      float* out = dst + ((int64_t)y * W + xo) * Lay::kCout;
+#pragma unroll
+      for (int c = 0; c < Lay::kCout; ++c) out[c] = o[c];
+    }
+  }
+}
+
+// One instance's launch: the plan's threads and shared bytes must be the
+// instance's; above 48 KB the kernel opts in once per device.
+template <int kOp, int kC, int TH, int TW>
+int launch_stencil(const StencilArgs& a, int64_t blocks, int threads,
+                   int smem, cudaStream_t s) {
+  using Lay = Layout<kOp, kC, TH, TW>;
+  const int want = Lay::kFloats * static_cast<int>(sizeof(float));
+  if (threads != Lay::kThreads || smem != want)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = stencil_kernel<kOp, kC, TH, TW>;
+  if (want > 48 * 1024) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    static bool opted[64] = {};
+    if (dev >= 64) return static_cast<int>(cudaErrorInvalidValue);
+    if (!opted[dev]) {
+      e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, want);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      opted[dev] = true;
+    }
+  }
+  kern<<<static_cast<unsigned>(blocks), threads, want, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance of window op kOp on C channels for the plan's tile; the
+// tiles here are kernels/isp_fused.py's LIGHT_TILES and NLM_TILES.
+template <int kOp, int kC>
+int launch_tile(const StencilArgs& a, int th, int tw, int64_t blocks,
+                int threads, int smem, cudaStream_t s) {
+  if constexpr (kOp == kNlm) {
+    if (th == 16 && tw == 16)
+      return launch_stencil<kOp, kC, 16, 16>(a, blocks, threads, smem, s);
+    if (th == 8 && tw == 16)
+      return launch_stencil<kOp, kC, 8, 16>(a, blocks, threads, smem, s);
+    if (th == 8 && tw == 8)
+      return launch_stencil<kOp, kC, 8, 8>(a, blocks, threads, smem, s);
+  } else {
+    if (th == 8 && tw == 32)
+      return launch_stencil<kOp, kC, 8, 32>(a, blocks, threads, smem, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -314,15 +575,16 @@ extern "C" int isp_pointwise_launch(const float* x, float* out,
 
 extern "C" int isp_stencil_launch(const float* x, float* out,
                                   const float* pvec, const float* stats,
-                                  const float* consts, const float* lut,
+                                  const float* consts, int gamma_off,
                                   int B, int H, int W, int Cin, int Cout,
                                   int P, int S, int n, const int* ops,
                                   const int* poffs, const int* coffs,
                                   int wop, int wpoff, int wcoff, int r,
-                                  int zero_pad, void* stream) {
-  Chain ch;
+                                  int zero_pad, int th, int tw, int threads,
+                                  int smem, void* stream) {
+  StencilArgs a;
   bool ok = (Cin == 1 || Cin == 3) && make_chain(n, ops, poffs, coffs, Cin,
-                                                 &ch);
+                                                 &a.ch);
   switch (wop) {
     case kDpc: ok = ok && r == 2 && Cin == 1 && Cout == 1; break;
     case kDemosaic: ok = ok && r == 2 && Cin == 1 && Cout == 3; break;
@@ -330,13 +592,40 @@ extern "C" int isp_stencil_launch(const float* x, float* out,
     case kSharpen: ok = ok && r == 1 && Cin == 3 && Cout == 3; break;
     default: ok = false;
   }
-  const int64_t blocks = (int64_t)((W + kTile - 1) / kTile) *
-                         ((H + kTile - 1) / kTile) * B;
-  if (!ok || B < 1 || blocks >= (int64_t(1) << 31))
+  if (!ok || B < 1 || H < 1 || W < 1 || th < 1 || tw < 1 ||
+      gamma_off >= P)
     return static_cast<int>(cudaErrorInvalidValue);
-  stencil_kernel<<<(unsigned)blocks, kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      x, out, pvec, stats, consts, lut, H, W, Cin, Cout, P, S, ch, wop, wpoff,
-      wcoff, r, zero_pad);
-  return static_cast<int>(cudaGetLastError());
+  a.tiles_x = (W + tw - 1) / tw;
+  a.tiles_y = (H + th - 1) / th;
+  const int64_t blocks = (int64_t)a.tiles_x * a.tiles_y * B;
+  if (blocks >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.x = x;
+  a.out = out;
+  a.pvec = pvec;
+  a.stats = stats;
+  a.consts = consts;
+  a.gamma_off = gamma_off;
+  a.H = H;
+  a.W = W;
+  a.P = P;
+  a.S = S;
+  a.wpoff = wpoff;
+  a.wcoff = wcoff;
+  a.zero_pad = zero_pad;
+  a.fx = FastDiv(a.tiles_x);
+  a.fy = FastDiv(a.tiles_y);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (wop) {
+    case kDpc:
+      return launch_tile<kDpc, 1>(a, th, tw, blocks, threads, smem, s);
+    case kDemosaic:
+      return launch_tile<kDemosaic, 1>(a, th, tw, blocks, threads, smem, s);
+    case kSharpen:
+      return launch_tile<kSharpen, 3>(a, th, tw, blocks, threads, smem, s);
+    default:
+      return Cin == 1
+                 ? launch_tile<kNlm, 1>(a, th, tw, blocks, threads, smem, s)
+                 : launch_tile<kNlm, 3>(a, th, tw, blocks, threads, smem, s);
+  }
 }

@@ -15,29 +15,35 @@ Stage parameters come as one packed [B, P] float32 tensor (``pvec``, one
 row per frame, laid out by the planner), the reduce stage's global
 statistics as [B, w] (``stats``) and the array constants of the fused
 forms as a tuple (``consts``): all device tensors, so one kernel serves
-every control vector without a host sync.  The halo replays each
-stage's reference: ``pad="wrap"`` for cyclic-roll references,
+every control vector without a host sync.  The gamma stage's per-frame
+LUT is built by torch (``gamma_lut``) for the pointwise kernel and by
+each stencil block from its frame's gamma, with the same ops.  The halo
+replays each stage's reference: ``pad="wrap"`` for cyclic-roll references,
 ``pad="zero"`` for SAME-padded ones, with the zero halo set after the
 prologue, as the per-stage path pads the prologue's output.
 
 The plain versions ``pointwise_segment_torch`` and
 ``stencil_segment_torch`` walk the frame in ``(bh, bw)`` tiles like the
-TPU kernels (``block`` sizes are theirs only; the CUDA tile is fixed)
-and call each stage's own torch form.  The wrappers take them for CPU
-tensors; for CUDA tensors they launch the kernels or raise.  A CUDA
-kernel cannot call a Python function, so it interprets a descriptor: one
-op code (``DEVICE_OPS``) and one parameter and constant offset per chain
-step, plus the window op.
+TPU kernels (``block`` sizes are theirs only) and call each stage's own
+torch form.  The wrappers take them for CPU tensors; for CUDA tensors
+they launch the kernels or raise.  A CUDA kernel cannot call a Python
+function, so it interprets a descriptor: one op code (``DEVICE_OPS``)
+and one parameter and constant offset per chain step, plus the window
+op.  The stencil kernel's output tile, threads and shared bytes come
+from ``stencil_plan`` (per window op and frame shape, cached), which the
+CPU tests hold to its invariants.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.isp.gamma import gamma_lut
+from repro_torch.isp.gamma import LUT_SIZE, gamma_lut
 from repro_torch.kernels.build import (check_f32, check_launch, load,
                                        stream_of)
 
@@ -52,13 +58,28 @@ WINDOW_RADIUS = {"dpc": 2, "demosaic": 2, "nlm": 4, "sharpen": 1}
 MAX_STEPS = 8       # chain steps a descriptor holds (csrc kMaxSteps)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, out, pvec, stats, consts, lut, then the ints, the descriptor arrays
-# (ops, param offsets, const offsets), the stream
+# x, out, pvec, stats, consts, lut (the stencil: the gamma step's param
+# offset, or -1), then the ints, the descriptor arrays (ops, param
+# offsets, const offsets), the stencil's window op and plan, the stream
 _POINTWISE_SIG = ("isp_pointwise_launch",        # B H W C P S n
                   [_P] * 6 + [_I] * 7 + [_P] * 3 + [_P])
 _STENCIL_SIG = ("isp_stencil_launch",            # B H W Cin Cout P S n
-                [_P] * 6 + [_I] * 8 + [_P] * 3
-                + [_I] * 5 + [_P])               # wop wpoff wcoff r zero
+                [_P] * 5 + [_I] * 9 + [_P] * 3   # wop wpoff wcoff r zero
+                + [_I] * 9 + [_P])               # th tw threads smem
+
+# The stencil kernel's tiles (csrc/isp_fused.cu launch_tile), largest
+# first: one 8x32 tile, a thread an output pixel, for dpc, demosaic and
+# sharpen (on the H100 as fast as any of 8x8 to 16x32 at [8, 64, 64] and
+# at [4, 480, 640]); NLM_THREADS for NLM, whose weight threads each walk
+# a run of a tile row for one of its 7 shift rows.
+LIGHT_TILES = ((8, 32),)
+NLM_TILES = ((16, 16), (8, 16), (8, 8))
+NLM_THREADS = 256
+NLM_SHIFTS = 49
+SMS = 132                       # the H100's streaming multiprocessors
+MIN_BLOCKS = 2 * SMS            # a grid that puts two blocks on every SM
+SMEM_LIMIT = 232448             # shared bytes a block can use (227 KB)
+GRID_LIMIT = 2 ** 31 - 1        # blocks on gridDim.x
 
 
 class ChainStep(NamedTuple):
@@ -179,20 +200,97 @@ def stencil_segment_torch(x, pvec, stats, consts=(), *,
 
 
 # ---------------------------------------------------------------------------
+# the stencil kernel's launch plan
+# ---------------------------------------------------------------------------
+
+class StencilPlan(NamedTuple):
+    """One stencil launch: output tiles of ``th`` x ``tw`` pixels, one
+    block each, ``tiles_y`` x ``tiles_x`` a frame (the column fastest,
+    then the row, then the frame, all on gridDim.x), ``threads`` a block
+    and ``smem`` shared bytes a block (the window, a luminance plane,
+    NLM's weights)."""
+    op: str
+    th: int
+    tw: int
+    threads: int
+    tiles_y: int
+    tiles_x: int
+    blocks: int
+    smem: int
+
+
+def lum_pitch(wx: int) -> int:
+    """The luminance plane's row pitch for a window wx pixels wide
+    (csrc Layout::LumPitch): a 16-float pitch puts two of NLM's shift
+    rows on one bank, so it is widened by 4."""
+    return wx + 4 if wx % 16 == 0 else wx
+
+
+def stencil_smem(op: str, c_in: int, th: int, tw: int) -> int:
+    """Shared bytes of a stencil block (csrc Layout::kFloats): the
+    window's c_in channels (NLM on RGB: a float4 a pixel), the luminance
+    (NLM) or Y (sharpen) plane, NLM's weights [shift][pixel] (a tile's
+    pixels and one more a shift) and the frame's gamma LUT."""
+    r = WINDOW_RADIUS[op]
+    wy, wx = th + 2 * r, tw + 2 * r
+    floats = wy * wx * (4 if op == "nlm" and c_in == 3 else c_in)
+    if op in ("nlm", "sharpen"):
+        floats += wy * lum_pitch(wx)
+    if op == "nlm":
+        floats += NLM_SHIFTS * (th * tw + 1)
+    return 4 * (floats + LUT_SIZE)
+
+
+def op_tiles(op: str):
+    """The output tiles the kernel has an instance of for window op
+    ``op``, largest first."""
+    if op not in WINDOW_OPS:
+        raise ValueError(f"stencil_plan: no window op {op!r}")
+    return NLM_TILES if op == "nlm" else LIGHT_TILES
+
+
+def tile_plan(op: str, B: int, H: int, W: int, c_in: int, th: int,
+              tw: int) -> StencilPlan:
+    """The plan of one of ``op``'s tiles on B frames of H x W."""
+    if (th, tw) not in op_tiles(op):
+        raise ValueError(f"stencil_plan: {op} has no {th}x{tw} tile")
+    ty, tx = -(-H // th), -(-W // tw)
+    blocks = B * ty * tx
+    if blocks > GRID_LIMIT:
+        raise ValueError(f"stencil_plan: {blocks} blocks past gridDim.x")
+    return StencilPlan(op, th, tw, NLM_THREADS if op == "nlm" else th * tw,
+                       ty, tx, blocks, stencil_smem(op, c_in, th, tw))
+
+
+@functools.lru_cache(maxsize=None)
+def stencil_plan(op: str, B: int, H: int, W: int, c_in: int) -> StencilPlan:
+    """The stencil kernel's plan for window op ``op`` on B frames of H x W
+    with c_in channels: the largest of the op's tiles whose grid puts two
+    blocks on every SM (else the smallest tile; dpc, demosaic and sharpen
+    have one), its threads and its shared bytes.  Cached per shape: the
+    tick asks once per segment."""
+    tiles = op_tiles(op)
+    for th, tw in tiles:
+        if B * -(-H // th) * -(-W // tw) >= MIN_BLOCKS:
+            break
+    return tile_plan(op, B, H, W, c_in, th, tw)
+
+
+# ---------------------------------------------------------------------------
 # wrappers of the CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _descriptor(chain, pvec, consts):
+def _descriptor(chain, consts):
     """The chain as the kernels read it: op codes, param offsets and
     constant offsets (in floats of the flattened consts) as ctypes
-    arrays, plus the gamma LUT rows [B, 256] if a step needs them."""
+    arrays, and each constant's start in the flattened consts."""
     if len(chain) > MAX_STEPS:
         raise ValueError(f"isp_fused: {len(chain)} chain steps, at most "
                          f"{MAX_STEPS}")
     starts = [0]
     for c in consts:
         starts.append(starts[-1] + c.numel())
-    ops, poffs, coffs, lut = [], [], [], None
+    ops, poffs, coffs = [], [], []
     for step in chain:
         if step.op not in POINTWISE_OPS:
             raise ValueError(f"isp_fused: chain step {step.names} has no "
@@ -200,18 +298,40 @@ def _descriptor(chain, pvec, consts):
         ops.append(DEVICE_OPS.index(step.op) + 1)
         poffs.append(step.offset)
         coffs.append(starts[step.c_offset])
-        if step.op == "gamma":
-            lut = gamma_lut(pvec[:, step.offset],
-                            device=pvec.device).contiguous()
     arr = ctypes.c_int * MAX_STEPS
-    return (len(chain), arr(*ops), arr(*poffs), arr(*coffs)), lut, starts
+    return (len(chain), arr(*ops), arr(*poffs), arr(*coffs)), starts
+
+
+def gamma_offset(chain) -> int:
+    """The gamma step's parameter column in pvec (the last one's, if
+    several), or -1: the column the gamma LUT is built from."""
+    return next((s.offset for s in reversed(chain) if s.op == "gamma"), -1)
+
+
+_FLAT: "collections.OrderedDict" = collections.OrderedDict()
+_FLAT_MAX = 64
 
 
 def _flat_consts(consts, dev) -> torch.Tensor:
+    """The constants flattened into one float32 tensor on ``dev`` (one
+    zero where there are none), made once per tuple of constant tensors
+    and device: a segment passes the same device tensors every call
+    (``isp.fuse._SegmentExec.consts_on``), so a call adds no device op
+    for them.  The constants are never modified in place."""
+    key = (dev, tuple(id(c) for c in consts))
+    hit = _FLAT.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], consts)):
+        _FLAT.move_to_end(key)
+        return hit[1]
     if not consts:
-        return torch.zeros(1, dtype=torch.float32, device=dev)
-    return torch.cat([c.reshape(-1) for c in consts]).to(
-        device=dev, dtype=torch.float32).contiguous()
+        flat = torch.zeros(1, dtype=torch.float32, device=dev)
+    else:
+        flat = torch.cat([c.reshape(-1) for c in consts]).to(
+            device=dev, dtype=torch.float32).contiguous()
+    _FLAT[key] = (tuple(consts), flat)
+    if len(_FLAT) > _FLAT_MAX:
+        _FLAT.popitem(last=False)
+    return flat
 
 
 def _check_inputs(name, x, pvec, stats):
@@ -236,7 +356,10 @@ def pointwise_segment(x, pvec, stats, consts=(), *,
     if dev.type == "cpu":
         return pointwise_segment_torch(x, pvec, stats, consts, chain=chain,
                                        bh=bh, bw=bw)
-    (n, ops, poffs, coffs), lut, _ = _descriptor(chain, pvec, consts)
+    (n, ops, poffs, coffs), _ = _descriptor(chain, consts)
+    g = gamma_offset(chain)
+    lut = (gamma_lut(pvec[:, g], device=pvec.device).contiguous()
+           if g >= 0 else None)
     B, H, W = x.shape[:3]
     C = x.shape[3] if x.dim() == 4 else 1
     out = torch.empty_like(x)
@@ -260,7 +383,8 @@ def stencil_segment(x, pvec, stats, consts=(), *,
                     out_tail: Tuple[int, ...], bh: int = BH, bw: int = BW):
     """x [B, H, W(, C)] float32, pvec [B, P], stats [B, w], consts a
     tuple of tensors -> [B, H, W] + out_tail.  On a CUDA tensor the
-    window op is ``wstep.op``; ``window_fn`` is the plain form."""
+    window op is ``wstep.op``, launched on its ``stencil_plan``;
+    ``window_fn`` is the plain form."""
     dev = _check_inputs("stencil_segment", x, pvec, stats)
     if dev.type == "cpu":
         return stencil_segment_torch(
@@ -273,8 +397,7 @@ def stencil_segment(x, pvec, stats, consts=(), *,
     if pad not in ("wrap", "zero") or len(out_tail) > 1:
         raise ValueError(f"stencil_segment: pad {pad!r}, out_tail "
                          f"{out_tail}")
-    (n, ops, poffs, coffs), lut, starts = _descriptor(prologue, pvec,
-                                                      consts)
+    (n, ops, poffs, coffs), starts = _descriptor(prologue, consts)
     B, H, W = x.shape[:3]
     c_in = x.shape[3] if x.dim() == 4 else 1
     c_out = out_tail[0] if out_tail else 1
@@ -283,14 +406,15 @@ def stencil_segment(x, pvec, stats, consts=(), *,
     if out.numel() == 0:
         return out
     flat = _flat_consts(consts, dev)
+    plan = stencil_plan(wstep.op, B, H, W, c_in)
     lib = load("isp_fused", _STENCIL_SIG)
     with torch.cuda.device(dev):
         err = lib.isp_stencil_launch(
             x.data_ptr(), out.data_ptr(), pvec.data_ptr(), stats.data_ptr(),
-            flat.data_ptr(), 0 if lut is None else lut.data_ptr(),
+            flat.data_ptr(), gamma_offset(prologue),
             B, H, W, c_in, c_out, pvec.shape[1], stats.shape[1], n, ops,
             poffs, coffs, DEVICE_OPS.index(wstep.op) + 1, wstep.offset,
-            starts[wstep.c_offset], radius, int(pad == "zero"),
-            stream_of(dev))
+            starts[wstep.c_offset], radius, int(pad == "zero"), plan.th,
+            plan.tw, plan.threads, plan.smem, stream_of(dev))
     check_launch("isp_stencil_segment", err)
     return out

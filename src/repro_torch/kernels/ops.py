@@ -59,11 +59,17 @@ def spike_dwconv_op(xf: torch.Tensor, w: torch.Tensor, *,
     return spike_dwconv(xf.contiguous(), w.contiguous(), stride=stride)
 
 
-def max_pool_op(xf: torch.Tensor, *, window: int = 2,
+def max_pool_op(x: torch.Tensor, *, window: int = 2,
                 gated: bool = True) -> torch.Tensor:
-    """Gated max-pool of a folded [N, H, W, C] spike tensor ->
-    [N, H//window, W//window, C], VALID, stride = window."""
-    return max_pool(xf.contiguous(), window=window, gated=gated)
+    """Gated max-pool, VALID, stride = window.  x [T, B, H, W, C] spikes
+    as they lie (no fold copy; a layout the kernel does not take
+    raises) -> [T, B, H//window, W//window, C], the ``unfold`` view of
+    the kernel's batch-major output; a folded [N, H, W, C] (contiguous)
+    -> [N, H//window, W//window, C]."""
+    if x.dim() == 5:
+        T, B = x.shape[:2]
+        return unfold(max_pool(x, window=window, gated=gated), T, B)
+    return max_pool(x, window=window, gated=gated)
 
 
 def norm_affine_lif_op(y: torch.Tensor, scale, bias, *, tau: float = 2.0,
@@ -188,7 +194,7 @@ def _seg_unfused(x, params, specs, lif):
             x = spike_conv_lif_op(fold(x), w, scale, bias, T=T, B=B,
                                   stride=s.stride, **lif)
         if s.pool:
-            x = unfold(max_pool_op(fold(x), window=s.pool), T, B)
+            x = max_pool_op(x, window=s.pool)
     return x
 
 

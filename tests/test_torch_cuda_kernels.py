@@ -13,10 +13,13 @@ are bit-exact (equal); NLM is held at atol 1e-6, its exp and the plain
 version's may differ in the last bit.  The fused ISP segments replay
 their plain versions op for op (equal for [exposure+dpc], [demosaic] and
 [awb*+gamma]); sharpen's colour matrices are einsums on the plain side,
-summed in another order, and NLM has its exp (atol 1e-6).  The
+summed in another order, and NLM has its exp (atol 1e-6); every tile a
+stencil op has an instance of gives its plan's bits.  The
 depthwise conv replays the plain tap loop's roundings (equal, on spikes
 and on real values, under any tiles) and the
-max-pool has no rounding (equal, both gate modes).  The spike matmul's
+max-pool has no rounding (equal, both gate modes, also read from [T, B]
+spikes where they lie: contiguous, a batch-major view, a base pointer
+off 16 bytes).  The spike matmul's
 small path (the control head's) sums the tiled path's canonical chain
 (equal to it).  The spike conv kernel reads the folded spikes (implicit im2col)
 and gives the gated GEMM's bits on the materialised patches under every
@@ -49,9 +52,9 @@ import torch
 from repro_torch.core.encoding import (OOB_POLICIES, VOXEL_MODES,
                                        EventStream, events_to_voxel_batch)
 from repro_torch.configs.registry import ISP_CONFIGS
-from repro_torch.core.layers import (blocked_matmul, instance_norm_affine,
-                                     pool_slices, spike_conv as conv_plain,
-                                     spike_im2col)
+from repro_torch.core.layers import (blocked_matmul, fold,
+                                     instance_norm_affine, pool_slices,
+                                     spike_conv as conv_plain, spike_im2col)
 from repro_torch.isp.demosaic import demosaic_mhc
 from repro_torch.isp.fuse import compile_plan, segment_call
 from repro_torch.isp.nlm import nlm_denoise
@@ -68,6 +71,7 @@ from repro_torch.kernels.demosaic import demosaic
 from repro_torch.kernels.event_voxel import event_voxel
 from repro_torch.kernels import lif_scan as klif
 from repro_torch.kernels.lif_scan import lif_scan, norm_affine_lif
+from repro_torch.kernels import isp_fused as isp_mod
 from repro_torch.kernels.max_pool import max_pool
 from repro_torch.kernels.nlm import nlm
 from repro_torch.kernels.spike_conv import GATES as CONV_GATES
@@ -470,6 +474,45 @@ def test_max_pool_matches_plain(dev, shape, density, gated):
                        pool_slices(real, 3))
 
 
+# (T, B, H, W, C, window): VGG's first pool, DenseNet's last (C = 66, the
+# 4-byte lanes), a window-3 pool with a ragged tail, a row of 8 lanes
+TB_POOLS = [(5, 8, 64, 64, 32, 2), (5, 8, 16, 16, 66, 2),
+            (3, 2, 11, 13, 8, 3), (2, 3, 8, 8, 4, 2)]
+
+
+def _offset(t, floats=1):
+    """t's values in a tensor whose base pointer is ``floats`` floats past
+    a 16-byte boundary (the kernel takes its 4-byte lanes there)."""
+    buf = torch.zeros(t.numel() + floats, device=t.device)
+    out = buf[floats:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("layout", ["tb", "batch_major", "misaligned"])
+@pytest.mark.parametrize("case", TB_POOLS)
+def test_max_pool_on_tb_spikes_matches_plain(dev, case, layout, gated):
+    """The [T, B] entry on the layer's spikes where they lie (contiguous
+    in [T, B] order, the unfold view of a batch-major tensor, or a base
+    pointer off a 16-byte boundary), one frame silent: bit-equal to
+    pool_slices(fold(x))."""
+    T, B, H, W, C, window = case
+    rng = np.random.default_rng(C + window)
+    x = _spikes(rng, (T, B, H, W, C), 0.2).to(dev)
+    x[0, 0] = 0.0                               # a silent frame
+    if layout == "batch_major":
+        x = fold(x).contiguous().reshape(B, T, H, W, C).transpose(0, 1)
+    elif layout == "misaligned":
+        x = _offset(x)
+    want = pool_slices(fold(x), window)
+    got = max_pool(x, window=window, gated=gated)
+    assert got.shape == (B * T, H // window, W // window, C)
+    assert torch.equal(got, want)
+    assert torch.equal(ops.max_pool_op(x, window=window, gated=gated),
+                       want.reshape(B, T, *want.shape[1:]).transpose(0, 1))
+
+
 @pytest.mark.parametrize("M,K,N,density", [(40, 64, 8, 0.3), (40, 64, 8, 0.0),
                                            (300, 200, 33, 0.1)])
 def test_spike_matmul_matches_plain(dev, M, K, N, density):
@@ -595,7 +638,8 @@ EXACT_SEGMENTS = ("[exposure+dpc]", "[demosaic]", "[awb*+gamma]")
 
 
 @pytest.mark.parametrize("name", ["fused", "hdr_fused", "fast_preview"])
-@pytest.mark.parametrize("B,H,W", [(8, 64, 64), (2, 37, 53)])
+@pytest.mark.parametrize("B,H,W", [(8, 64, 64), (2, 37, 53), (4, 480, 640),
+                                   (1, 5, 7), (4, 128, 128)])
 def test_isp_fused_segments_match_plain(dev, name, B, H, W):
     """Every segment of the ordering's plan, its kernel against its plain
     version on the same inputs, per-frame control vectors."""
@@ -618,6 +662,37 @@ def test_isp_fused_segments_match_plain(dev, name, B, H, W):
             torch.testing.assert_close(got, want, atol=1e-6, rtol=0,
                                        msg=label)
         x = want.contiguous()
+
+
+@pytest.mark.parametrize("B,H,W", [(2, 37, 53), (1, 5, 7)])
+def test_isp_stencil_every_tile_equal(dev, B, H, W, monkeypatch):
+    """Every stencil segment of the hdr ordering under each tile its op
+    has an instance of gives the bits of its plan's tile; a plan whose
+    threads or shared bytes are not the instance's is refused."""
+    rng = np.random.default_rng(W)
+    stages = ISP_CONFIGS["hdr_fused"].stages
+    x = torch.tensor(rng.uniform(0, 1, (B, H, W)).astype(np.float32),
+                     device=dev)
+    ctrl = torch.tensor(rng.uniform(
+        0, 1, (B, ISP_CONFIGS["hdr_fused"].control_dim)).astype(np.float32),
+        device=dev)
+    sp = control_to_stage_params(ctrl, stages)
+    for ex in compile_plan(stages):
+        kernel, plain, args, kw = segment_call(ex, x, sp)
+        if ex.segment.stencil is not None:
+            op, c_in = ex.wstep.op, x.shape[3] if x.dim() == 4 else 1
+            want = kernel(*args, **kw)
+            for th, tw in isp_mod.op_tiles(op):
+                plan = isp_mod.tile_plan(op, B, H, W, c_in, th, tw)
+                monkeypatch.setattr(isp_mod, "stencil_plan",
+                                    lambda *_, p=plan: p)
+                assert torch.equal(kernel(*args, **kw), want)
+            bad = plan._replace(smem=plan.smem + 4)
+            monkeypatch.setattr(isp_mod, "stencil_plan", lambda *_: bad)
+            with pytest.raises(RuntimeError, match="failed to launch"):
+                kernel(*args, **kw)
+            monkeypatch.undo()
+        x = plain(*args, **kw).contiguous()
 
 
 # (T, B, H, density, silent batch elements, specs)
@@ -750,6 +825,8 @@ def test_launch_counters(dev):
     max_pool(xf, gated=True)
     max_pool(xf, gated=False)
     max_pool(xf.cpu())                                      # plain
+    max_pool(xf.reshape(2, 1, 8, 8, 4))                  # [T, B] entry
+    max_pool(xf.reshape(2, 1, 8, 8, 4).cpu())            # plain
     one = torch.ones(4, device=dev)
     w4 = torch.ones(3, 3, 4, 4, device=dev)
     spike_conv_lif(xf, w4, one, one, T=1, B=2)
@@ -768,4 +845,4 @@ def test_launch_counters(dev):
                               "event_voxel": 1, "demosaic": 1, "nlm": 1,
                               "isp_stencil_segment": 2,
                               "isp_pointwise_segment": 1,
-                              "spike_dwconv": 1, "max_pool": 2}
+                              "spike_dwconv": 1, "max_pool": 3}

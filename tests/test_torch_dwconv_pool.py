@@ -173,3 +173,76 @@ def test_max_pool_wrapper_rejects_bad_input():
         max_pool(torch.zeros(4, 4, 2))
     with pytest.raises(TypeError, match="float32"):
         max_pool(torch.zeros(1, 4, 4, 2, dtype=torch.float64))
+
+
+def _cuda_cfg():
+    from repro_torch.configs.registry import reduced_snn
+    return dataclasses.replace(reduced_snn("spiking_vgg"), backend="cuda")
+
+
+@pytest.mark.parametrize("window", [2, 3])
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("shape", [(3, 2, 8, 10, 6), (5, 3, 9, 7, 66)])
+def test_layer_max_pool_on_tb_spikes_matches_jax(shape, density, window):
+    """layers.max_pool under a "cuda" config (max_pool_op, then the
+    max_pool wrapper, which reads the [T, B] spikes where they lie; on
+    the CPU its plain version) equals the JAX jnp pool, an all-silent
+    frame included."""
+    x = _spikes(shape, density, shape[-1] + window)
+    x[0, 0] = 0.0
+    want = np.asarray(jl.max_pool(jnp.asarray(x), window))
+    got = tl.max_pool(torch.tensor(x), window, _cuda_cfg())
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(tl.max_pool(torch.tensor(x), window, None), got)
+
+
+def test_pool_output_folds_as_a_view():
+    """The pool writes batch-major and returns its unfold view, so the
+    next layer's fold is a view of the pool's output: same storage and
+    base pointer, batch-major strides, no copy."""
+    from repro_torch.kernels.max_pool import max_pool
+    x = torch.tensor(_spikes((5, 3, 8, 8, 4), 0.3, 3))
+    y = tl.max_pool(x, 2, _cuda_cfg())
+    assert y.shape == (5, 3, 4, 4, 4)
+    assert y.stride()[:2] == (4 * 4 * 4, 5 * 4 * 4 * 4)   # [B, T] storage
+    f = tl.fold(y)
+    assert f.data_ptr() == y.data_ptr()
+    assert f.untyped_storage().data_ptr() == y.untyped_storage().data_ptr()
+    assert f.is_contiguous() and f.shape == (15, 4, 4, 4)
+    yf = max_pool(x)                       # the kernel's own output
+    assert yf.is_contiguous() and yf.shape == (15, 4, 4, 4)
+    assert torch.equal(ops.max_pool_op(x), tl.unfold(yf, 5, 3))
+
+
+def test_max_pool_reads_images_where_they_lie():
+    """The wrapper's [T, B] entry and its image strides: [T, B]
+    contiguous spikes, the unfold view of a batch-major tensor and
+    single-step or single-image dims; a layout that is not whole images
+    raises (no hidden copy)."""
+    from repro_torch.kernels.max_pool import image_strides, max_pool
+    x = torch.tensor(_spikes((4, 3, 6, 6, 5), 0.4, 9))
+    img = 6 * 6 * 5
+    assert image_strides(x) == (3, 1)
+    bm = tl.unfold(tl.fold(x).contiguous(), 4, 3)
+    assert image_strides(bm) == (1, 4)
+    assert image_strides(x[:1]) == (0, 1)
+    assert image_strides(x[:, :1]) == (3, 0)
+    assert x.stride(1) == img
+    want = tl.pool_slices(tl.fold(x), 2)
+    for inp in (x, bm):
+        assert torch.equal(max_pool(inp), want)
+    for bad in (x[:, :, :, ::2], x.permute(0, 1, 3, 2, 4), x[..., :4]):
+        with pytest.raises(ValueError, match="not whole"):
+            max_pool(bad)
+        with pytest.raises(ValueError, match="not whole"):
+            ops.max_pool_op(bad)
+    # a folded batch of whole images, every other one: read in place
+    xf = tl.fold(x)
+    assert torch.equal(max_pool(xf[::2]), tl.pool_slices(xf[::2], 2))
+    with pytest.raises(ValueError, match="T, B, H, W, C"):
+        max_pool(x[0, 0, 0])
+    with pytest.raises(ValueError, match="window"):
+        max_pool(x, window=5)
+    with pytest.raises(TypeError, match="float32"):
+        max_pool(x.double())
