@@ -37,9 +37,21 @@ Phases (any failure raises and exits non-zero):
              tick's own encode and ISP inputs: event_voxel equal to its
              plain version in every mode x oob policy on the 8 event
              windows of the request set, and again with NaN, +-inf and
-             +-1e10 timestamps, and the ISP walked stage by
+             +-1e10 timestamps; the tick's encode (encode_batch on
+             "cuda": one launch, each window binned from its events or
+             copied from the staged voxel windows) equal to its plain
+             form and to the parent's kernel + torch.where (where
+             build/earlier/event_voxel.cu holds a copy of its source:
+             `git show 2f15604:src/repro_torch/kernels/csrc/
+             event_voxel.cu`), with every window from events and with
+             half of them staged, one device op a call (torch.profiler);
+             and the ISP walked stage by
              stage with the stage params of the kernel NPU's control
-             vector: demosaic equal, nlm within 1e-6 (max |err| printed).
+             vector: demosaic equal, nlm within 1e-6 (max |err| printed),
+             bit-equal to its earlier design (where build/earlier/nlm.cu
+             holds a copy of its source: `git show 2f15604:src/
+             repro_torch/kernels/csrc/nlm.cu`), a scalar strength equal
+             to a tensor of it, one device op a call for either.
              Then the fused ISP backend ("cuda_fused") on the same frames,
              for the default (ISP_CONFIGS["fused"]), hdr and fast_preview
              orderings, segment by segment: each segment's kernel
@@ -83,7 +95,7 @@ Phases (any failure raises and exits non-zero):
              bit-equal to each other and allclose to the plain GEMM; and
              the kernels that once held the batch on gridDim.y or .z
              (norm_affine_lif, event_voxel -- also at 65537 time steps --,
-             spike_conv_lif, backbone_segment, isp_stencil_segment,
+             encode_batch, spike_conv_lif, backbone_segment, isp_stencil_segment,
              max_pool's [T, B] entry, and
              flash_attention's "mma_sync" and "f32" designs at Sq = 1, one
              head, d = 64, also within the bar of the plain scan) at batch
@@ -128,7 +140,13 @@ Phases (any failure raises and exits non-zero):
              2798f1c:src/repro_torch/kernels/csrc/isp_fused.cu`, timed
              with the parent wrapper's torch ops), the plain version's
              and the bound; plus demosaic, nlm and the fused segments on
-             an [8, 512, 512] batch.  The kernels line takes the NPU rows
+             an [8, 512, 512] batch (nlm beside its earlier design and
+             bit-equal to it); rows 9 and 11 (event_voxel as the tick's
+             encode_batch, nlm) beside their earlier designs timed with
+             the parent's wrapper ops (its torch.where select; its
+             torch-built luminance and bandwidth), printed as one
+             "tick_rows" line with each call's device ops.  The kernels
+             line takes the NPU rows
              from spiking-YOLO's tick (spike_conv_lif at every firing conv,
              as its forced-fused tick runs it), spike_dwconv from
              MobileNet's, max_pool from VGG's plus DenseNet's and
@@ -312,7 +330,7 @@ GRID_CAP_BATCH = 205
 BIG_BATCH = 65537
 BATCH_CAP_TAIL = 4
 BATCH_CAP_KERNELS = ("norm_affine_lif", "event_voxel", "event_voxel_steps",
-                     "spike_conv_lif", "backbone_segment", "stencil_segment",
+                     "encode_batch", "spike_conv_lif", "backbone_segment", "stencil_segment",
                      "max_pool",
                      "flash_mma_sync", "flash_f32")
 # [T, B, HW, C] of every norm_affine_lif launch of the four backbones'
@@ -930,6 +948,75 @@ def earlier_segment():
         return out
     run.operands = operands
     return run
+
+
+def earlier_nlm():
+    """nlm's earlier design (one thread a pixel running the serial
+    nlm_pixel, 49 weights with a divide and an exp each), built from a
+    copy of its source at build/earlier/nlm.cu (`git show
+    2f15604:src/repro_torch/kernels/csrc/nlm.cu > build/earlier/nlm.cu`),
+    as a function (img, strength) -> out doing what the parent's wrapper
+    did around the launch (the bandwidth h and the luminance plane by
+    torch ops on every call); None where there is no copy."""
+    import ctypes
+    import torch
+    from repro_torch.isp.nlm import luminance, nlm_bandwidth
+    fn = _earlier("nlm", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p])
+    if fn is None:
+        return None
+
+    def run(img, strength):
+        chans = img[..., None] if img.dim() == 3 else img
+        B, H, W, C = chans.shape
+        h = nlm_bandwidth(strength, img.device)
+        h = (h.expand(B) if h.dim() == 0 else h).contiguous()
+        lum = luminance(chans)
+        out = torch.empty_like(chans)
+        err = fn(chans.data_ptr(), lum.data_ptr(), h.data_ptr(),
+                 out.data_ptr(), B, H, W, C,
+                 torch.cuda.current_stream(img.device).cuda_stream)
+        check(err == 0, f"the earlier nlm failed to launch: cudaError {err}")
+        return out.reshape(img.shape)
+    return run
+
+
+def earlier_event_voxel():
+    """event_voxel's earlier design (a block per (window, time bin, 8192
+    cells), each walking all of its window's events), built from a copy
+    of its source at build/earlier/event_voxel.cu (`git show
+    2f15604:src/repro_torch/kernels/csrc/event_voxel.cu >
+    build/earlier/event_voxel.cu`), as a function (evs, **kw) -> [B, T,
+    H, W, 2]; the parent's tick selected from it with a torch.where on
+    its [T, B] view.  None where there is no copy."""
+    import ctypes
+    import torch
+    fn = _earlier("event_voxel", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p])
+    if fn is None:
+        return None
+    modes = {"binary": 0, "count": 1, "signed": 2}
+
+    def run(evs, *, time_steps, height, width, window=1.0, mode="binary",
+            oob="clip"):
+        B, N = evs.t.shape
+        out = torch.empty((B, time_steps, height, width, 2),
+                          device=evs.t.device)
+        err = fn(*(a.data_ptr() for a in evs), out.data_ptr(), B, N,
+                 time_steps, height, width, window, modes[mode],
+                 int(oob == "drop"),
+                 torch.cuda.current_stream(evs.t.device).cuda_stream)
+        check(err == 0, f"the earlier event_voxel failed to launch: "
+              f"cudaError {err}")
+        return out
+    return run
+
+
+def ms_or_none(fn):
+    """time_ms(fn), or None where there is no fn (an earlier design not
+    built)."""
+    return None if fn is None else time_ms(fn)
 
 
 def _sum_or_none(a, b):
@@ -1844,11 +1931,16 @@ def isp_pool_phase(archs, dev, card):
 
 
 def tick_kernel_phase(params, cfg, reqs, dev):
-    """event_voxel, demosaic and nlm on the all-kernel tick's own
-    inputs, each held to its plain version and timed."""
+    """event_voxel (as the tick's encode, encode_batch: one launch),
+    demosaic and nlm on the all-kernel tick's own inputs, each held to
+    its plain version and timed; rows 9 and 11 beside their earlier
+    designs (with the parent's wrapper ops: its torch.where select, its
+    torch-built luminance and bandwidth), with the device ops of a call,
+    printed as one "tick_rows" line."""
     import torch
     from repro_torch.configs.registry import ISP_CONFIGS
     from repro_torch.core.encoding import (OOB_POLICIES, VOXEL_MODES,
+                                           encode_batch,
                                            events_to_voxel_batch,
                                            voxel_batch)
     from repro_torch.core.npu import npu_forward
@@ -1861,40 +1953,87 @@ def tick_kernel_phase(params, cfg, reqs, dev):
     from repro_torch.kernels.nlm import nlm
 
     st = {k: KernelStats() for k in TICK_KERNELS}
+    rows = {}
     evs = event_windows(reqs, dev)
     kw = dict(time_steps=cfg.time_steps, height=cfg.height, width=cfg.width)
-    for mode in VOXEL_MODES:
-        for oob in OOB_POLICIES:
-            got = event_voxel(evs, mode=mode, oob=oob, **kw)
-            want = events_to_voxel_batch(evs, mode=mode, oob=oob, **kw)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want),
-                  f"event_voxel {mode}/{oob} is not bit-exact")
     B, N = evs.t.shape
+    # the staged voxel windows of the request set, [T, B] as the bank
+    # holds them; the event tick takes every window from its events, a
+    # mixed one half of them from the staged grid
+    staged = torch.stack([torch.as_tensor(r.voxels) for r in reqs
+                          if r.voxels is not None][:B], dim=1).to(dev)
+    every = torch.ones(B, dtype=torch.bool, device=dev)
+    mixed = torch.arange(B, device=dev) % 2 == 0
+    old_ev = earlier_event_voxel()
+
+    def parent_encode(e, fe, **k):
+        """the parent's tick encode: its kernel, then the select"""
+        return torch.where(fe[None, :, None, None, None],
+                           old_ev(e, **k).transpose(0, 1), staged)
+
+    def encode_cases(e, label):
+        for mode in VOXEL_MODES:
+            for oob in OOB_POLICIES:
+                k = dict(kw, mode=mode, oob=oob)
+                got = event_voxel(e, **k)
+                want = events_to_voxel_batch(e, **k)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"event_voxel {mode}/{oob} is not bit-exact{label}")
+                for fe in (every, mixed):
+                    got = encode_batch(e, staged, fe, backend="cuda", **k)
+                    want = encode_batch(e, staged, fe, backend="torch", **k)
+                    torch.cuda.synchronize()
+                    # the kernel writes the batch-major grid, so the
+                    # first layer's fold of its [T, B] view is a view
+                    check(torch.equal(got, want) and (
+                        got.transpose(0, 1).is_contiguous()
+                        or got.device.type == "cpu"),
+                          f"encode_batch {mode}/{oob} is not its plain "
+                          f"form{label}")
+                    if old_ev is not None:
+                        check(torch.equal(got, parent_encode(e, fe, **k)),
+                              f"encode_batch {mode}/{oob} is not the "
+                              f"parent's encode{label}")
+
+    encode_cases(evs, "")
     grid = B * cfg.time_steps * cfg.height * cfg.width * 2
     live = int(evs.valid.sum())
+    enc_ops = profile_window(
+        lambda: encode_batch(evs, staged, every, backend="cuda", **kw), 5)[2]
+    check(enc_ops == 1, f"encode_batch: {enc_ops} device ops a call, want 1")
+    row9 = {"ms": time_ms(lambda: encode_batch(evs, staged, every,
+                                               backend="cuda", **kw)),
+            "event_voxel_ms": time_ms(lambda: event_voxel(evs, **kw)),
+            "earlier_ms": ms_or_none(old_ev and (
+                lambda: parent_encode(evs, every, **kw))),
+            "earlier_kernel_ms": ms_or_none(old_ev and (
+                lambda: old_ev(evs, **kw))),
+            "plain_ms": time_ms(lambda: encode_batch(
+                evs, staged, every, backend="torch", **kw)),
+            "device_ops": enc_ops,
+            "earlier_device_ops": old_ev and profile_window(
+                lambda: parent_encode(evs, every, **kw), 5)[2]}
     st["event_voxel"].add(
-        (B, N), time_ms(lambda: event_voxel(evs, **kw)),
-        time_ms(lambda: events_to_voxel_batch(evs, **kw)),
-        B * N * 17 + grid * 4, 10 * B * N + grid, 0.0)
-    print(f"  event_voxel [B,N]=({B},{N}) {live} live events: bit-exact in "
-          f"{len(VOXEL_MODES) * len(OOB_POLICIES)} mode x oob cases")
+        (B, N), row9["ms"], row9["plain_ms"], B * N * 17 + B + grid * 4,
+        10 * B * N + grid, 0.0)
+    row9["bound_ms"] = st["event_voxel"].bound_ms
+    rows["event_voxel"] = row9
+    print(f"  event_voxel [B,N]=({B},{N}) {live} live events: event_voxel "
+          f"and encode_batch (every window from events, and half from the "
+          f"staged grid) bit-exact in "
+          f"{len(VOXEL_MODES) * len(OOB_POLICIES)} mode x oob cases"
+          + ("" if old_ev else "; the earlier design not built"))
     # non-finite and huge timestamps: the kernel saturates as the plain
     # version does (NaN -> bin 0; +inf -> past the last bin; -inf -> before
     # the first), each of them on 4 events of every window
     t = evs.t.clone()
     for i, v in enumerate(NONFINITE_T):
         t[:, 4 * i:4 * i + 4] = v
-    odd = evs._replace(t=t, valid=torch.ones_like(evs.valid))
-    for mode in VOXEL_MODES:
-        for oob in OOB_POLICIES:
-            got = event_voxel(odd, mode=mode, oob=oob, **kw)
-            want = events_to_voxel_batch(odd, mode=mode, oob=oob, **kw)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want), f"event_voxel {mode}/{oob} is not "
-                  f"bit-exact with non-finite timestamps")
-    print(f"  event_voxel with timestamps {NONFINITE_T}: bit-exact in every "
-          f"mode x oob case")
+    encode_cases(evs._replace(t=t, valid=torch.ones_like(evs.valid)),
+                 " with non-finite timestamps")
+    print(f"  event_voxel, encode_batch with timestamps {NONFINITE_T}: "
+          f"bit-exact in every mode x oob case")
 
     # the ISP stage by stage, with the kernel NPU's control on these windows
     isp_cfg = ISP_CONFIGS["cuda"]
@@ -1922,22 +2061,44 @@ def tick_kernel_phase(params, cfg, reqs, dev):
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             check(err <= NLM_TOL, f"nlm max|err| {err:.3g} > {NLM_TOL}")
+            old = earlier_nlm()
+            if old is not None:
+                check(torch.equal(got, old(x, s)),
+                      "nlm is not bit-equal to its earlier design")
+            s0 = float(s[0])
+            check(torch.equal(nlm(x, s0), nlm(x, torch.full_like(s, s0))),
+                  "nlm: a scalar strength differs from a tensor of it")
+            ops = {"tensor": profile_window(lambda: nlm(x, s), 5)[2],
+                   "scalar": profile_window(lambda: nlm(x, s0), 5)[2]}
+            check(ops == {"tensor": 1, "scalar": 1},
+                  f"nlm: device ops a call {ops}, want 1")
             Bx, H, W, C = x.shape
-            st["nlm"].add(
-                (Bx, H, W, C), time_ms(lambda: nlm(x, s)),
-                time_ms(lambda: nlm_denoise(x, s)), 2 * x.numel() * 4 + Bx * 4,
-                nlm_ops(Bx, H, W, C), err)
+            row11 = {"ms": time_ms(lambda: nlm(x, s)),
+                     "earlier_ms": ms_or_none(old and (lambda: old(x, s))),
+                     "plain_ms": time_ms(lambda: nlm_denoise(x, s)),
+                     "device_ops": ops,
+                     "earlier_device_ops": old and profile_window(
+                         lambda: old(x, s), 5)[2],
+                     "max_abs_err": err}
+            st["nlm"].add((Bx, H, W, C), row11["ms"], row11["plain_ms"],
+                          2 * x.numel() * 4 + Bx * 4, nlm_ops(Bx, H, W, C),
+                          err)
+            row11["bound_ms"] = st["nlm"].bound_ms
+            rows["nlm"] = row11
             print(f"  nlm [B,H,W,C]=({Bx},{H},{W},{C}) strengths "
-                  f"{[round(float(v), 3) for v in s]} max|err| {err:.3g}")
+                  f"{[round(float(v), 3) for v in s]} max|err| {err:.3g}"
+                  + (", bit-equal to the earlier design" if old
+                     else "; the earlier design not built"))
             x = got
         else:
             x = get_stage(name).impl_for("torch")(x, p)
+    print("  tick_rows " + json.dumps(rows))
     return st
 
 
 def large_isp_line(dev):
-    """demosaic, nlm and the fused segments on an [8, 512, 512] batch:
-    printed lines."""
+    """demosaic, nlm (beside its earlier design) and the fused segments
+    on an [8, 512, 512] batch: printed lines."""
     import torch
     from repro_torch.isp.demosaic import demosaic_mhc
     from repro_torch.isp.nlm import nlm_denoise
@@ -1953,12 +2114,17 @@ def large_isp_line(dev):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     check(err <= NLM_TOL, f"nlm max|err| {err:.3g} at 512x512")
+    old = earlier_nlm()
+    check(old is None or torch.equal(got, old(rgb, strength)),
+          "nlm is not bit-equal to its earlier design at 512x512")
     n = BATCH * LARGE_HW * LARGE_HW
     row = {"shape": [BATCH, LARGE_HW, LARGE_HW],
            "demosaic": {"ms": time_ms(lambda: demosaic(raw)),
                         "plain_ms": time_ms(lambda: demosaic_mhc(raw)),
                         "bound_ms": n * 16 / HBM_BYTES_PER_S * 1e3},
            "nlm": {"ms": time_ms(lambda: nlm(rgb, strength)),
+                   "earlier_ms": ms_or_none(old and (
+                       lambda: old(rgb, strength))),
                    "plain_ms": time_ms(lambda: nlm_denoise(rgb, strength)),
                    "bound_ms": max(nlm_ops(BATCH, LARGE_HW, LARGE_HW, 3)
                                    / FP32_FLOPS, n * 24 / HBM_BYTES_PER_S)
@@ -2304,7 +2470,8 @@ def batch_cap_run(name, dev):
     (the kernel, its plain version)."""
     import torch
     from repro_torch.configs.registry import ISP_CONFIGS
-    from repro_torch.core.encoding import EventStream, events_to_voxel_batch
+    from repro_torch.core.encoding import (EventStream, encode_batch,
+                                           events_to_voxel_batch)
     from repro_torch.isp.fuse import compile_plan, segment_call
     from repro_torch.isp.stages import control_to_stage_params
     from repro_torch.kernels.backbone_fuse import LayerSpec
@@ -2328,18 +2495,25 @@ def batch_cap_run(name, dev):
         sc, bi = rand(5) + 0.5, rand(5) - 0.5
         return (norm_affine_lif(y, sc, bi)[:, -n:],
                 norm_affine_lif(y[:, -n:].contiguous(), sc, bi))
-    if name in ("event_voxel", "event_voxel_steps"):
-        b, T = (B, 2) if name == "event_voxel" else (2, B)
+    if name in ("event_voxel", "event_voxel_steps", "encode_batch"):
+        b, T = (2, B) if name == "event_voxel_steps" else (B, 2)
         N, H, W = 16, 4, 4
         evs = EventStream(
             t=rand(b, N), x=(rand(b, N) * W).int(), y=(rand(b, N) * H).int(),
             p=(rand(b, N) * 2).int(), valid=rand(b, N) < 0.9)
         kw = dict(time_steps=T, height=H, width=W, mode="count")
+        tail = EventStream(*(a[-n:] for a in evs))
+        if name == "encode_batch":
+            # every third window staged as voxels
+            vox = rand(T, b, H, W, 2)
+            fe = torch.arange(b, device=dev) % 3 != 0
+            return (encode_batch(evs, vox, fe, backend="cuda", **kw)[:, -n:],
+                    encode_batch(tail, vox[:, -n:].contiguous(), fe[-n:],
+                                 backend="cuda", **kw))
         got = event_voxel(evs, **kw)
         if name == "event_voxel_steps":
             return got, events_to_voxel_batch(evs, **kw)
-        return got[-n:], event_voxel(EventStream(*(a[-n:] for a in evs)),
-                                     **kw)
+        return got[-n:], event_voxel(tail, **kw)
     if name == "spike_conv_lif":
         T, N = 2, 4
         xf = spikes(B * T, 1, 2, 2)

@@ -13,9 +13,11 @@ Semantics, as in the reference:
 The plain scatter is one ``index_put_(..., accumulate=True)`` of ones
 into a flat float32 grid with a dump slot for dead events: adding 1.0 to
 integer counts below 2^24 is exact in any order, so the grid is
-bit-identical to the reference.  ``voxel_batch`` dispatches on the
-encoding backend: ``"torch"`` is that plain scatter, ``"cuda"`` the
-voxelization kernel (:mod:`repro_torch.kernels.event_voxel`).
+bit-identical to the reference.  ``voxel_batch`` and the tick's
+``encode_batch`` (the grid, or a window's staged voxels where it came
+as voxels) dispatch on the encoding backend: ``"torch"`` is that plain
+scatter, ``"cuda"`` the voxelization kernel
+(:mod:`repro_torch.kernels.event_voxel`).
 
 It also carries the batched EventStream plumbing of the reference:
 stacking and concatenating bounded event buffers, validity-masked
@@ -144,6 +146,25 @@ def voxel_batch(evs: EventStream, *, backend: str = "torch",
         raise ValueError(f"unknown encoding backend {backend!r}; known: "
                          f"{ENCODING_BACKENDS}")
     return vox.transpose(0, 1)
+
+
+def encode_batch(evs: EventStream, voxels: torch.Tensor,
+                 from_events: torch.Tensor, *, backend: str = "torch",
+                 **kw) -> torch.Tensor:
+    """The tick's encode on the encoding ``backend``: leaves [B, N], the
+    staged voxel windows [T, B, H, W, 2] and ``from_events`` [B] bool ->
+    [T, B, H, W, 2], window b's grid from its events where
+    ``from_events[b]``, else its staged grid.  ``"torch"``: the plain
+    scatter and a ``torch.where``; ``"cuda"``: one launch of the
+    voxelization kernel, which copies a staged window in place of
+    binning it (the [T, B] view of a batch-major grid, as
+    ``voxel_batch``'s)."""
+    if backend == "cuda":
+        # imported here: the kernel module imports this one
+        from repro_torch.kernels.event_voxel import event_voxel_encode
+        return event_voxel_encode(evs, voxels, from_events, **kw)
+    enc = voxel_batch(evs, backend=backend, **kw)
+    return torch.where(from_events[None, :, None, None, None], enc, voxels)
 
 
 # ---------------------------------------------------------------------------

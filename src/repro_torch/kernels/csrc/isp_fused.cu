@@ -49,15 +49,12 @@
 //   dpc, demosaic, sharpen: one thread per output pixel; demosaic's
 // threads grouped by Bayer phase, each phase's two filters with the zero
 // taps dropped when the kernel compiles (isp::mhc_rgb_c).
-//   nlm: the 49 weights of a pixel over 7 threads, one a shift row.  A
-// thread walks nlm_walk(TW) pixels along a tile row and computes its 7
-// shifts at each, so the squared differences and box columns of a shift
-// are shared between neighbouring pixels (one column a step, not nine
-// differences a pixel) and the shifted luminances slide through
-// registers (six loads a step for seven weights); the weights go to
-// shared memory, [shift][pixel]; then one thread a pixel sums the
-// weights and the weighted values in nlm_pixel's shift order.  Every op
-// is nlm_pixel's in its order, so the segment keeps the bits of a
+//   nlm: the NLM tile of nlm_tile.cuh (shared with nlm.cu): the 49
+// weights of a pixel over 7 threads, one a shift row, walking a run of
+// pixels with the box columns shared and the shifted luminances in a
+// register ring, the weights [shift][pixel] in shared memory; then one
+// thread a pixel sums them in nlm_pixel's shift order.  Every op is
+// nlm_pixel's in its order, so the segment keeps the bits of a
 // pixel-per-thread nlm_pixel.
 //
 // What bounds it on the H100: bytes for the pointwise chains, dpc,
@@ -81,6 +78,7 @@
 
 #include "cluster_slab.cuh"
 #include "isp_common.cuh"
+#include "nlm_tile.cuh"
 
 namespace {
 
@@ -89,12 +87,6 @@ using repro::FastDiv;
 constexpr int kMaxSteps = 8;      // kernels/isp_fused.py MAX_STEPS
 constexpr int kLut = 256;
 constexpr int kMaxThreads = 256;  // the largest stencil block (8 x 32)
-constexpr int kNlmThreads = 256;  // kernels/isp_fused.py NLM_THREADS
-constexpr int kShifts = 49;       // the 7 x 7 search
-
-// pixels a weight thread walks along a tile row (kernels/isp_fused.py
-// nlm_walk): 2 on the tick's 8-wide tiles (more threads), 8 on wider ones
-__host__ __device__ constexpr int nlm_walk(int tw) { return tw == 8 ? 2 : 8; }
 
 enum Op {
   kExposure = 1, kAwb, kGamma, kTonemap, kCcm,   // pointwise
@@ -219,25 +211,24 @@ __host__ __device__ constexpr int op_radius(int op) {
 // The shared-memory plane layout of one instance, in floats: the window
 // (C channels a pixel; nlm on RGB: a float4 a pixel, so the sums read a
 // pixel at once), a luminance plane (nlm, sharpen) with row pitch
-// LumPitch, and for nlm the weights [shift][pixel], WPitch = TH * TW + 1
-// a shift (one more than a tile, so the seven shifts a weight thread
-// stores at once, and the next threads' pixels, fall on distinct banks).
+// LumPitch, and for nlm the weights [shift][pixel]: NLM's planes are the
+// NLM tile's (isp::NlmTile in nlm_tile.cuh); then the gamma LUT.
 template <int kOp, int kC, int TH, int TW>
 struct Layout {
   static constexpr int R = op_radius(kOp);
   static constexpr int WY = TH + 2 * R, WX = TW + 2 * R;   // window side
   static constexpr int kPix = WY * WX;
-  // a 16-float (mod 32) pitch puts two shift rows on one bank; +4 spreads
-  static constexpr int LumPitch = WX % 16 == 0 ? WX + 4 : WX;
+  static constexpr int LumPitch = isp::lum_pitch(WX);
   static constexpr bool kLum = kOp == kNlm || kOp == kSharpen;
-  static constexpr int kWinC = kOp == kNlm && kC == 3 ? 4 : kC;
+  static constexpr int kWinC = kOp == kNlm ? isp::nlm_win_c(kC) : kC;
   static constexpr int kWin = 0;
   static constexpr int kAux = kPix * kWinC;
   static constexpr int kWts = kAux + (kLum ? WY * LumPitch : 0);
   static constexpr int WPitch = TH * TW + 1;
-  static constexpr int kLutAt = kWts + (kOp == kNlm ? kShifts * WPitch : 0);
+  static constexpr int kLutAt =
+      kWts + (kOp == kNlm ? isp::kNlmShifts * WPitch : 0);
   static constexpr int kFloats = kLutAt + kLut;     // the gamma LUT
-  static constexpr int kThreads = kOp == kNlm ? kNlmThreads : TH * TW;
+  static constexpr int kThreads = kOp == kNlm ? isp::kNlmThreads : TH * TW;
   static constexpr int kCout = kOp == kDemosaic ? 3 : kC;
 };
 
@@ -323,109 +314,18 @@ stencil_kernel(const StencilArgs a) {
 
   float* dst = a.out + (int64_t)b * H * W * Lay::kCout;
   if constexpr (kOp == kNlm) {
-    // The weights.  Item i = (tile row ty, walker g, shift row dy), dy
-    // fastest: the thread walks kWalk pixels of row ty and computes all
-    // 7 shifts (dx) of its row at each, each shift's box columns kept in
-    // registers from the pixel before.  The box column at window column X
-    // is the squared differences at rows ty, ty - 1, ty + 1 (window rows
-    // Yc, Yc - 1, Yc + 1) against the pixels (dy, dx) away; those shifted
-    // pixels slide one column a step, so a step loads the three centre
-    // and three new shifted luminances into a ring of 7 columns.
-    constexpr int kWalk = nlm_walk(TW), kWalkers = TW / kWalk;
-    static_assert(TW % kWalk == 0, "a tile row is whole walks");
-    float* wts = smem + Lay::kWts;
+    // the NLM tile's weight and sum passes over the staged window
+    using Tile = isp::NlmTile<kC, TH, TW>;
+    static_assert(Tile::kLum == Lay::kAux && Tile::kWts == Lay::kWts &&
+                      Tile::LumPitch == LP && Tile::WPitch == Lay::WPitch &&
+                      Tile::kFloats == Lay::kLutAt,
+                  "the stencil's NLM planes are the NLM tile's");
     const float h = __fadd_rn(__fmul_rn(0.2f, pv[a.wpoff]), 1e-3f);
-    const float hh = __fmul_rn(h, h);
-    for (int i = threadIdx.x; i < 7 * TH * kWalkers; i += blockDim.x) {
-      const int row = i % 7, r = i / 7;
-      const int g = r % kWalkers, ty = r / kWalkers;
-      const int dy = row - 3;
-      const int X0 = g * kWalk + R;              // the run's first column
-      const float* cen = aux + (ty + R) * LP;    // window row Yc
-      const float* shf = cen - dy * LP;          // window row Yc - dy
-      // ring[k][rr]: shifted luminance at column X - 3 + k, row rr - 1
-      float ring[7][3];
-#pragma unroll
-      for (int k = 0; k < 7; ++k)
-#pragma unroll
-        for (int rr = 0; rr < 3; ++rr)
-          ring[k][rr] = shf[(rr - 1) * LP + X0 - 1 - 3 + k];
-      // shift dx = d - 3's box column at X, whose centre luminances are
-      // c[0..2] (rows Yc - 1, Yc, Yc + 1): it reads ring column X - dx
-      auto col = [&](const float* c, int d) {
-        const float* sv = ring[6 - d];
-        return isp::nlm_col(isp::nlm_sq(c[1], sv[1]),
-                            isp::nlm_sq(c[0], sv[0]),
-                            isp::nlm_sq(c[2], sv[2]));
-      };
-      auto centre = [&](int X, float* c) {
-        c[0] = cen[X - LP];
-        c[1] = cen[X];
-        c[2] = cen[X + LP];
-      };
-      auto slide = [&](int X) {   // the ring from column X's to X + 1's
-#pragma unroll
-        for (int k = 0; k < 6; ++k)
-#pragma unroll
-          for (int rr = 0; rr < 3; ++rr) ring[k][rr] = ring[k + 1][rr];
-#pragma unroll
-        for (int rr = 0; rr < 3; ++rr)
-          ring[6][rr] = shf[(rr - 1) * LP + X + 4];
-      };
-      float left[7], mid[7], c[3];
-      centre(X0 - 1, c);
-#pragma unroll
-      for (int d = 0; d < 7; ++d) left[d] = col(c, d);
-      slide(X0 - 1);
-      centre(X0, c);
-#pragma unroll
-      for (int d = 0; d < 7; ++d) mid[d] = col(c, d);
-      float* wp = wts + row * 7 * Lay::WPitch + ty * TW + X0 - R;
-#pragma unroll
-      for (int j = 0; j < kWalk; ++j) {
-        slide(X0 + j);
-        centre(X0 + j + 1, c);
-#pragma unroll
-        for (int d = 0; d < 7; ++d) {
-          const float right = col(c, d);
-          wp[d * Lay::WPitch + j] =
-              isp::nlm_weight(mid[d], left[d], right, hh);
-          left[d] = mid[d];
-          mid[d] = right;
-        }
-      }
-    }
+    isp::nlm_weights<TH, TW, LP, Lay::WPitch>(aux, smem + Lay::kWts,
+                                              __fmul_rn(h, h));
     __syncthreads();
-    // The sums: one thread a pixel, wsum and the C channels' weighted
-    // values in nlm_pixel's shift order; shift (dy, dx) reads the pixel
-    // at (y - dy, x - dx).
-    for (int p = threadIdx.x; p < TH * TW; p += blockDim.x) {
-      const int ty = p / TW, tx = p % TW;
-      const int y = y0 + ty, x = x0 + tx;
-      if (y >= H || x >= W) continue;
-      const int ctr = (ty + R) * WX + tx + R;    // the pixel in the window
-      float wsum = 0.f, acc[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-      for (int s = 0; s < kShifts; ++s) {
-        const int dy = s / 7 - 3, dx = s % 7 - 3;
-        const int at = ctr - dy * WX - dx;
-        const float w = wts[s * Lay::WPitch + p];
-        wsum = __fadd_rn(wsum, w);
-        if constexpr (kC == 3) {
-          const float4 v = reinterpret_cast<const float4*>(win)[at];
-          acc[0] = __fadd_rn(acc[0], __fmul_rn(w, v.x));
-          acc[1] = __fadd_rn(acc[1], __fmul_rn(w, v.y));
-          acc[2] = __fadd_rn(acc[2], __fmul_rn(w, v.z));
-        } else {
-          acc[0] = __fadd_rn(acc[0], __fmul_rn(w, win[at]));
-        }
-      }
-      // torch.clamp(wsum, min=1e-9): NaN passes through
-      const float den = (!isnan(wsum) && wsum < 1e-9f) ? 1e-9f : wsum;
-      float* o = dst + ((int64_t)y * W + x) * kC;
-#pragma unroll
-      for (int c = 0; c < kC; ++c) o[c] = __fdiv_rn(acc[c], den);
-    }
+    isp::nlm_sums<kC, TH, TW, Lay::WPitch>(win, smem + Lay::kWts, y0, x0, H,
+                                           W, dst);
     return;
   } else {
     for (int p = threadIdx.x; p < TH * TW; p += blockDim.x) {

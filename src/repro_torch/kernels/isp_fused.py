@@ -76,6 +76,11 @@ LIGHT_TILES = ((8, 32),)
 NLM_TILES = ((16, 16), (8, 16), (8, 8))
 NLM_THREADS = 256
 NLM_SHIFTS = 49
+# the input channels a window op's instances take: the stencil segment
+# runs NLM on 1 or 3, the standalone NLM kernel (csrc/nlm.cu, the same
+# tile) on 1 to 4
+OP_CHANNELS = {"dpc": (1,), "demosaic": (1,), "nlm": (1, 2, 3, 4),
+               "sharpen": (3,)}
 SMS = 132                       # the H100's streaming multiprocessors
 MIN_BLOCKS = 2 * SMS            # a grid that puts two blocks on every SM
 SMEM_LIMIT = 232448             # shared bytes a block can use (227 KB)
@@ -221,23 +226,35 @@ class StencilPlan(NamedTuple):
 
 def lum_pitch(wx: int) -> int:
     """The luminance plane's row pitch for a window wx pixels wide
-    (csrc Layout::LumPitch): a 16-float pitch puts two of NLM's shift
-    rows on one bank, so it is widened by 4."""
+    (csrc/nlm_tile.cuh lum_pitch): a 16-float pitch puts two of NLM's
+    shift rows on one bank, so it is widened by 4."""
     return wx + 4 if wx % 16 == 0 else wx
+
+
+def nlm_tile_smem(c_in: int, th: int, tw: int) -> int:
+    """Shared bytes of the NLM tile (csrc/nlm_tile.cuh NlmTile::kFloats,
+    the standalone NLM kernel's block): the window's c_in channels (a
+    float4 a pixel for 3), the luminance plane and the weights
+    [shift][pixel] (a tile's pixels and one more a shift)."""
+    r = WINDOW_RADIUS["nlm"]
+    wy, wx = th + 2 * r, tw + 2 * r
+    floats = wy * wx * (4 if c_in == 3 else c_in) + wy * lum_pitch(wx)
+    return 4 * (floats + NLM_SHIFTS * (th * tw + 1))
 
 
 def stencil_smem(op: str, c_in: int, th: int, tw: int) -> int:
     """Shared bytes of a stencil block (csrc Layout::kFloats): the
     window's c_in channels (NLM on RGB: a float4 a pixel), the luminance
     (NLM) or Y (sharpen) plane, NLM's weights [shift][pixel] (a tile's
-    pixels and one more a shift) and the frame's gamma LUT."""
+    pixels and one more a shift) -- NLM's planes are the NLM tile's --
+    and the frame's gamma LUT."""
+    if op == "nlm":
+        return nlm_tile_smem(c_in, th, tw) + 4 * LUT_SIZE
     r = WINDOW_RADIUS[op]
     wy, wx = th + 2 * r, tw + 2 * r
-    floats = wy * wx * (4 if op == "nlm" and c_in == 3 else c_in)
-    if op in ("nlm", "sharpen"):
+    floats = wy * wx * c_in
+    if op == "sharpen":
         floats += wy * lum_pitch(wx)
-    if op == "nlm":
-        floats += NLM_SHIFTS * (th * tw + 1)
     return 4 * (floats + LUT_SIZE)
 
 
@@ -254,6 +271,9 @@ def tile_plan(op: str, B: int, H: int, W: int, c_in: int, th: int,
     """The plan of one of ``op``'s tiles on B frames of H x W."""
     if (th, tw) not in op_tiles(op):
         raise ValueError(f"stencil_plan: {op} has no {th}x{tw} tile")
+    if c_in not in OP_CHANNELS[op]:
+        raise ValueError(f"stencil_plan: {op} has no instance on {c_in} "
+                         f"channels")
     ty, tx = -(-H // th), -(-W // tw)
     blocks = B * ty * tx
     if blocks > GRID_LIMIT:
@@ -268,7 +288,9 @@ def stencil_plan(op: str, B: int, H: int, W: int, c_in: int) -> StencilPlan:
     with c_in channels: the largest of the op's tiles whose grid puts two
     blocks on every SM (else the smallest tile; dpc, demosaic and sharpen
     have one), its threads and its shared bytes.  Cached per shape: the
-    tick asks once per segment."""
+    tick asks once per segment.  The standalone NLM kernel takes its
+    tile and threads from ``stencil_plan("nlm", ...)`` too (its shared
+    bytes: ``nlm_tile_smem``, without the LUT)."""
     tiles = op_tiles(op)
     for th, tw in tiles:
         if B * -(-H // th) * -(-W // tw) >= MIN_BLOCKS:

@@ -23,7 +23,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.configs.base import EncodingConfig, ISPConfig, SNNConfig
-from repro_torch.core.encoding import ENCODING_BACKENDS, voxel_batch
+from repro_torch.core.encoding import ENCODING_BACKENDS, encode_batch
 from repro_torch.core.npu import NPUOutput, npu_forward, params_to, \
     resolve_device
 from repro_torch.isp.pipeline import (control_vector_pipeline_batch,
@@ -89,14 +89,15 @@ class EngineCore:
         self.tune_table: Optional[tune.TuningTable] = tune_table
 
     # ------------------------------------------------------------------
-    def _encode(self, events):
-        """Every slot's event FIFO -> [T, B, H, W, 2] on the encoding
-        backend ("cuda": the voxelization kernel)."""
+    def _encode(self, events, voxels, from_events):
+        """Every slot's event FIFO, or its staged voxels where it was
+        submitted as voxels -> [T, B, H, W, 2] on the encoding backend
+        ("cuda": one launch of the voxelization kernel)."""
         c, e = self.cfg, self.enc_cfg
-        return voxel_batch(events, backend=e.backend,
-                           time_steps=c.time_steps, height=c.height,
-                           width=c.width, window=e.window, mode=e.mode,
-                           oob=e.oob)
+        return encode_batch(events, voxels, from_events, backend=e.backend,
+                            time_steps=c.time_steps, height=c.height,
+                            width=c.width, window=e.window, mode=e.mode,
+                            oob=e.oob)
 
     @torch.no_grad()
     def step(self, voxels, bayer, events, from_events):
@@ -105,9 +106,7 @@ class EngineCore:
         with tune.pinned(self.tune_table):
             if self.cfg.in_channels == 2:
                 with record_function("tick.encode"):
-                    enc = self._encode(events)
-                    voxels = torch.where(
-                        from_events[None, :, None, None, None], enc, voxels)
+                    voxels = self._encode(events, voxels, from_events)
             with record_function("tick.npu"):
                 out = npu_forward(self.params, voxels, self.cfg,
                                   collect_sparsity=self.collect_sparsity)

@@ -50,7 +50,8 @@ import pytest
 import torch
 
 from repro_torch.core.encoding import (OOB_POLICIES, VOXEL_MODES,
-                                       EventStream, events_to_voxel_batch)
+                                       EventStream, encode_batch,
+                                       events_to_voxel_batch)
 from repro_torch.configs.registry import ISP_CONFIGS
 from repro_torch.core.layers import (blocked_matmul, fold,
                                      instance_norm_affine, pool_slices,
@@ -595,11 +596,20 @@ def _events(rng, B, N, T, H, W, *, live=0.8, hot=False):
                        torch.tensor(rng.random((B, N)) < live))
 
 
-@pytest.mark.parametrize("case", ["path", "empty", "overfull", "odd"])
+# (B, N, T, H, W): the tick's windows, none live, every event on four
+# cells, a frame that is no whole number of 16-byte groups, a DAVIS346
+# frame and a 720p one (several clusters a window), and a buffer of an
+# odd length (4-byte event loads)
+VOXEL_CASES = {"path": (8, 2048, 5, 64, 64), "empty": (2, 512, 5, 16, 16),
+               "overfull": (2, 8192, 3, 16, 12), "odd": (3, 300, 7, 37, 53),
+               "davis346": (2, 4096, 5, 260, 346),
+               "hd720": (2, 4096, 5, 720, 1280),
+               "odd_buffer": (3, 301, 5, 16, 12)}
+
+
+@pytest.mark.parametrize("case", list(VOXEL_CASES))
 def test_event_voxel_bitexact(dev, case):
-    B, N, T, H, W = {"path": (8, 2048, 5, 64, 64), "empty": (2, 512, 5, 16, 16),
-                     "overfull": (2, 8192, 3, 16, 12),
-                     "odd": (3, 300, 7, 37, 53)}[case]
+    B, N, T, H, W = VOXEL_CASES[case]
     rng = np.random.default_rng(len(case))
     evs = _events(rng, B, N, T, H, W, live=0.0 if case == "empty" else 0.8,
                   hot=case == "overfull")
@@ -613,6 +623,34 @@ def test_event_voxel_bitexact(dev, case):
             assert torch.equal(got.cpu(), events_to_voxel_batch(evs, **kw))
 
 
+@pytest.mark.parametrize("case", ["path", "odd", "davis346", "hd720",
+                                  "odd_buffer"])
+def test_encode_batch_matches_plain(dev, case):
+    """The tick's encode on "cuda" (one launch: the grid of each window
+    from events, the staged voxels of the others, the [T, B] view of a
+    batch-major grid, so the next fold is a view) equal to its plain
+    form, in every mode x oob policy, with a mask that mixes windows."""
+    B, N, T, H, W = VOXEL_CASES[case]
+    rng = np.random.default_rng(N)
+    evs = EventStream(*(a.to(dev) for a in _events(rng, B, N, T, H, W)))
+    vox = torch.tensor(rng.uniform(-1, 2, (T, B, H, W, 2)).astype(np.float32),
+                       device=dev)
+    for mask in (np.arange(B) % 2 == 0, np.ones(B, bool), np.zeros(B, bool)):
+        fe = torch.tensor(mask, device=dev)
+        for mode in VOXEL_MODES:
+            for oob in OOB_POLICIES:
+                kw = dict(time_steps=T, height=H, width=W, mode=mode,
+                          oob=oob)
+                build.reset_launches()
+                got = encode_batch(evs, vox, fe, backend="cuda", **kw)
+                assert build.LAUNCHES == {"event_voxel": 1}
+                assert got.shape == vox.shape
+                assert fold(got).data_ptr() == got.data_ptr()
+                assert got.transpose(0, 1).is_contiguous()
+                want = encode_batch(evs, vox, fe, backend="torch", **kw)
+                assert torch.equal(got, want), (mask, mode, oob)
+
+
 @pytest.mark.parametrize("B,H,W", [(8, 64, 64), (2, 37, 53)])
 def test_demosaic_bitexact(dev, B, H, W):
     raw = torch.tensor(np.random.default_rng(H).uniform(
@@ -621,7 +659,8 @@ def test_demosaic_bitexact(dev, B, H, W):
 
 
 @pytest.mark.parametrize("B,H,W,C", [(8, 64, 64, 3), (2, 128, 96, 3),
-                                     (2, 20, 17, 1)])
+                                     (2, 20, 17, 1), (2, 33, 40, 2),
+                                     (3, 24, 31, 4), (1, 5, 7, 3)])
 def test_nlm_matches_plain(dev, B, H, W, C):
     rng = np.random.default_rng(H + C)
     img = torch.tensor(rng.uniform(0, 1, (B, H, W, C)).astype(np.float32),
@@ -631,6 +670,30 @@ def test_nlm_matches_plain(dev, B, H, W, C):
     got = nlm(img, strength)
     torch.testing.assert_close(got, nlm_denoise(img, strength), atol=1e-6,
                                rtol=0)
+    # a scalar strength is the same as a tensor of it
+    same = torch.full((B,), float(strength[0]), device=dev)
+    assert torch.equal(nlm(img, float(strength[0])), nlm(img, same))
+
+
+@pytest.mark.parametrize("B,H,W,C", [(8, 64, 64, 3), (2, 37, 53, 1),
+                                     (1, 5, 7, 3), (2, 40, 48, 1)])
+def test_nlm_equals_stencil_nlm(dev, B, H, W, C):
+    """nlm and the stencil segment with an empty prologue and the nlm
+    window op run the same NLM tile: equal bits."""
+    from repro_torch.isp.nlm import nlm_window
+    rng = np.random.default_rng(W + C)
+    img = torch.tensor(rng.uniform(0, 1, (B, H, W, C)).astype(np.float32),
+                       device=dev)
+    x = img[..., 0] if C == 1 else img
+    strength = torch.tensor(rng.uniform(0, 1, B).astype(np.float32),
+                            device=dev)
+    wstep = isp_mod.ChainStep(fn=nlm_window, names=("strength",), offset=0,
+                              op="nlm")
+    seg = isp_mod.stencil_segment(
+        x, strength[:, None].contiguous(), torch.zeros(B, 1, device=dev),
+        prologue=(), window_fn=nlm_window, wstep=wstep, radius=4,
+        pad="wrap", out_tail=() if C == 1 else (C,))
+    assert torch.equal(nlm(x, strength), seg)
 
 
 # plan segments that give the plain version's bits

@@ -10,8 +10,10 @@ import pytest
 from repro_torch.kernels import isp_fused as K
 
 # (window op, input channels) as the fused orderings launch them; NLM also
-# on a mosaic
-OPS = [("dpc", 1), ("demosaic", 1), ("nlm", 3), ("nlm", 1), ("sharpen", 3)]
+# on a mosaic, and on 2 and 4 channels as the standalone NLM kernel
+# (csrc/nlm.cu, the same NLM tile) takes them
+OPS = [("dpc", 1), ("demosaic", 1), ("nlm", 3), ("nlm", 1), ("sharpen", 3),
+       ("nlm", 2), ("nlm", 4)]
 FRAMES = [(8, 64, 64), (2, 37, 53), (1, 5, 7), (4, 480, 640)]
 
 
@@ -99,6 +101,9 @@ def test_shared_bytes_of_each_tile(op, c_in):
     for th, tw in K.op_tiles(op):
         wy, wx = th + 2 * r, tw + 2 * r
         want = wy * wx * (4 if op == "nlm" and c_in == 3 else c_in)
+        if op == "nlm":     # the NLM tile's planes, without the LUT
+            tile = want + wy * K.lum_pitch(wx) + 49 * (th * tw + 1)
+            assert K.nlm_tile_smem(c_in, th, tw) == 4 * tile
         if op == "nlm":
             assert want % 4 == 0 and wy * K.lum_pitch(wx) % 4 == 0
         if op in ("nlm", "sharpen"):
@@ -121,3 +126,6 @@ def test_plan_is_cached_and_refuses_what_it_cannot_launch():
         K.tile_plan("dpc", 1, 8, 8, 1, 32, 32)
     with pytest.raises(ValueError, match="gridDim.x"):
         K.tile_plan("dpc", 2 ** 31, 8, 8, 1, 8, 32)
+    for op, c_in in (("nlm", 5), ("sharpen", 1), ("dpc", 3)):
+        with pytest.raises(ValueError, match="no instance on"):
+            K.stencil_plan(op, 1, 8, 8, c_in)
