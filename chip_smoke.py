@@ -21,7 +21,13 @@ Phases (any failure raises and exits non-zero):
              (the gated GEMM's bits), spike_conv and spike_matmul allclose
              atol=1e-4 rtol=1e-5 to their plain versions, spike_matmul's
              "small" path (the control head's) bit-equal to its "tiled"
-             path on the head's input and on 30% spikes, lif_scan equal,
+             path on the head's input and on 30% spikes, lif_scan with
+             the control head's bias added in its launch equal to the
+             plain scan of currents + bias (the layer's bias and a
+             seeded random one) and to the parent's path, the add then
+             the earlier kernel (where build/earlier/lif_scan.cu holds a
+             copy of its source: `git show aef84b2:src/repro_torch/
+             kernels/csrc/lif_scan.cu`), one device op a call,
              norm_affine_lif spikes equal to the CPU replay of its
              statistics contract (testing.norm_affine_lif_contract) and
              to its earlier design's (where build/earlier holds its
@@ -47,7 +53,12 @@ Phases (any failure raises and exits non-zero):
              half of them staged, one device op a call (torch.profiler);
              and the ISP walked stage by
              stage with the stage params of the kernel NPU's control
-             vector: demosaic equal, nlm within 1e-6 (max |err| printed),
+             vector: demosaic equal to its plain version, to the earlier
+             design (where build/earlier/demosaic.cu holds a copy of its
+             source, with aef84b2's isp_common.cuh beside it) and to
+             the [demosaic] stencil segment, one device op a call (and
+             so on ragged [2, 37, 53], [3, 5, 7], [8, 512, 512] and VGA
+             [4, 480, 640] frames), nlm within 1e-6 (max |err| printed),
              bit-equal to its earlier design (where build/earlier/nlm.cu
              holds a copy of its source: `git show 2f15604:src/
              repro_torch/kernels/csrc/nlm.cu`), a scalar strength equal
@@ -141,11 +152,15 @@ Phases (any failure raises and exits non-zero):
              with the parent wrapper's torch ops), the plain version's
              and the bound; plus demosaic, nlm and the fused segments on
              an [8, 512, 512] batch (nlm beside its earlier design and
-             bit-equal to it); rows 9 and 11 (event_voxel as the tick's
-             encode_batch, nlm) beside their earlier designs timed with
-             the parent's wrapper ops (its torch.where select; its
-             torch-built luminance and bandwidth), printed as one
-             "tick_rows" line with each call's device ops.  The kernels
+             bit-equal to it); demosaic beside its earlier design and the
+             [demosaic] segment at every shape above (one
+             "demosaic_shapes" line); rows 3, 9, 10 and 11 (lif_scan with
+             the bias beside the parent's add + kernel, event_voxel as
+             the tick's encode_batch, demosaic, nlm) beside their earlier
+             designs timed with the parent's wrapper ops (its add; its
+             torch.where select; its torch-built luminance and
+             bandwidth), printed as one "tick_rows" line with each call's
+             device ops.  The kernels
              line takes the NPU rows
              from spiking-YOLO's tick (spike_conv_lif at every firing conv,
              as its forced-fused tick runs it), spike_dwconv from
@@ -190,7 +205,8 @@ Phases (any failure raises and exits non-zero):
              cognitive_step(use_cuda=True)) against its plain run at the
              same bars; then the tick latency (p50, p90) of spiking-YOLO's
              four engines and every other all-kernel engine (untuned,
-             forced-fused, swept, forced-segment), in turns;
+             forced-fused, swept, forced-segment), in turns, and each of
+             those engines' device ops a tick (torch.profiler, printed);
 6. LM      — after the SNN engines' memory is released: full-width
              qwen2-7b (28 layers, bf16, random weights from a CUDA
              generator seeded 0; parameter count and bytes resident
@@ -317,6 +333,7 @@ LARGE_HW = 512                  # the extra demosaic/nlm timing line
 VGA = (4, 480, 640)             # a VGA batch: the work, not the launch, sets
 #                                 the stencil segments' time
 RAGGED = (2, 37, 53)            # frames that are no whole number of tiles
+TINY = (3, 5, 7)                # frames smaller than a stencil tile
 POOL_DENSITY = 0.15             # the seeded spikes of --isp-pool-phase
 SPIN_CYCLES_PER_S = 2e9         # ~ the H100's SM clock, for the spin kernel
 # the grid-cap check: VGG's first layer at this batch has more 64-row
@@ -330,8 +347,8 @@ GRID_CAP_BATCH = 205
 BIG_BATCH = 65537
 BATCH_CAP_TAIL = 4
 BATCH_CAP_KERNELS = ("norm_affine_lif", "event_voxel", "event_voxel_steps",
-                     "encode_batch", "spike_conv_lif", "backbone_segment", "stencil_segment",
-                     "max_pool",
+                     "encode_batch", "spike_conv_lif", "backbone_segment",
+                     "stencil_segment", "demosaic", "max_pool",
                      "flash_mma_sync", "flash_f32")
 # [T, B, HW, C] of every norm_affine_lif launch of the four backbones'
 # untuned ticks at batch 8 (norm_shapes; tests/test_torch_norm_lif.py
@@ -686,7 +703,10 @@ def _earlier(name, argtypes, symbol=None):
     """The launch function (``symbol``, default ``<name>_launch``) of
     kernel ``name``'s earlier design, built with the kernels' nvcc flags
     from a copy of its source at build/earlier/<source>; None where there
-    is no copy."""
+    is no copy.  Headers are looked up in build/earlier first, then in
+    csrc: copies of the earlier headers there (``isp_common.cuh`` from
+    aef84b2 for the earlier demosaic and stencil designs, which call its
+    runtime-tap ``mhc_rgb``) take precedence over today's."""
     import ctypes
     from repro_torch.kernels import build
     src = EARLIER / build.SOURCES[name]
@@ -695,8 +715,9 @@ def _earlier(name, argtypes, symbol=None):
     if name not in _EARLIER_LIBS:
         lib_path = EARLIER / f"lib{name}.so"
         done = subprocess.run(
-            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
-             str(lib_path), str(src)], capture_output=True, text=True,
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(EARLIER), "-I",
+             str(build.CSRC), "-o", str(lib_path), str(src)],
+            capture_output=True, text=True,
             timeout=300)
         check(done.returncode == 0, f"the earlier {name} does not "
               f"build:\n{done.stdout}{done.stderr}")
@@ -981,6 +1002,59 @@ def earlier_nlm():
     return run
 
 
+def earlier_demosaic():
+    """demosaic's earlier design (one thread a pixel over the whole
+    [B, H, W], a 64-bit index decode, runtime taps from constant memory,
+    the four Bayer phases in every warp), built from a copy of its source
+    at build/earlier/demosaic.cu (`git show
+    aef84b2:src/repro_torch/kernels/csrc/demosaic.cu`, with that commit's
+    isp_common.cuh beside it), as a function raw -> rgb; None where there
+    is no copy."""
+    import ctypes
+    import torch
+    fn = _earlier("demosaic", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p])
+    if fn is None:
+        return None
+
+    def run(raw):
+        B, H, W = raw.shape
+        out = torch.empty((B, H, W, 3), device=raw.device)
+        err = fn(raw.data_ptr(), out.data_ptr(), B, H, W,
+                 torch.cuda.current_stream(raw.device).cuda_stream)
+        check(err == 0, f"the earlier demosaic failed to launch: "
+              f"cudaError {err}")
+        return out
+    return run
+
+
+def earlier_lif_scan():
+    """lif_scan's earlier design (no bias: the dense layer's add was a
+    torch op before it), built from a copy of its source at
+    build/earlier/lif_scan.cu (`git show
+    aef84b2:src/repro_torch/kernels/csrc/lif_scan.cu`), as a function
+    (currents [T, N], **lif_kw) -> spikes; None where there is no
+    copy."""
+    import ctypes
+    import torch
+    from repro_torch.core.lif import f32_decay
+    fn = _earlier("lif_scan", [ctypes.c_void_p] * 2
+                  + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_float] * 3
+                  + [ctypes.c_void_p])
+    if fn is None:
+        return None
+
+    def run(cur, *, tau, v_th, v_reset):
+        T, N = cur.shape
+        out = torch.empty_like(cur)
+        err = fn(cur.data_ptr(), out.data_ptr(), T, N, f32_decay(tau), v_th,
+                 v_reset, torch.cuda.current_stream(cur.device).cuda_stream)
+        check(err == 0, f"the earlier lif_scan failed to launch: "
+              f"cudaError {err}")
+        return out
+    return run
+
+
 def earlier_event_voxel():
     """event_voxel's earlier design (a block per (window, time bin, 8192
     cells), each walking all of its window's events), built from a copy
@@ -1152,8 +1226,6 @@ def kernel_phase(params, cfg, vox):
     import torch
     import torch.nn.functional as F
     from repro_torch.core import layers as L
-    from repro_torch.core.lif import lif_scan as lif_plain
-    from repro_torch.kernels.lif_scan import lif_scan
     from repro_torch.kernels.spike_conv import GATES as CONV_GATES
     from repro_torch.kernels.spike_conv import (conv_tiles, occupancy_mask,
                                                 spike_conv)
@@ -1339,21 +1411,11 @@ def kernel_phase(params, cfg, vox):
           f"{'/'.join(CONV_GATES)}, max|err| "
           f"{float((got - plain).abs().max()):.3g}")
 
-    # control head: ctrl_hidden fires through lif_scan, ctrl_out is the
-    # spike-input matmul
+    # control head: ctrl_hidden fires through lif_scan with the dense
+    # layer's bias in its launch, ctrl_out is the spike-input matmul
     ph, po = params["ctrl_hidden"], params["ctrl_out"]
-    cur = (feats.mean(dim=(2, 3)) @ ph["w"] + ph["bias"])
-    flat = cur.reshape(T, -1).contiguous()
-    s_k = lif_scan(flat, **lif_kw)
-    s_p = lif_plain(flat, **lif_kw)
-    torch.cuda.synchronize()
-    check(torch.equal(s_k, s_p), "lif_scan is not bit-exact")
-    st["lif_scan"].add(tuple(flat.shape),
-                       time_ms(lambda: lif_scan(flat, **lif_kw)),
-                       time_ms(lambda: lif_plain(flat, **lif_kw)),
-                       2 * flat.numel() * 4, 8 * flat.numel(), 0.0)
-    print(f"  lif_scan [T,N]={tuple(flat.shape)} spikes "
-          f"{float(s_k.mean()):.3f} bit-exact")
+    s_k = control_fire_check(feats.mean(dim=(2, 3)) @ ph["w"], ph["bias"],
+                             st["lif_scan"], lif_kw)
 
     hx = s_k.reshape(T * B, -1).contiguous()
     rnd = (torch.rand(hx.shape, device=hx.device,
@@ -1391,6 +1453,63 @@ def kernel_phase(params, cfg, vox):
         segment_check(params["backbone"], cfg, seg,
                       seg_inputs[seg.layers[0].name], st, lif_kw)
     return st
+
+
+def control_fire_check(y, bias, st, lif_kw):
+    """The control head's firing on its own currents y = pooled @ w
+    [T, B, C] and the layer's bias [C]: lif_scan with the bias in its
+    launch equal to the plain scan of y + bias (also with a seeded
+    random bias: the served one is zero at init) and to the parent's
+    path, the add then the earlier kernel (where build/earlier holds its
+    source); one device op a call against the parent's two; timed
+    beside them into ``st``.  Returns the spikes [T, B * C]."""
+    import numpy as np
+    import torch
+    from repro_torch.core.lif import lif_scan as lif_plain
+    from repro_torch.kernels.lif_scan import lif_scan
+    T, C = y.shape[0], y.shape[-1]
+    flat = y.reshape(T, -1).contiguous()
+    old = earlier_lif_scan()
+    rnd = torch.tensor(np.random.default_rng(7).normal(0.0, 0.5, C)
+                       .astype(np.float32), device=y.device)
+    for b, label in ((bias, "the layer's bias"), (rnd, "a random bias")):
+        got = lif_scan(flat, bias=b, **lif_kw)
+        cur = (y + b).reshape(T, -1)
+        want = lif_plain(cur, **lif_kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"lif_scan with {label} is not the "
+              f"plain scan of currents + bias")
+        check(old is None or torch.equal(got, old(cur, **lif_kw)),
+              f"lif_scan with {label} differs from the earlier kernel on "
+              f"currents + bias")
+        check(torch.equal(lif_scan(cur.contiguous(), **lif_kw), want),
+              f"lif_scan without a bias is not bit-exact ({label})")
+        if b is bias:
+            s_k = got
+    def parent():
+        cur = (y + bias).reshape(T, -1)
+        return old(cur, **lif_kw) if old else lif_scan(cur, **lif_kw)
+    ops = {"device_ops": ops_a_call(
+        lambda: lif_scan(flat, bias=bias, **lif_kw)),
+        "parent_device_ops": ops_a_call(parent)}
+    check(ops["device_ops"] == 1, f"lif_scan with a bias: device ops a "
+          f"call {ops}, want 1")
+    n = flat.numel()
+    st.add(tuple(flat.shape), time_ms(lambda: lif_scan(flat, bias=bias,
+                                                       **lif_kw)),
+           time_ms(lambda: lif_plain(y + bias, **lif_kw)),
+           (2 * n + C) * 4, 9 * n, 0.0,
+           extra={"parent_ms": time_ms(parent),
+                  "earlier_kernel_ms": ms_or_none(old and (
+                      lambda: old(flat, **lif_kw))),
+                  "no_bias_ms": time_ms(lambda: lif_scan(flat, **lif_kw)),
+                  **ops})
+    print(f"  lif_scan [T,N]={tuple(flat.shape)} + bias [{C}]: spikes "
+          f"{float(s_k.mean()):.3f}, bit-exact to the plain scan of "
+          f"currents + bias (the layer's and a random bias)"
+          + (", and to the earlier kernel" if old else
+             "; the earlier design not built") + f"; {ops}")
+    return s_k
 
 
 def segment_check(bb, cfg, seg, x, st, lif_kw, rings=False):
@@ -1930,12 +2049,71 @@ def isp_pool_phase(archs, dev, card):
     return out
 
 
-def tick_kernel_phase(params, cfg, reqs, dev):
+def demosaic_segment(raw):
+    """The fused ISP's [demosaic] stencil segment (the default fused
+    ordering's) on mosaics raw [B, H, W], as a function () -> rgb: one
+    launch of the stencil kernel's demosaic instance."""
+    import torch
+    from repro_torch.isp.fuse import compile_plan, segment_call
+    from repro_torch.isp.stages import control_to_stage_params
+    icfg = fused_orderings()["fused"]
+    ex = next(e for e in compile_plan(icfg.stages)
+              if e.segment.describe() == "[demosaic]")
+    sp = control_to_stage_params(
+        torch.zeros((raw.shape[0], icfg.control_dim), device=raw.device),
+        icfg.stages)
+    kernel, _, args, kw = segment_call(ex, raw, sp)
+    return lambda: kernel(*args, **kw)
+
+
+def demosaic_check(raw, label, st=None):
+    """demosaic on mosaics raw [B, H, W]: bit-equal to its plain version
+    (demosaic_mhc), to the earlier design (where build/earlier holds its
+    source) and to the fused [demosaic] stencil segment, one device op a
+    call, timed beside them (and added to ``st``, where given).  Returns
+    (rgb, its row)."""
+    import torch
+    from repro_torch.isp.demosaic import demosaic_mhc
+    from repro_torch.kernels.demosaic import demosaic
+    old = earlier_demosaic()
+    seg = demosaic_segment(raw)
+    got, want = demosaic(raw), demosaic_mhc(raw)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"demosaic {label}: not bit-exact")
+    check(old is None or torch.equal(got, old(raw)),
+          f"demosaic {label}: not bit-equal to the earlier design")
+    check(torch.equal(got, seg()), f"demosaic {label}: not bit-equal to "
+          f"the [demosaic] stencil segment")
+    ops = ops_a_call(lambda: demosaic(raw))
+    check(ops == 1, f"demosaic {label}: {ops} device ops a call, want 1")
+    B, H, W = raw.shape
+    n = B * H * W
+    row = {"shape": [B, H, W], "ms": time_ms(lambda: demosaic(raw)),
+           "earlier_ms": ms_or_none(old and (lambda: old(raw))),
+           "segment_ms": time_ms(seg),
+           "plain_ms": time_ms(lambda: demosaic_mhc(raw)),
+           "device_ops": ops}
+    one = KernelStats()
+    work = ((B, H, W), row["ms"], row["plain_ms"], n * 16,
+            SEGMENT_OPS["demosaic"] * n, 0.0)
+    one.add(*work)
+    row["bound_ms"] = one.bound_ms
+    if st is not None:
+        st.add(*work)
+    print(f"  demosaic {label} [B,H,W]=({B},{H},{W}): bit-exact, equal to "
+          f"the [demosaic] segment"
+          + (" and the earlier design" if old else
+             "; the earlier design not built") + f", {ops} device op a call")
+    return got, row
+
+
+def tick_kernel_phase(params, cfg, reqs, dev, lif=None):
     """event_voxel (as the tick's encode, encode_batch: one launch),
     demosaic and nlm on the all-kernel tick's own inputs, each held to
-    its plain version and timed; rows 9 and 11 beside their earlier
+    its plain version and timed; rows 9, 10 and 11 beside their earlier
     designs (with the parent's wrapper ops: its torch.where select, its
     torch-built luminance and bandwidth), with the device ops of a call,
+    and row 3 (``lif``, the control head's firing from kernel_phase),
     printed as one "tick_rows" line."""
     import torch
     from repro_torch.configs.registry import ISP_CONFIGS
@@ -1944,11 +2122,9 @@ def tick_kernel_phase(params, cfg, reqs, dev):
                                            events_to_voxel_batch,
                                            voxel_batch)
     from repro_torch.core.npu import npu_forward
-    from repro_torch.isp.demosaic import demosaic_mhc
     from repro_torch.isp.nlm import nlm_denoise
     from repro_torch.isp.stages import (control_to_stage_params, get_stage,
                                         resolve_stage_params)
-    from repro_torch.kernels.demosaic import demosaic
     from repro_torch.kernels.event_voxel import event_voxel
     from repro_torch.kernels.nlm import nlm
 
@@ -1999,8 +2175,8 @@ def tick_kernel_phase(params, cfg, reqs, dev):
     encode_cases(evs, "")
     grid = B * cfg.time_steps * cfg.height * cfg.width * 2
     live = int(evs.valid.sum())
-    enc_ops = profile_window(
-        lambda: encode_batch(evs, staged, every, backend="cuda", **kw), 5)[2]
+    enc_ops = ops_a_call(
+        lambda: encode_batch(evs, staged, every, backend="cuda", **kw))
     check(enc_ops == 1, f"encode_batch: {enc_ops} device ops a call, want 1")
     row9 = {"ms": time_ms(lambda: encode_batch(evs, staged, every,
                                                backend="cuda", **kw)),
@@ -2012,8 +2188,8 @@ def tick_kernel_phase(params, cfg, reqs, dev):
             "plain_ms": time_ms(lambda: encode_batch(
                 evs, staged, every, backend="torch", **kw)),
             "device_ops": enc_ops,
-            "earlier_device_ops": old_ev and profile_window(
-                lambda: parent_encode(evs, every, **kw), 5)[2]}
+            "earlier_device_ops": old_ev and ops_a_call(
+                lambda: parent_encode(evs, every, **kw))}
     st["event_voxel"].add(
         (B, N), row9["ms"], row9["plain_ms"], B * N * 17 + B + grid * 4,
         10 * B * N + grid, 0.0)
@@ -2045,16 +2221,7 @@ def tick_kernel_phase(params, cfg, reqs, dev):
     for name in isp_cfg.stages:
         p = resolve_stage_params(name, sp)
         if name == "demosaic":
-            got, want = demosaic(x), demosaic_mhc(x)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want), "demosaic is not bit-exact")
-            Bx, H, W = x.shape
-            st["demosaic"].add(
-                (Bx, H, W), time_ms(lambda: demosaic(x)),
-                time_ms(lambda: demosaic_mhc(x)), Bx * H * W * 16,
-                44 * Bx * H * W, 0.0)
-            print(f"  demosaic [B,H,W]=({Bx},{H},{W}) bit-exact")
-            x = got
+            x, rows["demosaic"] = demosaic_check(x, "tick", st["demosaic"])
         elif name == "nlm":
             s = p["strength"]
             got, want = nlm(x, s), nlm_denoise(x, s)
@@ -2068,8 +2235,8 @@ def tick_kernel_phase(params, cfg, reqs, dev):
             s0 = float(s[0])
             check(torch.equal(nlm(x, s0), nlm(x, torch.full_like(s, s0))),
                   "nlm: a scalar strength differs from a tensor of it")
-            ops = {"tensor": profile_window(lambda: nlm(x, s), 5)[2],
-                   "scalar": profile_window(lambda: nlm(x, s0), 5)[2]}
+            ops = {"tensor": ops_a_call(lambda: nlm(x, s)),
+                   "scalar": ops_a_call(lambda: nlm(x, s0))}
             check(ops == {"tensor": 1, "scalar": 1},
                   f"nlm: device ops a call {ops}, want 1")
             Bx, H, W, C = x.shape
@@ -2077,8 +2244,8 @@ def tick_kernel_phase(params, cfg, reqs, dev):
                      "earlier_ms": ms_or_none(old and (lambda: old(x, s))),
                      "plain_ms": time_ms(lambda: nlm_denoise(x, s)),
                      "device_ops": ops,
-                     "earlier_device_ops": old and profile_window(
-                         lambda: old(x, s), 5)[2],
+                     "earlier_device_ops": old and ops_a_call(
+                         lambda: old(x, s)),
                      "max_abs_err": err}
             st["nlm"].add((Bx, H, W, C), row11["ms"], row11["plain_ms"],
                           2 * x.numel() * 4 + Bx * 4, nlm_ops(Bx, H, W, C),
@@ -2092,24 +2259,28 @@ def tick_kernel_phase(params, cfg, reqs, dev):
             x = got
         else:
             x = get_stage(name).impl_for("torch")(x, p)
+    if lif is not None:
+        rows["lif_scan"] = lif.summary()
     print("  tick_rows " + json.dumps(rows))
     return st
 
 
 def large_isp_line(dev):
-    """demosaic, nlm (beside its earlier design) and the fused segments
-    on an [8, 512, 512] batch: printed lines."""
+    """demosaic (beside its earlier design and the [demosaic] stencil
+    segment, also on ragged frames, frames smaller than a tile and a VGA
+    batch), nlm (beside its earlier design) and the fused segments on an
+    [8, 512, 512] batch: printed lines."""
     import torch
-    from repro_torch.isp.demosaic import demosaic_mhc
     from repro_torch.isp.nlm import nlm_denoise
-    from repro_torch.kernels.demosaic import demosaic
     from repro_torch.kernels.nlm import nlm
     g = torch.Generator(dev).manual_seed(2)
     raw = torch.rand((BATCH, LARGE_HW, LARGE_HW), device=dev, generator=g)
     strength = torch.rand((BATCH,), device=dev, generator=g)
-    rgb = demosaic(raw)
-    check(torch.equal(rgb, demosaic_mhc(raw)),
-          "demosaic is not bit-exact at 512x512")
+    rgb, dem_row = demosaic_check(raw, "[8, 512, 512]")
+    dem_rows = {str(list(shape)): demosaic_check(
+        torch.rand(shape, device=dev, generator=g), str(list(shape)))[1]
+        for shape in (RAGGED, TINY, VGA)}
+    print("  demosaic_shapes " + json.dumps(dem_rows))
     got, want = nlm(rgb, strength), nlm_denoise(rgb, strength)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -2119,9 +2290,7 @@ def large_isp_line(dev):
           "nlm is not bit-equal to its earlier design at 512x512")
     n = BATCH * LARGE_HW * LARGE_HW
     row = {"shape": [BATCH, LARGE_HW, LARGE_HW],
-           "demosaic": {"ms": time_ms(lambda: demosaic(raw)),
-                        "plain_ms": time_ms(lambda: demosaic_mhc(raw)),
-                        "bound_ms": n * 16 / HBM_BYTES_PER_S * 1e3},
+           "demosaic": dem_row,
            "nlm": {"ms": time_ms(lambda: nlm(rgb, strength)),
                    "earlier_ms": ms_or_none(old and (
                        lambda: old(rgb, strength))),
@@ -2406,6 +2575,16 @@ def serve_phase(params, cfg, reqs, dev, archs, tables):
                       "ticks": len(v)} for name, v in lat.items()}
     print(f"  tick latency (batch {BATCH}, {LATENCY_TICKS} ticks each, "
           f"host clock to results on the host): {summary}")
+
+    # device ops a tick per engine (torch.profiler; printed, as
+    # profile_tick reports them)
+    def one_tick(e):
+        for r in clone(reqs[:BATCH]):
+            check(e.submit(r), "engine full")
+        e.tick()
+    ops = {name: profile_window(lambda e=engines[name][0]: one_tick(e),
+                                5)[2] for name in timed}
+    print(f"  device ops a tick (batch {BATCH}): {ops}")
     return launches, summary
 
 
@@ -2477,6 +2656,7 @@ def batch_cap_run(name, dev):
     from repro_torch.kernels.backbone_fuse import LayerSpec
     from repro_torch.kernels.backbone_segment import (backbone_segment,
                                                       segment_operands)
+    from repro_torch.kernels.demosaic import demosaic
     from repro_torch.kernels.event_voxel import event_voxel
     from repro_torch.kernels.lif_scan import norm_affine_lif
     from repro_torch.kernels.max_pool import max_pool
@@ -2537,6 +2717,9 @@ def batch_cap_run(name, dev):
         x = spikes(T, B, 2, 2, 4)
         return (max_pool(x)[-n * T:],
                 max_pool(x[:, -n:].contiguous()))
+    if name == "demosaic":
+        x = rand(B, 6, 10)
+        return demosaic(x)[-n:], demosaic(x[-n:].contiguous())
     if name == "stencil_segment":
         stages = ISP_CONFIGS["fused"].stages
         ex = next(e for e in compile_plan(stages)
@@ -2886,6 +3069,15 @@ def profile_window(fn, n):
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / n / 1e3)
     return wall_ms, sum(by_name.values()), len(dev) / n, by_name
+
+
+def ops_a_call(fn, n=20):
+    """Device ops of one call of ``fn``: the mean over ``n`` profiled
+    calls, rounded.  CUPTI has been seen to drop one kernel of a window
+    (0.8 ops a call for a one-op call over 5 calls, in some runs and not
+    others); over 20 calls a dropped kernel moves the mean by 0.05, and a
+    call with one op more still counts one more."""
+    return round(profile_window(fn, n)[2])
 
 
 def attention_work(q, k, v, kw):
@@ -3385,7 +3577,7 @@ def main() -> int:
         check(n_seg == SEGMENTS_PER_TICK[arch], f"{arch}: {n_seg} fused-route "
               f"segments, want {SEGMENTS_PER_TICK[arch]}")
     st = kernel_phase(params, cfg, vox)
-    st.update(tick_kernel_phase(params, cfg, reqs, dev))
+    st.update(tick_kernel_phase(params, cfg, reqs, dev, st["lif_scan"]))
     fused_st, preview_counts = fused_isp_phase(params, cfg, reqs, dev,
                                                card)
     st.update(fused_st)

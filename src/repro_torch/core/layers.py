@@ -43,11 +43,15 @@ def _check_backend(cfg: SNNConfig) -> bool:
     return cfg.backend == "cuda"
 
 
-def _fire(y, cfg: SNNConfig):
+def _fire(y, cfg: SNNConfig, bias=None):
+    """Spikes of ``y + bias`` (bias None or [C]); on the kernel backend
+    the add is part of the LIF launch."""
     if _check_backend(cfg):
         from repro_torch.kernels.ops import lif_scan_op
-        return lif_scan_op(y, tau=cfg.tau_mem, v_th=cfg.v_threshold,
-                           v_reset=cfg.v_reset)
+        return lif_scan_op(y, bias=bias, tau=cfg.tau_mem,
+                           v_th=cfg.v_threshold, v_reset=cfg.v_reset)
+    if bias is not None:
+        y = y + bias
     return lif_scan(y, tau=cfg.tau_mem, v_th=cfg.v_threshold,
                     v_reset=cfg.v_reset)
 
@@ -221,17 +225,17 @@ def apply_spiking_dense(p, x, cfg: SNNConfig, *, fire: bool = True,
                         tag: Optional[str] = None):
     """x: [T, B, C].  ``spike_input`` marks x as a 0/1 spike tensor, so
     the kernel backend routes the matmul through the tile-skip
-    ``spike_matmul_op``."""
+    ``spike_matmul_op``; a firing layer on the kernel backend adds its
+    bias in the LIF launch (the same float32 add)."""
     if spike_input and _check_backend(cfg):
         from repro_torch.kernels.ops import spike_matmul_op
         T, B, C = x.shape
-        y = spike_matmul_op(x.reshape(T * B, C), p["w"])
-        y = y.reshape(T, B, -1) + p["bias"]
+        y = spike_matmul_op(x.reshape(T * B, C), p["w"]).reshape(T, B, -1)
     else:
-        y = x @ p["w"] + p["bias"]
+        y = x @ p["w"]
     if not fire:
-        return y
-    out = _fire(y, cfg)
+        return y + p["bias"]
+    out = _fire(y, cfg, bias=p["bias"])
     if tape is not None:
         tape.record(tag or f"dense{len(tape.records)}", out)
     return out

@@ -1,5 +1,5 @@
-// Window maths shared by the ISP kernels (demosaic.cu, nlm.cu and the
-// fused segments of isp_fused.cu), so the per-stage kernels and the
+// Window maths shared by the ISP kernels (demosaic_tile.cuh, nlm.cu and
+// the fused segments of isp_fused.cu), so the per-stage kernels and the
 // fused ones compute each pixel with the same operations in the same
 // order.  Every product and sum is a round-to-nearest intrinsic, so nvcc
 // cannot contract them into FMAs: the order is the plain PyTorch
@@ -36,86 +36,15 @@ __device__ __forceinline__ int wrap_near(int v, int n) {
 // Malvar-He-Cutler 5x5 demosaic of an RGGB mosaic
 // ---------------------------------------------------------------------------
 
-// The MHC filter bank, row-major 5x5, scaled by 1/8 (copied from
-// repro_torch/isp/demosaic.py).  The taps are exact in float32.
-__constant__ float kMhcG[25] = {
-    0, 0, -1.f / 8, 0, 0,
-    0, 0, 2.f / 8, 0, 0,
-    -1.f / 8, 2.f / 8, 4.f / 8, 2.f / 8, -1.f / 8,
-    0, 0, 2.f / 8, 0, 0,
-    0, 0, -1.f / 8, 0, 0};
-// R at G in an R row (and B at G in a B row)
-__constant__ float kMhcRow[25] = {
-    0, 0, 0.5f / 8, 0, 0,
-    0, -1.f / 8, 0, -1.f / 8, 0,
-    -1.f / 8, 4.f / 8, 5.f / 8, 4.f / 8, -1.f / 8,
-    0, -1.f / 8, 0, -1.f / 8, 0,
-    0, 0, 0.5f / 8, 0, 0};
-// R at G in a B row (and B at G in an R row): the transpose of kMhcRow
-__constant__ float kMhcCol[25] = {
-    0, 0, -1.f / 8, 0, 0,
-    0, -1.f / 8, 4.f / 8, -1.f / 8, 0,
-    0.5f / 8, 0, 5.f / 8, 0, 0.5f / 8,
-    0, -1.f / 8, 4.f / 8, -1.f / 8, 0,
-    0, 0, -1.f / 8, 0, 0};
-// R at B (and B at R)
-__constant__ float kMhcDiag[25] = {
-    0, 0, -1.5f / 8, 0, 0,
-    0, 2.f / 8, 0, 2.f / 8, 0,
-    -1.5f / 8, 0, 6.f / 8, 0, -1.5f / 8,
-    0, 2.f / 8, 0, 2.f / 8, 0,
-    0, 0, -1.5f / 8, 0, 0};
-
-// One SAME 5x5 filter: the sum from 0 over the non-zero taps in (dy, dx)
-// order; at(dy, dx) is the mosaic value at offset (dy - 2, dx - 2).
-template <class At>
-__device__ __forceinline__ float mhc_filter(const float* k, At at) {
-  float acc = 0.f;
-#pragma unroll
-  for (int dy = 0; dy < 5; ++dy) {
-#pragma unroll
-    for (int dx = 0; dx < 5; ++dx) {
-      const float kv = k[dy * 5 + dx];
-      if (kv == 0.f) continue;
-      acc = __fadd_rn(acc, __fmul_rn(kv, at(dy, dx)));
-    }
-  }
-  return acc;
-}
-
-// The RGB of one mosaic pixel of value c at an even (ey) or odd row and
-// an even (ex) or odd column: only the two filters its phase needs.
-template <class At>
-__device__ __forceinline__ void mhc_rgb(bool ey, bool ex, float c, At at,
-                                        float* rgb) {
-  float r, g, b;
-  if (ey && ex) {            // R site
-    r = c;
-    g = mhc_filter(kMhcG, at);
-    b = mhc_filter(kMhcDiag, at);
-  } else if (ey) {           // G in an R row
-    r = mhc_filter(kMhcRow, at);
-    g = c;
-    b = mhc_filter(kMhcCol, at);
-  } else if (ex) {           // G in a B row
-    r = mhc_filter(kMhcCol, at);
-    g = c;
-    b = mhc_filter(kMhcRow, at);
-  } else {                   // B site
-    r = mhc_filter(kMhcDiag, at);
-    g = mhc_filter(kMhcG, at);
-    b = c;
-  }
-  rgb[0] = clip01(r);
-  rgb[1] = clip01(g);
-  rgb[2] = clip01(b);
-}
-
-// The same bank as compile-time taps (filter F: 0 kMhcG, 1 kMhcRow, 2
-// kMhcCol, 3 kMhcDiag), for a kernel that knows a pixel's phase when it
-// compiles: the zero taps are skipped by the compiler, not per pixel.
-// mhc_filter_c and mhc_rgb_c do mhc_filter's and mhc_rgb's ops in their
-// order, so they give the same bits.
+// The MHC filter bank as compile-time taps, row-major 5x5, scaled by 1/8
+// (copied from repro_torch/isp/demosaic.py; exact in float32).  Filter
+// F: 0 G at R/B sites, 1 R at G in an R row (and B at G in a B row), 2
+// its transpose (R at G in a B row, B at G in an R row), 3 R at B (and B
+// at R).  A kernel knows a pixel's phase when it compiles, so the zero
+// taps are skipped by the compiler, not per pixel.  mhc_filter_c sums
+// from 0 over the non-zero taps in (dy, dx) order, as the plain tap
+// accumulation does (demosaic.py _conv5_taps), each product and sum
+// rounded once: the plain version's bits.
 template <int F>
 __device__ __forceinline__ float mhc_tap(int i) {
   constexpr float k[4][25] = {
@@ -145,7 +74,9 @@ __device__ __forceinline__ float mhc_filter_c(At at) {
   return acc;
 }
 
-// mhc_rgb at a phase known when the kernel compiles
+// The clipped RGB of one mosaic pixel of value c at an even (kEy) or odd
+// row and an even (kEx) or odd column: only the two filters its phase
+// needs; at(dy, dx) is the mosaic at offset (dy - 2, dx - 2).
 template <bool kEy, bool kEx, class At>
 __device__ __forceinline__ void mhc_rgb_c(float c, At at, float* rgb) {
   float r, g, b;

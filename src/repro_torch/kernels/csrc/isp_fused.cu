@@ -46,9 +46,11 @@
 // prologue chain once, with its own frame's parameters, into shared
 // memory, plus a luminance plane for NLM and sharpen.  Frames of any
 // size: the ragged edge is guarded per pixel.
-//   dpc, demosaic, sharpen: one thread per output pixel; demosaic's
-// threads grouped by Bayer phase, each phase's two filters with the zero
-// taps dropped when the kernel compiles (isp::mhc_rgb_c).
+//   dpc, sharpen: one thread per output pixel.
+//   demosaic: the demosaic tile of demosaic_tile.cuh (shared with
+// demosaic.cu): one thread a pixel, the threads grouped by Bayer phase,
+// each phase's two filters with the zero taps dropped when the kernel
+// compiles (isp::mhc_rgb_c).
 //   nlm: the NLM tile of nlm_tile.cuh (shared with nlm.cu): the 49
 // weights of a pixel over 7 threads, one a shift row, walking a run of
 // pixels with the box columns shared and the shifted luminances in a
@@ -77,6 +79,7 @@
 #include <stdint.h>
 
 #include "cluster_slab.cuh"
+#include "demosaic_tile.cuh"
 #include "isp_common.cuh"
 #include "nlm_tile.cuh"
 
@@ -327,17 +330,16 @@ stencil_kernel(const StencilArgs a) {
     isp::nlm_sums<kC, TH, TW, Lay::WPitch>(win, smem + Lay::kWts, y0, x0, H,
                                            W, dst);
     return;
+  } else if constexpr (kOp == kDemosaic) {
+    // the demosaic tile's pass over the staged window
+    using Tile = isp::DemosaicTile<TH, TW>;
+    static_assert(Tile::WX == WX && Tile::kPix == Lay::kPix &&
+                      Lay::kWin == 0 && Lay::kThreads == Tile::kThreads,
+                  "the stencil's demosaic window is the demosaic tile's");
+    isp::demosaic_tile<TH, TW>(win, y0, x0, H, W, dst);
   } else {
     for (int p = threadIdx.x; p < TH * TW; p += blockDim.x) {
-      // demosaic: the threads grouped by Bayer phase (a quarter of the
-      // tile each, so a warp takes one or two phases, not four); the
-      // tile's corner is even, so a pixel's phase is its tile parity's
-      constexpr int kQ = TH * TW / 4, kHalfW = TW / 2;
-      const int phase = p / kQ, k = p % kQ;
-      const int ty = kOp == kDemosaic ? 2 * (k / kHalfW) + (phase >> 1)
-                                      : p / TW;
-      const int tx = kOp == kDemosaic ? 2 * (k % kHalfW) + (phase & 1)
-                                      : p % TW;
+      const int ty = p / TW, tx = p % TW;
       const int y = y0 + ty, xo = x0 + tx;
       if (y >= H || xo >= W) continue;
       const int cidx = (ty + R) * WX + tx + R;   // the pixel in the window
@@ -367,18 +369,6 @@ stencil_kernel(const StencilArgs a) {
         const float med =
             __fmul_rn(__fsub_rn(__fsub_rn(sum, mn), mx), 1.f / 6.f);
         o[0] = (hot || dead) ? med : c;
-      } else if constexpr (kOp == kDemosaic) {
-        // the Bayer phase of the absolute coordinates
-        auto at = [&](int dy, int dx) {
-          return win[cidx + (dy - 2) * WX + dx - 2];
-        };
-        const float c = win[cidx];
-        switch (phase) {
-          case 0: isp::mhc_rgb_c<true, true>(c, at, o); break;
-          case 1: isp::mhc_rgb_c<true, false>(c, at, o); break;
-          case 2: isp::mhc_rgb_c<false, true>(c, at, o); break;
-          default: isp::mhc_rgb_c<false, false>(c, at, o); break;
-        }
       } else {                        // sharpen: matrix, offset, inverse
         const float* off = wc + 9;
         const float* inv = wc + 12;

@@ -2,7 +2,10 @@
 (``csrc/demosaic.cu``).  The plain version is
 :func:`repro_torch.isp.demosaic.demosaic_mhc`, which the wrapper takes
 for CPU tensors; for CUDA tensors it launches the kernel or raises.
-Both give bit-identical RGB."""
+Both give bit-identical RGB.  A call is one device op: the launch (the
+output's ``torch.empty`` runs none).  Its tile and threads come from the
+stencil segment's plan (``isp_fused.stencil_plan("demosaic", ...)``):
+the two kernels share the demosaic tile of ``csrc/demosaic_tile.cuh``."""
 from __future__ import annotations
 
 import ctypes
@@ -12,9 +15,11 @@ import torch
 from repro_torch.isp.demosaic import demosaic_mhc
 from repro_torch.kernels.build import (check_f32, check_launch, load,
                                        stream_of)
+from repro_torch.kernels.isp_fused import demosaic_tile_smem, stencil_plan
 
+# raw, out, B H W, th tw threads smem, stream
 _SIG = ("demosaic_launch",
-        [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
+        [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7
         + [ctypes.c_void_p])
 
 
@@ -30,9 +35,12 @@ def demosaic(raw: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, H, W, 3), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    plan = stencil_plan("demosaic", B, H, W, 1)
     lib = load("demosaic", _SIG)
     with torch.cuda.device(dev):
         err = lib.demosaic_launch(raw.data_ptr(), out.data_ptr(), B, H, W,
+                                  plan.th, plan.tw, plan.threads,
+                                  demosaic_tile_smem(plan.th, plan.tw),
                                   stream_of(dev))
     check_launch("demosaic", err)
     return out

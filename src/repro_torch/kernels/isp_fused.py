@@ -67,9 +67,9 @@ _STENCIL_SIG = ("isp_stencil_launch",            # B H W Cin Cout P S n
                 [_P] * 5 + [_I] * 9 + [_P] * 3   # wop wpoff wcoff r zero
                 + [_I] * 9 + [_P])               # th tw threads smem
 
-# The stencil kernel's tiles (csrc/isp_fused.cu launch_tile), largest
-# first: one 8x32 tile, a thread an output pixel, for dpc, demosaic and
-# sharpen (on the H100 as fast as any of 8x8 to 16x32 at [8, 64, 64] and
+# The stencil kernel's tiles (csrc/isp_fused.cu launch_tile; the
+# standalone demosaic and NLM kernels have the same), largest first: one
+# 8x32 tile, a thread an output pixel, for dpc, demosaic and sharpen (on the H100 as fast as any of 8x8 to 16x32 at [8, 64, 64] and
 # at [4, 480, 640]); NLM_THREADS for NLM, whose weight threads each walk
 # a run of a tile row for one of its 7 shift rows.
 LIGHT_TILES = ((8, 32),)
@@ -242,6 +242,14 @@ def nlm_tile_smem(c_in: int, th: int, tw: int) -> int:
     return 4 * (floats + NLM_SHIFTS * (th * tw + 1))
 
 
+def demosaic_tile_smem(th: int, tw: int) -> int:
+    """Shared bytes of the demosaic tile (csrc/demosaic_tile.cuh
+    DemosaicTile::kFloats, the standalone demosaic kernel's block): the
+    mosaic window, the tile and its halo, one float a pixel."""
+    r = WINDOW_RADIUS["demosaic"]
+    return 4 * (th + 2 * r) * (tw + 2 * r)
+
+
 def stencil_smem(op: str, c_in: int, th: int, tw: int) -> int:
     """Shared bytes of a stencil block (csrc Layout::kFloats): the
     window's c_in channels (NLM on RGB: a float4 a pixel), the luminance
@@ -274,6 +282,11 @@ def tile_plan(op: str, B: int, H: int, W: int, c_in: int, th: int,
     if c_in not in OP_CHANNELS[op]:
         raise ValueError(f"stencil_plan: {op} has no instance on {c_in} "
                          f"channels")
+    if op == "demosaic" and (th % 2 or tw % 2):
+        # the demosaic tile takes a pixel's Bayer phase from its place in
+        # the tile: its corner must be even
+        raise ValueError(f"stencil_plan: demosaic needs an even tile, not "
+                         f"{th}x{tw}")
     ty, tx = -(-H // th), -(-W // tw)
     blocks = B * ty * tx
     if blocks > GRID_LIMIT:
@@ -290,7 +303,8 @@ def stencil_plan(op: str, B: int, H: int, W: int, c_in: int) -> StencilPlan:
     have one), its threads and its shared bytes.  Cached per shape: the
     tick asks once per segment.  The standalone NLM kernel takes its
     tile and threads from ``stencil_plan("nlm", ...)`` too (its shared
-    bytes: ``nlm_tile_smem``, without the LUT)."""
+    bytes: ``nlm_tile_smem``, without the LUT), the standalone demosaic
+    kernel from ``stencil_plan("demosaic", ...)`` (``demosaic_tile_smem``)."""
     tiles = op_tiles(op)
     for th, tw in tiles:
         if B * -(-H // th) * -(-W // tw) >= MIN_BLOCKS:

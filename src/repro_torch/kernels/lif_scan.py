@@ -22,10 +22,11 @@ from repro_torch.kernels.build import (check_f32, check_launch, load,
                                        stream_of)
 from repro_torch.launch.roofline import SMS
 
+# cur, bias (or null), out, T, N, C, decay, v_th, v_reset, stream
 _LIF_SIG = ("lif_scan_launch",
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-             ctypes.c_float, ctypes.c_float, ctypes.c_float,
-             ctypes.c_void_p])
+            [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int64,
+                                     ctypes.c_int]
+            + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 _NORM_SIG = ("norm_affine_lif_launch",
              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float] * 4 + [ctypes.c_void_p])
@@ -35,22 +36,35 @@ _NORM_SIG = ("norm_affine_lif_launch",
 # lif_scan: flat [T, N] recurrence
 # ---------------------------------------------------------------------------
 
-def lif_scan(currents: torch.Tensor, *, tau: float = 2.0, v_th: float = 1.0,
-             v_reset: float = 0.0) -> torch.Tensor:
-    """currents [T, N] float32 -> spikes [T, N] (forward only)."""
+def lif_scan(currents: torch.Tensor, *, bias=None, tau: float = 2.0,
+             v_th: float = 1.0, v_reset: float = 0.0) -> torch.Tensor:
+    """currents [T, N] float32 -> spikes [T, N] (forward only) of
+    ``currents + bias``: ``bias`` is None or [C], C dividing N (the
+    currents are [T, N / C, C] flattened, as a dense layer's [T, B, C]
+    folds), and its add is part of the one launch."""
     if currents.dim() != 2:
         raise ValueError(f"lif_scan: expected [T, N], got {currents.shape}")
-    dev = check_f32("lif_scan", currents)
-    if dev.type == "cpu":
-        return lif_scan_plain(currents, tau=tau, v_th=v_th, v_reset=v_reset)
     T, N = currents.shape
+    if bias is not None and (bias.dim() != 1 or bias.shape[0] == 0
+                             or N % bias.shape[0]):
+        raise ValueError(f"lif_scan: a bias of shape {tuple(bias.shape)} "
+                         f"does not divide currents of [T, N] = [{T}, {N}]")
+    dev = check_f32("lif_scan", currents,
+                    *(() if bias is None else (bias,)))
+    if dev.type == "cpu":
+        if bias is not None:
+            currents = (currents.reshape(T, -1, bias.shape[0])
+                        + bias).reshape(T, N)
+        return lif_scan_plain(currents, tau=tau, v_th=v_th, v_reset=v_reset)
     out = torch.empty_like(currents)
     if N == 0 or T == 0:
         return out
     lib = load("lif_scan", _LIF_SIG)
     with torch.cuda.device(dev):
-        err = lib.lif_scan_launch(currents.data_ptr(), out.data_ptr(), T, N,
-                                  f32_decay(tau), v_th, v_reset, stream_of(dev))
+        err = lib.lif_scan_launch(
+            currents.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), T, N, 0 if bias is None else bias.shape[0],
+            f32_decay(tau), v_th, v_reset, stream_of(dev))
     check_launch("lif_scan", err)
     return out
 

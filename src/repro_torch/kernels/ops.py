@@ -82,12 +82,16 @@ def norm_affine_lif_op(y: torch.Tensor, scale, bias, *, tau: float = 2.0,
     return out.reshape(y.shape)
 
 
-def lif_scan_op(currents: torch.Tensor, *, tau: float = 2.0,
+def lif_scan_op(currents: torch.Tensor, *, bias=None, tau: float = 2.0,
                 v_th: float = 1.0, v_reset: float = 0.0) -> torch.Tensor:
-    """currents [T, ...] -> spikes, trailing dims folded for the kernel."""
+    """currents [T, ..., C] -> spikes of ``currents + bias`` (bias None or
+    [C]), trailing dims folded for the kernel, the add in its launch."""
+    if bias is not None and tuple(bias.shape) != tuple(currents.shape[-1:]):
+        raise ValueError(f"lif_scan_op: bias {tuple(bias.shape)} for "
+                         f"currents {tuple(currents.shape)}")
     T = currents.shape[0]
-    out = lif_scan(currents.reshape(T, -1).contiguous(), tau=tau, v_th=v_th,
-                   v_reset=v_reset)
+    out = lif_scan(currents.reshape(T, -1).contiguous(), bias=bias, tau=tau,
+                   v_th=v_th, v_reset=v_reset)
     return out.reshape(currents.shape)
 
 

@@ -6,11 +6,13 @@ imports no JAX, so it runs on a machine that has only PyTorch:
 
 Tolerances: the GEMMs sum in another order than cuBLAS (allclose
 atol=1e-4, rtol=1e-5, TF32 off); the LIF scan replays the plain
-recurrence op for op (equal); the norm kernel's statistics round
-differently, so its spikes may flip only where the plain membrane lies
-within 1e-4 of threshold.  The event voxelization and the demosaic
-are bit-exact (equal); NLM is held at atol 1e-6, its exp and the plain
-version's may differ in the last bit.  The fused ISP segments replay
+recurrence op for op (equal; with a dense layer's bias added in its
+launch, equal to the plain scan of currents + bias); the norm kernel's
+statistics round differently, so its spikes may flip only where the
+plain membrane lies within 1e-4 of threshold.  The event voxelization
+and the demosaic are bit-exact (equal; the demosaic also to the stencil
+segment's demosaic instance, the same tile); NLM is held at atol 1e-6,
+its exp and the plain version's may differ in the last bit.  The fused ISP segments replay
 their plain versions op for op (equal for [exposure+dpc], [demosaic] and
 [awb*+gamma]); sharpen's colour matrices are einsums on the plain side,
 summed in another order, and NLM has its exp (atol 1e-6); every tile a
@@ -658,6 +660,52 @@ def test_demosaic_bitexact(dev, B, H, W):
     assert torch.equal(demosaic(raw), demosaic_mhc(raw))
 
 
+@pytest.mark.parametrize("B,H,W", [(3, 5, 7), (1, 1, 1), (2, 9, 33),
+                                   (1, 10, 34), (2, 17, 63), (1, 2, 2),
+                                   (4, 480, 640)])
+def test_demosaic_every_phase_at_a_ragged_edge(dev, B, H, W):
+    """Odd, tiny and VGA frames: the last tile row and column are cut at
+    either parity, so all four Bayer phases meet the ragged edge; values
+    outside [0, 1] reach the clip.  Bit-exact to the plain version and to
+    the stencil segment's demosaic instance (the same demosaic tile), in
+    one launch a call."""
+    from repro_torch.isp.demosaic import demosaic_window
+    raw = torch.tensor(np.random.default_rng(H * W).uniform(
+        -0.1, 1.1, (B, H, W)).astype(np.float32), device=dev)
+    build.reset_launches()
+    got = demosaic(raw)
+    assert build.LAUNCHES == {"demosaic": 1}
+    assert torch.equal(got, demosaic_mhc(raw))
+    wstep = isp_mod.ChainStep(fn=demosaic_window, names=(), offset=0,
+                              op="demosaic")
+    none = torch.zeros(B, 1, device=dev)
+    seg = isp_mod.stencil_segment(
+        raw, none, none, prologue=(), window_fn=demosaic_window,
+        wstep=wstep, radius=2, pad="zero", out_tail=(3,))
+    assert torch.equal(got, seg)
+
+
+@pytest.mark.parametrize("T,B,C", [(5, 8, 64), (3, 2, 33), (12, 4, 40),
+                                   (1, 1, 1)])
+def test_lif_scan_bias_bitexact(dev, T, B, C):
+    """The dense layer's bias added in the launch: equal to the plain
+    scan of currents + bias and to the kernel without a bias on them,
+    through the wrapper and the op, with C dividing N at 1 to 64
+    channels and T 1 to 12."""
+    rng = np.random.default_rng(T * B * C)
+    y = torch.tensor(rng.normal(0.5, 1.0, (T, B, C)).astype(np.float32),
+                     device=dev)
+    bias = torch.tensor(rng.normal(0.0, 0.5, C).astype(np.float32),
+                        device=dev)
+    want = lif_scan((y + bias).reshape(T, -1).cpu()).to(dev)
+    build.reset_launches()
+    got = lif_scan(y.reshape(T, -1), bias=bias)
+    assert build.LAUNCHES == {"lif_scan": 1}
+    assert torch.equal(got, want)
+    assert torch.equal(lif_scan((y + bias).reshape(T, -1)), want)
+    assert torch.equal(ops.lif_scan_op(y, bias=bias).reshape(T, -1), want)
+
+
 @pytest.mark.parametrize("B,H,W,C", [(8, 64, 64, 3), (2, 128, 96, 3),
                                      (2, 20, 17, 1), (2, 33, 40, 2),
                                      (3, 24, 31, 4), (1, 5, 7, 3)])
@@ -863,8 +911,10 @@ def test_launch_counters(dev):
     build.reset_launches()
     x = torch.ones(5, 64, device=dev)
     lif_scan(x)
+    lif_scan(x, bias=torch.ones(64, device=dev))        # the add in it
     spike_matmul(x, torch.ones(64, 8, device=dev))
     lif_scan(x.cpu())                       # the plain version: no launch
+    lif_scan(x.cpu(), bias=torch.ones(64))  # plain
     for gate in CONV_GATES:                 # one launch a call, any gate
         spike_conv(torch.ones(2, 8, 8, 4, device=dev),
                    torch.ones(3, 3, 4, 8, device=dev), gate=gate)
@@ -902,7 +952,7 @@ def test_launch_counters(dev):
     backbone_segment(x5.cpu(), tuple(t.cpu() for t in flat),
                      specs=seg)                             # plain
     torch.cuda.synchronize()
-    assert build.LAUNCHES == {"lif_scan": 1, "spike_matmul": 1,
+    assert build.LAUNCHES == {"lif_scan": 2, "spike_matmul": 1,
                               "spike_conv": len(CONV_GATES),
                               "spike_conv_lif": 1, "backbone_segment": 1,
                               "event_voxel": 1, "demosaic": 1, "nlm": 1,

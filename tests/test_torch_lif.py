@@ -51,6 +51,42 @@ def test_lif_scan_matches_jax(T, N, tau):
     assert 0.0 < want.mean() < 1.0
 
 
+@pytest.mark.parametrize("T,B,C", [(5, 8, 64), (3, 2, 33), (12, 4, 40),
+                                   (1, 1, 1)])
+def test_lif_scan_bias_matches_jax(T, B, C):
+    """A dense layer's bias given to the scan (on the card its add is in
+    the launch): the JAX scan of currents + bias, through the wrapper on
+    [T, B * C] and the op on [T, B, C]."""
+    rng = np.random.default_rng(T * B * C)
+    cur = rng.normal(0.5, 1.0, (T, B, C)).astype(np.float32)
+    bias = rng.normal(0.0, 0.5, C).astype(np.float32)
+    want = np.asarray(jax.jit(jax_lif_scan)(jnp.asarray(cur) + bias))
+    tb = torch.tensor(bias)
+    got = klif.lif_scan(torch.tensor(cur.reshape(T, -1)), bias=tb)
+    np.testing.assert_array_equal(got.numpy().reshape(want.shape), want)
+    np.testing.assert_array_equal(
+        lif_scan_op(torch.tensor(cur), bias=tb).numpy(), want)
+    # no bias: the scan of the currents as they are
+    np.testing.assert_array_equal(
+        lif_scan_op(torch.tensor(cur), bias=None).numpy(),
+        np.asarray(jax.jit(jax_lif_scan)(cur)))
+
+
+def test_lif_scan_rejects_a_bias_of_the_wrong_length():
+    cur = torch.zeros(5, 8, 64)
+    with pytest.raises(ValueError, match="bias"):
+        lif_scan_op(cur, bias=torch.zeros(65))
+    with pytest.raises(ValueError, match="bias"):
+        lif_scan_op(cur, bias=torch.zeros(8, 64))
+    with pytest.raises(ValueError, match="bias"):
+        klif.lif_scan(cur.reshape(5, -1), bias=torch.zeros(60))
+    with pytest.raises(ValueError, match="bias"):
+        klif.lif_scan(cur.reshape(5, -1), bias=torch.zeros(0))
+    with pytest.raises(TypeError):
+        klif.lif_scan(cur.reshape(5, -1),
+                      bias=torch.zeros(64, dtype=torch.float64))
+
+
 @pytest.mark.parametrize("T,B,HW,C", [(3, 2, 64, 16), (5, 1, 100, 8),
                                       (2, 4, 33, 24)])
 def test_norm_affine_lif_matches_jax(T, B, HW, C):

@@ -26,6 +26,7 @@ from repro_torch import convert
 from repro_torch.core import layers as tl
 from repro_torch.core.backbones import yolo_specs
 from repro_torch.core.npu import init_npu, npu_forward
+from repro_torch.core.sparsity import SparsityTape
 from repro_torch.core.yolo import decode_boxes
 from repro_torch.testing import spike_mismatch
 
@@ -116,6 +117,37 @@ def test_readout_and_control_head_match_jax(ref, backend):
                                   cfg, fire=False, spike_input=True)
     np.testing.assert_allclose(ctrl.numpy(), ref["ctrl"], atol=PRE_ATOL,
                                rtol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_firing_dense_bias_in_the_launch_matches_jax(ref, seed):
+    """A firing dense layer with a non-zero bias (at init it is zero):
+    under a "cuda" config (the bias handed to the LIF op, its add in the
+    launch; on the CPU the op's plain version) equal to the "torch"
+    config's spikes and tape, and within the near-threshold rule of the
+    JAX jnp layer."""
+    rng = np.random.default_rng(seed)
+    jp = dict(ref["jparams"]["ctrl_hidden"])
+    jp["bias"] = rng.normal(0.0, 0.5, jp["bias"].shape).astype(np.float32)
+    x = rng.normal(0.5, 1.0, ref["pooled"].shape).astype(np.float32)
+    z = np.asarray(jl.apply_spiking_dense(jp, x, ref["jcfg"], fire=False))
+    p = {k: torch.tensor(v) for k, v in jp.items()}
+    got = {}
+    for backend in ("torch", "cuda"):
+        tape = SparsityTape()
+        got[backend] = tl.apply_spiking_dense(p, torch.tensor(x),
+                                              _cfg(ref, backend), tape=tape,
+                                              tag="ctrl_hidden")
+        got[backend + "_tape"] = tape.rates()["ctrl_hidden"]
+        np.testing.assert_allclose(
+            tl.apply_spiking_dense(p, torch.tensor(x), _cfg(ref, backend),
+                                   fire=False).numpy(), z, atol=PRE_ATOL,
+            rtol=0)
+    assert torch.equal(got["torch"], got["cuda"])
+    assert torch.equal(got["torch_tape"], got["cuda_tape"])
+    res = spike_mismatch(z, got["cuda"], tol=TOL)
+    assert res["far"] == 0, res
+    assert 0.0 < float(got["cuda"].mean()) < 1.0
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])

@@ -129,3 +129,30 @@ def test_plan_is_cached_and_refuses_what_it_cannot_launch():
     for op, c_in in (("nlm", 5), ("sharpen", 1), ("dpc", 3)):
         with pytest.raises(ValueError, match="no instance on"):
             K.stencil_plan(op, 1, 8, 8, c_in)
+
+
+@pytest.mark.parametrize("frame", [(8, 64, 64), (4, 480, 640), (2, 37, 53),
+                                   (3, 5, 7), (65537, 6, 10)])
+def test_demosaic_plan_has_even_tiles_on_the_grid(frame):
+    """The standalone demosaic kernel's plan (the stencil segment's): an
+    even tile, so a pixel's Bayer phase in the tile is its phase in the
+    frame (every tile's corner even by the kernel's decode), one thread a
+    pixel, its window's shared bytes, and every block on gridDim.x."""
+    B, H, W = frame
+    plan = K.stencil_plan("demosaic", B, H, W, 1)
+    assert plan.th % 2 == 0 and plan.tw % 2 == 0
+    assert plan.threads == plan.th * plan.tw
+    assert plan.blocks == B * -(-H // plan.th) * -(-W // plan.tw)
+    assert plan.blocks <= K.GRID_LIMIT
+    b, y0, x0 = _tiles(plan)
+    assert (y0 % 2 == 0).all() and (x0 % 2 == 0).all()
+    assert b[-1] == B - 1
+    assert K.demosaic_tile_smem(plan.th, plan.tw) == 4 * (plan.th + 4) * (
+        plan.tw + 4)
+    assert plan.smem == K.demosaic_tile_smem(plan.th, plan.tw) + 4 * 256
+
+
+def test_demosaic_plan_refuses_an_odd_tile(monkeypatch):
+    monkeypatch.setattr(K, "LIGHT_TILES", ((7, 32),))
+    with pytest.raises(ValueError, match="even tile"):
+        K.tile_plan("demosaic", 1, 8, 8, 1, 7, 32)
