@@ -144,7 +144,14 @@ Phases (any failure raises and exits non-zero):
              data), per backbone;
              isp_stencil_segment over the fused default plan's four
              segments, isp_pointwise_segment on fast_preview's
-             [awb*+gamma]; every stencil segment of the three orderings
+             [awb*+gamma] (row 12 in "tick_rows" too, beside the PR 13
+             design on a prebuilt LUT and the parent's path, the LUT by
+             torch ops then that kernel; and one "pointwise_rows" line:
+             [awb*+gamma], an [exposure] chain on Bayer frames and the
+             no-gamma [awb*+tonemap+ccm] at the tick's, ragged, tiny,
+             VGA and [8, 512, 512] shapes, bit-equal to the plain
+             version and the PR 13 design, one device op a call); every
+             stencil segment of the three orderings
              on the tick's frames and on a VGA batch, printed as one
              "isp_segments" line per shape beside the earlier design's
              time (build/earlier/isp_fused.cu: `git show
@@ -207,6 +214,19 @@ Phases (any failure raises and exits non-zero):
              four engines and every other all-kernel engine (untuned,
              forced-fused, swept, forced-segment), in turns, and each of
              those engines' device ops a tick (torch.profiler, printed);
+             then the serving fleet (fleet_phase): FleetEngine on
+             spiking-YOLO, batch 8, all-kernel configs, rung 0 on the
+             swept table: a harvest of tick A that returns while a spin
+             behind tick B is pending, the pinned-bank rule, the two
+             kernel rungs of the card's ladder on one bank, bit-equal,
+             and a core on the plain SNN layers within 1e-4 of rung 0
+             (launches counted per core), a clean supervised run of
+             64 requests (launches counted after the prewarm, every
+             request DONE on "cuda_fused" within 1e-4 of a
+             CognitiveEngine, step and request latency printed beside
+             the card) and a seeded "chaos" run (no non-finite result
+             delivered, every request terminal, a demotion and a
+             promotion in the telemetry), one "fleet" line;
 6. LM      — after the SNN engines' memory is released: full-width
              qwen2-7b (28 layers, bf16, random weights from a CUDA
              generator seeded 0; parameter count and bytes resident
@@ -287,8 +307,9 @@ one JSON line; it prints no result line.
 
     python3 chip_smoke.py --isp-pool-phase
 
-builds only isp_fused and max_pool and runs PERF.md's rows 13 and 8
-alone: every stencil segment of the fused orderings at [8, 64, 64],
+builds only isp_fused and max_pool and runs PERF.md's rows 13, 12 and 8
+alone: the "pointwise_rows" line; every stencil segment of the fused
+orderings at [8, 64, 64],
 [2, 37, 53] and [4, 480, 640] on random frames and controls, bit-equal
 to and timed beside the earlier design (with the wrapper's device ops
 by name under torch.profiler at the first and last shape), and every
@@ -348,8 +369,8 @@ BIG_BATCH = 65537
 BATCH_CAP_TAIL = 4
 BATCH_CAP_KERNELS = ("norm_affine_lif", "event_voxel", "event_voxel_steps",
                      "encode_batch", "spike_conv_lif", "backbone_segment",
-                     "stencil_segment", "demosaic", "max_pool",
-                     "flash_mma_sync", "flash_f32")
+                     "stencil_segment", "pointwise_segment", "demosaic",
+                     "max_pool", "flash_mma_sync", "flash_f32")
 # [T, B, HW, C] of every norm_affine_lif launch of the four backbones'
 # untuned ticks at batch 8 (norm_shapes; tests/test_torch_norm_lif.py
 # holds this list to it)
@@ -430,6 +451,11 @@ SEGMENTS_PER_TICK = {"spiking_yolo": 2, "spiking_mobilenet": 2,
                      "spiking_vgg": 1, "spiking_densenet": 1}
 # timestamps the reference bins by XLA's saturating float -> int32 cast
 NONFINITE_T = (float("nan"), float("inf"), float("-inf"), 1e10, -1e10)
+# the fleet phase: spiking-YOLO's requests (make_requests x 4), and the
+# chaos run's horizon in ticks
+FLEET_REQUESTS = 64
+CHAOS_TICKS = 48
+HARVEST_SLEEP_S = 0.2           # the spin that a harvest must not wait for
 # the paper's other three backbones, served beside spiking-YOLO
 NEW_ARCHS = ("spiking_mobilenet", "spiking_vgg", "spiking_densenet")
 TICK_KERNELS = ("event_voxel", "demosaic", "nlm")
@@ -438,6 +464,16 @@ FUSED_KERNELS = ("isp_pointwise_segment", "isp_stencil_segment")
 FUSED_ORDERINGS = ("fused", "hdr_fused", "fast_preview")
 # plan segments whose kernel gives its plain version's bits
 EXACT_SEGMENTS = ("[exposure+dpc]", "[demosaic]", "[awb*+gamma]")
+# row 12's cases: the pointwise segment (label) of an ordering's plan, and
+# its frames' channels: fast_preview's, an exposure chain on Bayer frames,
+# a chain with no gamma
+POINTWISE_CASES = {
+    "[awb*+gamma]": (("exposure", "dpc", "demosaic", "awb", "gamma"), 3),
+    "[exposure]": (("exposure",), 1),
+    "[awb*+tonemap+ccm]": (("demosaic", "awb", "tonemap", "ccm"), 3)}
+POINTWISE_EXACT = ("[awb*+gamma]", "[exposure]")
+POINTWISE_SHAPES = ((BATCH, 64, 64), RAGGED, TINY, VGA,
+                    (BATCH, LARGE_HW, LARGE_HW))
 # fp32 operations per pixel of each device op of the fused segments,
 # counted from csrc/isp_fused.cu (C = 3 channels where it applies);
 # nlm's from nlm_ops
@@ -798,6 +834,52 @@ def earlier_stencil():
               f"cudaError {err}")
         return out
     return run
+
+
+def earlier_pointwise():
+    """The pointwise segment's PR 13 design (a thread a pixel, a 64-bit
+    index decode, the [B, 256] LUT read from global memory), from the
+    copy of isp_fused.cu at build/earlier/isp_fused.cu (2798f1c's, whose
+    pointwise kernel and launcher are PR 13's, unchanged up to 28ac6d7),
+    as a namespace: ``kernel(lut, x, pvec, stats, consts, chain)``
+    launches it on a prebuilt LUT (or None), ``lut_of(pvec, chain)``
+    builds that LUT by torch ops, and ``parent(x, pvec, stats, consts,
+    chain=...)`` does what the parent's wrapper did (the LUT, then the
+    launch); None where there is no copy."""
+    import ctypes
+    import types
+    import torch
+    from repro_torch.isp.gamma import gamma_lut
+    from repro_torch.kernels import isp_fused as IF
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _earlier("isp_fused", [P] * 6 + [I] * 7 + [P] * 4,
+                  symbol="isp_pointwise_launch")
+    if fn is None:
+        return None
+
+    def kernel(lut, x, pvec, stats, consts, chain):
+        (n, ops, poffs, coffs), _ = IF._descriptor(chain, consts)
+        out = torch.empty_like(x)
+        flat = IF._flat_consts(consts, x.device)
+        B, H, W = x.shape[:3]
+        err = fn(x.data_ptr(), out.data_ptr(), pvec.data_ptr(),
+                 stats.data_ptr(), flat.data_ptr(),
+                 0 if lut is None else lut.data_ptr(), B, H, W,
+                 x.shape[3] if x.dim() == 4 else 1, pvec.shape[1],
+                 stats.shape[1], n, ops, poffs, coffs,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the earlier pointwise segment failed to launch: "
+              f"cudaError {err}")
+        return out
+
+    def lut_of(pvec, chain):
+        g = IF.gamma_offset(chain)
+        return (gamma_lut(pvec[:, g], device=pvec.device).contiguous()
+                if g >= 0 else None)
+
+    def parent(x, pvec, stats, consts=(), *, chain, **_):
+        return kernel(lut_of(pvec, chain), x, pvec, stats, consts, chain)
+    return types.SimpleNamespace(kernel=kernel, lut_of=lut_of, parent=parent)
 
 
 def earlier_dwconv():
@@ -1884,6 +1966,7 @@ def fused_isp_check(x, ctrls, label, st=None, seg_rows=None,
     from repro_torch.isp.stages import control_to_stage_params, run_stages
     from repro_torch.kernels.isp_fused import stencil_plan
     earlier = earlier_stencil()
+    earlier_pw = earlier_pointwise()
     errs = {}
     for name, icfg in fused_orderings().items():
         sp = control_to_stage_params(ctrls[name], icfg.stages)
@@ -1894,7 +1977,10 @@ def fused_isp_check(x, ctrls, label, st=None, seg_rows=None,
             kernel, plain, args, kw = segment_call(ex, y, sp)
             got, want = kernel(*args, **kw), plain(*args, **kw)
             stencil = ex.segment.stencil is not None
-            old = earlier(*args, **kw) if earlier and stencil else None
+            old = (earlier(*args, **kw) if earlier and stencil else
+                   earlier_pw.parent(*args, **kw) if earlier_pw
+                   and not stencil
+                   else None)
             torch.cuda.synchronize()
             seg = ex.segment.describe()
             err = float((got - want).abs().max())
@@ -1951,7 +2037,7 @@ def fused_isp_check(x, ctrls, label, st=None, seg_rows=None,
               f"{err:.3g} > {NLM_TOL}")
         errs[f"{name} whole vs per-stage"] = err
     print(f"  fused ISP {label} max|err|"
-          + (" (bit-equal to the earlier design)" if earlier else "") + ": "
+          + (" (bit-equal to the earlier designs)" if earlier else "") + ": "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
     return errs
 
@@ -1976,12 +2062,33 @@ def isp_segment_line(x, ctrls, label, card, st=None, profile=False):
     return rows
 
 
-def fused_isp_phase(params, cfg, reqs, dev, card):
+def tick_pointwise_call(x, ctrl):
+    """(kernel, plain, args, kw) of fast_preview's pointwise segment
+    ([awb*+gamma]) on frames x with control ctrl, its input the plain
+    output of the stencil segments before it."""
+    from repro_torch.isp.fuse import compile_plan, segment_call
+    from repro_torch.isp.stages import control_to_stage_params
+    icfg = fused_orderings()["fast_preview"]
+    sp = control_to_stage_params(ctrl, icfg.stages)
+    y = x
+    for ex in compile_plan(icfg.stages):
+        call = segment_call(ex, y, sp)
+        if ex.segment.stencil is None:
+            return call
+        kernel, plain, args, kw = call
+        y = plain(*args, **kw).contiguous()
+    raise ValueError("fast_preview has no pointwise segment")
+
+
+def fused_isp_phase(params, cfg, reqs, dev, card, rows):
     """The fused ISP backend on the tick's own frames and control (the
     kernel NPU's on the event windows; an ordering wider than the NPU's
     head draws the rest in [0, 1)), every stencil segment timed beside
-    the earlier design; parity on ragged frames; then fast_preview fused
-    through the pipeline entry point with its launches counted."""
+    the earlier design; row 12 on fast_preview's [awb*+gamma] at the
+    tick beside the PR 13 design and the parent's path, added to
+    ``rows`` (rows 3, 9, 10 and 11 from tick_kernel_phase) and printed as
+    the "tick_rows" line; parity on ragged frames; then fast_preview
+    fused through the pipeline entry point with its launches counted."""
     import torch
     from repro_torch.core.encoding import voxel_batch
     from repro_torch.core.npu import npu_forward
@@ -2002,6 +2109,9 @@ def fused_isp_phase(params, cfg, reqs, dev, card):
             (ctrl.shape[0], extra), device=dev, generator=g)],
             dim=1)[:, :icfg.control_dim].contiguous()
     isp_segment_line(x, ctrls, "tick [8, 64, 64]", card, st)
+    rows["isp_pointwise_segment"] = pointwise_row(
+        tick_pointwise_call(x, ctrls["fast_preview"]), "[awb*+gamma]")
+    print("  tick_rows " + json.dumps(rows))
     # frames that are no whole number of tiles: parity only
     fused_isp_check(*random_isp_inputs(RAGGED, dev, g), str(list(RAGGED)))
 
@@ -2022,12 +2132,13 @@ def fused_isp_phase(params, cfg, reqs, dev, card):
 
 
 def isp_pool_phase(archs, dev, card):
-    """Rows 8 and 13 alone: every stencil segment of the fused orderings
-    on random frames and controls at [8, 64, 64], RAGGED and VGA, beside
-    the earlier design (isp_segment_line); every max_pool of VGG and
-    DenseNet on numpy-seeded spikes (POOL_DENSITY) in [T, B] order,
-    beside the parent's path (pool_check).  Returns the rows per shape
-    and the pool's sums per arch."""
+    """Rows 8, 12 and 13 alone: every stencil segment of the fused
+    orderings on random frames and controls at [8, 64, 64], RAGGED and
+    VGA, beside the earlier design (isp_segment_line); the pointwise
+    segment's cases and shapes (pointwise_shapes_line); every max_pool
+    of VGG and DenseNet on numpy-seeded spikes (POOL_DENSITY) in [T, B]
+    order, beside the parent's path (pool_check).  Returns the rows per
+    shape and the pool's sums per arch."""
     import numpy as np
     import torch
     g = torch.Generator(dev).manual_seed(5)
@@ -2036,6 +2147,7 @@ def isp_pool_phase(archs, dev, card):
         out["isp"][str(list(shape))] = isp_segment_line(
             *random_isp_inputs(shape, dev, g), str(list(shape)), card,
             profile=shape != RAGGED)
+    out["pointwise"] = pointwise_shapes_line(dev, card)
     rng = np.random.default_rng(0)
     for arch in ("spiking_vgg", "spiking_densenet"):
         params, cfg = archs[arch]
@@ -2047,6 +2159,89 @@ def isp_pool_phase(archs, dev, card):
             pool_check(name, x, window, st)
         out["max_pool"][arch] = st.summary()
     return out
+
+
+def pointwise_call(label, shape, dev, g):
+    """(kernel, plain, args, kw) of row 12's case ``label``
+    (POINTWISE_CASES) on frames of ``shape`` [B, H, W] (with its
+    channels) in [0, 1) and control vectors in [0, 1)."""
+    import torch
+    from repro_torch.configs.base import ISPConfig
+    from repro_torch.isp.fuse import compile_plan, segment_call
+    from repro_torch.isp.stages import control_to_stage_params
+    stages, C = POINTWISE_CASES[label]
+    ex = next(e for e in compile_plan(stages)
+              if e.segment.describe() == label)
+    x = torch.rand(tuple(shape) + ((C,) if C == 3 else ()), device=dev,
+                   generator=g)
+    ctrl = torch.rand((shape[0], ISPConfig(stages=stages).control_dim),
+                      device=dev, generator=g)
+    return segment_call(ex, x, control_to_stage_params(ctrl, stages))
+
+
+def pointwise_row(call, label):
+    """Row 12 on one call (kernel, plain, args, kw): the kernel against
+    its plain version (equal in POINTWISE_EXACT, else within NLM_TOL) and
+    bit-equal to the PR 13 design (where build/earlier holds its source),
+    one device op a call; its time beside the PR 13 kernel on a prebuilt
+    LUT, the parent's path (the LUT by torch ops, then that kernel), the
+    plain version and the bound (its bytes: x read, out written)."""
+    import torch
+    kernel, plain, args, kw = call
+    x = args[0]
+    old = earlier_pointwise()
+    got, want = kernel(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    shape = list(x.shape)
+    if label in POINTWISE_EXACT:
+        check(torch.equal(got, want), f"pointwise {label} {shape}: not "
+              f"bit-exact (max|err| {err:.3g})")
+    check(err <= NLM_TOL, f"pointwise {label} {shape}: max|err| {err:.3g}")
+    check(old is None or torch.equal(got, old.parent(*args, **kw)),
+          f"pointwise {label} {shape}: not bit-equal to the PR 13 design")
+    ops = ops_a_call(lambda: kernel(*args, **kw))
+    check(ops == 1, f"pointwise {label} {shape}: {ops} device ops a call")
+    lut = old and old.lut_of(args[1], kw["chain"])
+    nbytes = 2 * x.numel() * 4
+    nops = x.numel() // (x.shape[3] if x.dim() == 4 else 1) * sum(
+        SEGMENT_OPS[s.op] for s in kw["chain"])
+    return {"shape": shape, "ms": time_ms(lambda: kernel(*args, **kw)),
+            "earlier_kernel_ms": ms_or_none(old and (
+                lambda: old.kernel(lut, *args, kw["chain"]))),
+            "earlier_ms": ms_or_none(old and (
+                lambda: old.parent(*args, **kw))),
+            "plain_ms": time_ms(lambda: plain(*args, **kw)),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                            nops / FP32_FLOPS) * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= nops / FP32_FLOPS else "operations"),
+            "device_ops": ops,
+            "earlier_device_ops": old and ops_a_call(
+                lambda: old.parent(*args, **kw)),
+            "max_abs_err": err}
+
+
+def pointwise_shapes_line(dev, card):
+    """Row 12 at every case and shape (POINTWISE_CASES x
+    POINTWISE_SHAPES; the no-gamma and Bayer chains at the tick, ragged
+    and VGA shapes), printed as one "pointwise_rows" line."""
+    import torch
+    g = torch.Generator(dev).manual_seed(12)
+    rows = {}
+    for label in POINTWISE_CASES:
+        shapes = POINTWISE_SHAPES if label == "[awb*+gamma]" else \
+            ((BATCH, 64, 64), RAGGED, VGA)
+        for shape in shapes:
+            rows[f"{label} {list(shape)}"] = pointwise_row(
+                pointwise_call(label, shape, dev, g), label)
+    print("  pointwise_rows " + json.dumps({"card": card, **rows}))
+    print(f"  pointwise_segment: bit-equal to its plain version "
+          f"({', '.join(POINTWISE_EXACT)}; else within {NLM_TOL})"
+          + (" and to the PR 13 design" if earlier_pointwise() else
+             "; the PR 13 design not built")
+          + f", one device op a call, at {len(rows)} cases x shapes")
+    return rows
 
 
 def demosaic_segment(raw):
@@ -2113,8 +2308,9 @@ def tick_kernel_phase(params, cfg, reqs, dev, lif=None):
     its plain version and timed; rows 9, 10 and 11 beside their earlier
     designs (with the parent's wrapper ops: its torch.where select, its
     torch-built luminance and bandwidth), with the device ops of a call,
-    and row 3 (``lif``, the control head's firing from kernel_phase),
-    printed as one "tick_rows" line."""
+    and row 3 (``lif``, the control head's firing from kernel_phase).
+    Returns the stats and those rows (fused_isp_phase prints them with
+    row 12 as the "tick_rows" line)."""
     import torch
     from repro_torch.configs.registry import ISP_CONFIGS
     from repro_torch.core.encoding import (OOB_POLICIES, VOXEL_MODES,
@@ -2261,8 +2457,7 @@ def tick_kernel_phase(params, cfg, reqs, dev, lif=None):
             x = get_stage(name).impl_for("torch")(x, p)
     if lif is not None:
         rows["lif_scan"] = lif.summary()
-    print("  tick_rows " + json.dumps(rows))
-    return st
+    return st, rows
 
 
 def large_isp_line(dev):
@@ -2588,6 +2783,288 @@ def serve_phase(params, cfg, reqs, dev, archs, tables):
     return launches, summary
 
 
+def harvest_check(core, bank_a, bank_b):
+    """Two ticks in flight on one stream: dispatch A, dispatch B, then a
+    spin kernel of HARVEST_SLEEP_S and an event behind it.  fetch(A)
+    waits on A's own copy event, so it returns while that event is still
+    pending.  Returns (pending when fetch(A) returned, fetch(A)'s
+    seconds, A's fetched outputs, B's)."""
+    import torch
+    a = core.dispatch(core.upload(bank_a))
+    b = core.dispatch(core.upload(bank_b))
+    torch.cuda._sleep(int(HARVEST_SLEEP_S * SPIN_CYCLES_PER_S))
+    late = torch.cuda.Event()
+    late.record()
+    t0 = time.perf_counter()
+    got_a = core.fetch(a)
+    dt = time.perf_counter() - t0
+    pending = not late.query()
+    got_b = core.fetch(b)
+    late.synchronize()
+    return pending, dt, got_a, got_b
+
+
+def bank_event_check(core, bank, req, enc_cfg):
+    """The pinned-bank rule: a bank uploaded behind a spin kernel (its
+    copy not run yet) is re-packed only once the copy's event completes,
+    so the device copy holds what was staged before.  Returns (the copy
+    pending after upload, its event complete once staging returned, the
+    device copy equal to the bank as uploaded)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.transport import stage_request, validate_request
+    bank.wait_copied()
+    torch.cuda._sleep(int(HARVEST_SLEEP_S * SPIN_CYCLES_PER_S))
+    before = bank.buffer.numpy().copy()
+    views = core.upload(bank)
+    ev = bank._copied
+    pending = not ev.query()
+    stage_request(bank, 0, req, validate_request(req, 2), enc_cfg)
+    done = ev.query()
+    torch.cuda.synchronize()
+    dev_bytes = views[0].untyped_storage()
+    copied = torch.empty(0, dtype=torch.uint8, device=views[0].device).set_(
+        dev_bytes).cpu().numpy()[:before.size]
+    return pending, done, bool(np.array_equal(copied, before))
+
+
+def fleet_requests(cfg):
+    """FLEET_REQUESTS mixed requests: make_requests (8 voxel windows, 8
+    raw event buffers) from seeds 10, 11, ..., rids 0..63."""
+    import numpy as np
+    out = []
+    for k in range(FLEET_REQUESTS // REQUESTS):
+        for r in make_requests(cfg, np.random.default_rng(10 + k)):
+            r.rid += k * REQUESTS
+            out.append(r)
+    return out
+
+
+def fleet_phase(params, cfg, dev, card, table):
+    """The serving fleet (``repro_torch.serve.fleet.FleetEngine``) on
+    full-width spiking-YOLO at batch 8 with the all-kernel configs
+    (ENCODING_CONFIGS["cuda"], ISP_CONFIGS["cuda"]), rung 0 on the swept
+    launch table ``table``: the one-tick-only harvest and the pinned-bank
+    rule on rung 0's core; the ladder's two kernel rungs on one staged
+    bank, bit-equal, and a core on the plain SNN layers (no rung on a
+    card) within E2E_TOL of rung 0; each core's launches against
+    npu_launches_per_tick, the plain core's the encode's and ISP's
+    alone; a clean supervised
+    run (SUPERVISOR_CONFIGS["supervisor"], prewarmed: the counts set to 0
+    after the prewarm, read after the run) of FLEET_REQUESTS requests,
+    every one DONE on "cuda_fused" within E2E_TOL of an all-kernel
+    CognitiveEngine's result on the same table, its step latency and
+    stats(); then a chaos run (FAULT_CONFIGS["chaos"] over CHAOS_TICKS,
+    SUPERVISOR_CONFIGS["soak"], the plan's malformed submits included):
+    no non-finite result delivered, every request terminal and delivered
+    at most once, a demotion and a promotion in the telemetry.  Returns
+    the report (printed as one "fleet" line)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import FleetConfig
+    from repro_torch.configs.registry import (ENCODING_CONFIGS,
+                                              FAULT_CONFIGS, ISP_CONFIGS,
+                                              SUPERVISOR_CONFIGS)
+    from repro_torch.kernels import build, tune
+    from repro_torch.serve.cognitive_engine import (CognitiveEngine,
+                                                    PerceptionRequest)
+    from repro_torch.serve.engine_core import EngineCore
+    from repro_torch.serve.faults import FaultPlan, make_malformed_request
+    from repro_torch.serve.fleet import FleetEngine
+    from repro_torch.serve.scheduler import RequestStatus
+    from repro_torch.serve.transport import stage_request, validate_request
+
+    def clone(r, rid=None):
+        return PerceptionRequest(rid=r.rid if rid is None else rid,
+                                 voxels=r.voxels, bayer=r.bayer,
+                                 events=r.events)
+
+    reqs = fleet_requests(cfg)
+    kw = dict(isp_cfg=ISP_CONFIGS["cuda"], enc_cfg=ENCODING_CONFIGS["cuda"],
+              device=dev)
+    sup = dataclasses.replace(SUPERVISOR_CONFIGS["supervisor"], prewarm=True)
+    with tune.pinned(table):
+        fleet = FleetEngine(params, cfg, fleet_cfg=FleetConfig(batch=BATCH),
+                            supervisor_cfg=sup, **kw)
+        ref = CognitiveEngine(params, cfg, batch=BATCH, **kw)
+    plain = EngineCore(params, dataclasses.replace(cfg, backend="torch"),
+                       **kw)
+    check(fleet.ladder_names == ["cuda_fused", "cuda"],
+          f"fleet ladder {fleet.ladder_names}: a card's rungs are kernel "
+          f"routes only")
+    check(all(b.buffer.is_pinned() for b in fleet.buffers.banks),
+          "fleet: the staging banks are not pinned")
+    tick_kernels = dict(event_voxel=1, demosaic=1, nlm=1)
+    per_tick = [dict(npu_launches_per_tick(
+        cfg, fused=fused_layers(params, cfg, BATCH, table),
+        segments=fused_segments(cfg, BATCH, table)), **tick_kernels),
+        dict(npu_launches_per_tick(cfg), **tick_kernels), tick_kernels]
+    report = {"card": card}
+    core = fleet.cores[0]
+    enc = core.enc_cfg
+
+    def staged(bank, rs):
+        for i, r in enumerate(rs):
+            stage_request(bank, i, r, validate_request(r, 2), enc)
+        return bank
+
+    # two ticks in flight: the harvest of the first waits for it alone
+    banks = fleet.buffers.banks
+    staged(banks[0], reqs[:BATCH])
+    staged(banks[1], reqs[BATCH:2 * BATCH])
+    pending, dt, (out_a, rgb_a, _), (out_b, _, _) = harvest_check(
+        core, banks[0], banks[1])
+    alone, rgb_alone, _ = core.tick(banks[0])
+    d_a = max(float(np.abs(out_a.raw_pred - alone.raw_pred).max()),
+              float(np.abs(rgb_a - rgb_alone).max()))
+    check(pending, f"fleet: fetch of tick A waited for the stream past "
+          f"tick B ({dt * 1e3:.1f} ms)")
+    check(d_a <= E2E_TOL, f"fleet: tick A's harvest differs from A alone "
+          f"by {d_a:.3g}")
+    check(not np.array_equal(out_a.raw_pred, out_b.raw_pred),
+          "fleet: ticks A and B fetched the same outputs")
+    report["harvest"] = {"fetch_ms": dt * 1e3, "spin_ms":
+                         HARVEST_SLEEP_S * 1e3, "pending": pending,
+                         "equal_to_alone": bool(
+                             np.array_equal(out_a.raw_pred, alone.raw_pred)
+                             and np.array_equal(rgb_a, rgb_alone))}
+    pend, done, equal = bank_event_check(core, banks[1], clone(reqs[0]),
+                                         enc)
+    check(pend and done and equal, f"fleet: pinned-bank rule (copy pending "
+          f"{pend}, done once staged {done}, device copy intact {equal})")
+    report["bank_rule"] = {"pending_after_upload": pend,
+                           "done_after_staging": done, "intact": equal}
+    print(f"  fleet: fetch of tick A returned in {dt * 1e3:.2f} ms with a "
+          f"{HARVEST_SLEEP_S * 1e3:.0f} ms spin behind tick B pending; a "
+          f"bank is re-packed only after its copy's event")
+
+    # the ladder's rungs and the plain core on one staged bank
+    bank = staged(banks[0], reqs[2 * BATCH:3 * BATCH])
+    names = fleet.ladder_names[:2] + ["plain"]
+    outs, rung_counts = [], []
+    for i, c in enumerate(fleet.cores[:2] + [plain]):
+        build.reset_launches()                      # counts to 0 ...
+        outs.append(c.tick(bank))
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in build.LAUNCHES.items() if v}
+        rung_counts.append(counts)                  # ... read just after
+        want = {k: v for k, v in per_tick[i].items() if v}
+        check(counts == want, f"fleet core {names[i]}: "
+              f"launches {counts}, want {want}")
+    diffs = [{f: float(np.abs(np.asarray(a) - np.asarray(b)).max())
+              for f, a, b in (("raw_pred", o[0].raw_pred, outs[0][0].raw_pred),
+                              ("control", o[0].control, outs[0][0].control),
+                              ("rgb", o[1], outs[0][1]))} for o in outs]
+    print(f"  fleet cores {names}: max|core - rung 0| {diffs}; "
+          f"launches {rung_counts}")
+    check(all(v == 0.0 for v in diffs[1].values()),
+          f"fleet: rung 1 is not bit-equal to rung 0: {diffs[1]}")
+    check(all(v <= E2E_TOL for v in diffs[2].values()),
+          f"fleet: the plain core differs from rung 0 past {E2E_TOL}: "
+          f"{diffs[2]}")
+    report["rungs"] = {"names": names, "launches": rung_counts,
+                       "max_abs_diff_to_rung0": diffs}
+
+    # the clean supervised run
+    build.reset_launches()                          # counts to 0 ...
+    sub = [fleet.submit(clone(r)) for r in reqs]
+    steps = []
+    while len(fleet.queue) or fleet._inflight is not None:
+        fleet.step()
+        steps.append(fleet.last_tick_s * 1e3)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in build.LAUNCHES.items() if v}  # ... after
+    want = {k: v * fleet.ticks for k, v in per_tick[0].items() if v}
+    check(counts == want, f"fleet clean run: launches {counts}, want {want} "
+          f"({fleet.ticks} ticks)")
+    check(all(s.status is RequestStatus.DONE for s in sub),
+          f"fleet clean run: statuses {[s.status.value for s in sub]}")
+    check({s.request.result.telemetry.rung for s in sub} == {"cuda_fused"},
+          "fleet clean run: a request served off rung 0")
+    cog = {r.rid: r.result for r in ref.run_to_completion(
+        [clone(r) for r in reqs])}
+    clean_d = {f: max(float(np.abs(np.asarray(getattr(s.request.result, f))
+                                   - np.asarray(getattr(cog[s.rid], f))).max())
+                      for s in sub) for f in ("raw_pred", "control", "rgb")}
+    check(all(v <= E2E_TOL for v in clean_d.values()),
+          f"fleet clean run vs CognitiveEngine: {clean_d}")
+    st = fleet.stats()
+    check(st["delivered"] == FLEET_REQUESTS and st["nan_delivered"] == 0
+          and st["supervisor"]["transitions"] == [],
+          f"fleet clean run: stats {st}")
+    report["clean"] = {
+        "requests": FLEET_REQUESTS, "ticks": fleet.ticks, "launches": counts,
+        "max_abs_diff_to_cognitive_engine": clean_d,
+        "step_p50_ms": statistics.median(steps),
+        "step_p99_ms": sorted(steps)[min(len(steps) - 1,
+                                         int(0.99 * len(steps)))],
+        "steps": len(steps),
+        **{k: st[k] for k in ("latency_p50_s", "latency_p99_s",
+                              "latency_p999_s", "availability")}}
+    print(f"  fleet clean run ({card}): {FLEET_REQUESTS} requests DONE on "
+          f"cuda_fused in {fleet.ticks} ticks, launches {counts}, max|fleet "
+          f"- CognitiveEngine| {clean_d}; latency p50 "
+          f"{st['latency_p50_s'] * 1e3:.3f} ms p99 "
+          f"{st['latency_p99_s'] * 1e3:.3f} ms; step p50 "
+          f"{report['clean']['step_p50_ms']:.3f} ms")
+
+    # the chaos run
+    plan = FaultPlan.from_config(FAULT_CONFIGS["chaos"], CHAOS_TICKS, BATCH)
+    with tune.pinned(table):
+        chaos = FleetEngine(params, cfg, fleet_cfg=FleetConfig(batch=BATCH),
+                            supervisor_cfg=SUPERVISOR_CONFIGS["soak"],
+                            fault_plan=plan, **kw)
+    submitted, rid, bad_tick = [], 0, -1
+    while chaos.ticks < CHAOS_TICKS:
+        if len(chaos.queue) < BATCH:
+            for _ in range(BATCH):
+                submitted.append(chaos.submit(clone(reqs[rid % len(reqs)],
+                                                    rid)))
+                rid += 1
+        # once per tick: a step that dispatches nothing (every queued
+        # request backing off) leaves the tick where it was
+        if plan.malformed_at(chaos.ticks) and chaos.ticks != bad_tick:
+            bad_tick = chaos.ticks
+            submitted.append(chaos.submit(make_malformed_request(10 ** 6
+                                                                 + rid)))
+        chaos.step()
+    chaos.drain()
+    torch.cuda.synchronize()
+    cs = chaos.stats()
+    ends = {RequestStatus.DONE, RequestStatus.FAILED, RequestStatus.EXPIRED,
+            RequestStatus.REJECTED}
+    events = [e["event"] for e in cs["supervisor"]["transitions"]]
+    check(cs["nan_delivered"] == 0, f"fleet chaos: {cs['nan_delivered']} "
+          f"non-finite results delivered")
+    check(all(s.status in ends for s in submitted),
+          "fleet chaos: a request did not end terminal")
+    n_done = sum(s.status is RequestStatus.DONE for s in submitted)
+    check(cs["delivered"] == n_done, f"fleet chaos: {cs['delivered']} "
+          f"deliveries for {n_done} requests DONE (one delivered twice)")
+    check(all(np.isfinite(s.request.result.raw_pred).all()
+              and np.isfinite(s.request.result.rgb).all()
+              for s in submitted if s.status is RequestStatus.DONE),
+          "fleet chaos: a delivered result is not finite")
+    check("demote" in events and "promote" in events,
+          f"fleet chaos: transitions {events}")
+    report["chaos"] = {
+        "faults": len(plan), "kinds": sorted(k.value for k in plan.kinds()),
+        "submitted": len(submitted), "events": events,
+        "rungs_served": sorted({s.request.result.telemetry.rung
+                                for s in submitted
+                                if s.status is RequestStatus.DONE}),
+        **{k: v for k, v in cs.items() if k != "supervisor"},
+        "supervisor": {k: v for k, v in cs["supervisor"].items()
+                       if k != "transitions"}}
+    print(f"  fleet chaos run ({len(plan)} faults over {CHAOS_TICKS} ticks, "
+          f"{len(submitted)} submits): delivered {cs['delivered']}, failed "
+          f"{cs['failed']}, malformed {cs['malformed']}, retries "
+          f"{cs['retries']}, quarantined {cs['supervisor']['quarantined']},"
+          f" nan delivered {cs['nan_delivered']}; transitions {events}")
+    print("  fleet " + json.dumps(report))
+    return report
+
+
 def cognitive_phase(params, cfg, reqs, dev):
     """cognitive_forward on the "cuda" and "fused" ISP configs and
     cognitive_step(use_cuda=True), each against its plain run and with
@@ -2720,6 +3197,13 @@ def batch_cap_run(name, dev):
     if name == "demosaic":
         x = rand(B, 6, 10)
         return demosaic(x)[-n:], demosaic(x[-n:].contiguous())
+    if name == "pointwise_segment":
+        kernel, _, args, kw = pointwise_call("[awb*+gamma]", (B, 2, 3), dev,
+                                             g)
+        x, pvec, stats, consts = args
+        return (kernel(*args, **kw)[-n:],
+                kernel(x[-n:], pvec[-n:].contiguous(),
+                       stats[-n:].contiguous(), consts, **kw))
     if name == "stencil_segment":
         stages = ISP_CONFIGS["fused"].stages
         ex = next(e for e in compile_plan(stages)
@@ -3071,13 +3555,23 @@ def profile_window(fn, n):
     return wall_ms, sum(by_name.values()), len(dev) / n, by_name
 
 
-def ops_a_call(fn, n=20):
+def ops_a_call(fn, n=20, tries=3):
     """Device ops of one call of ``fn``: the mean over ``n`` profiled
     calls, rounded.  CUPTI has been seen to drop one kernel of a window
     (0.8 ops a call for a one-op call over 5 calls, in some runs and not
-    others); over 20 calls a dropped kernel moves the mean by 0.05, and a
-    call with one op more still counts one more."""
-    return round(profile_window(fn, n)[2])
+    others) and, once, most of a window's kernels (0 ops a call for a
+    one-launch call over 20); over 20 calls a dropped kernel moves the
+    mean by 0.05, and a call with one op more still counts one more.  A
+    window that shows fewer device ops than the kernel launches the
+    wrappers counted in it (``build.LAUNCHES``) lost events and is
+    profiled again, up to ``tries`` windows."""
+    from repro_torch.kernels import build
+    for _ in range(tries):
+        before = sum(build.LAUNCHES.values())
+        ops = profile_window(fn, n)[2]
+        if ops >= (sum(build.LAUNCHES.values()) - before) / n:
+            break
+    return round(ops)
 
 
 def attention_work(q, k, v, kw):
@@ -3577,9 +4071,11 @@ def main() -> int:
         check(n_seg == SEGMENTS_PER_TICK[arch], f"{arch}: {n_seg} fused-route "
               f"segments, want {SEGMENTS_PER_TICK[arch]}")
     st = kernel_phase(params, cfg, vox)
-    st.update(tick_kernel_phase(params, cfg, reqs, dev, st["lif_scan"]))
+    tick_st, tick_rows = tick_kernel_phase(params, cfg, reqs, dev,
+                                           st["lif_scan"])
+    st.update(tick_st)
     fused_st, preview_counts = fused_isp_phase(params, cfg, reqs, dev,
-                                               card)
+                                               card, tick_rows)
     st.update(fused_st)
     arch_st = {"spiking_yolo": {k: st[k] for k in NPU_KERNELS}}
     for arch, (p, acfg) in archs.items():
@@ -3612,6 +4108,7 @@ def main() -> int:
                       + (f" (per-op pair {s.per_op_ms:.4f})"
                          if s.per_op_ms else ""))
     large_isp_line(dev)
+    pointwise_shapes_line(dev, card)
     # every stencil segment on a VGA batch, beside the earlier design
     isp_segment_line(*random_isp_inputs(VGA, dev, torch.Generator(
         dev).manual_seed(5)), str(list(VGA)), card)
@@ -3622,6 +4119,8 @@ def main() -> int:
     tables = sweep_phase({"spiking_yolo": (params, cfg), **archs}, vox)
     launches, latency = serve_phase(params, cfg, reqs, dev, archs, tables)
     cognitive_phase(params, cfg, reqs, dev)
+    fleet_report = fleet_phase(params, cfg, dev, card,
+                               tables["spiking_yolo"][0])
 
     # release the SNN engines' memory before the 15 GB model
     import gc
@@ -3659,6 +4158,8 @@ def main() -> int:
         arch: {k: s.summary() for k, s in sts.items() if s.shapes}
         for arch, sts in arch_st.items()}}))
     print(json.dumps({"lm": lm_report}))
+    print(json.dumps({"fleet": {k: fleet_report[k] for k in
+                                ("clean", "chaos", "harvest")}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

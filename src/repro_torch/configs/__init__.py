@@ -1,5 +1,7 @@
 from repro_torch.configs.base import (DEFAULT_ISP_STAGES, EncodingConfig,
-                                     ISPConfig, SNNConfig, TuneConfig)
+                                     FaultConfig, FleetConfig, ISPConfig,
+                                     SNNConfig, SupervisorConfig, TuneConfig)
 
-__all__ = ["DEFAULT_ISP_STAGES", "EncodingConfig", "ISPConfig", "SNNConfig",
+__all__ = ["DEFAULT_ISP_STAGES", "EncodingConfig", "FaultConfig",
+           "FleetConfig", "ISPConfig", "SNNConfig", "SupervisorConfig",
            "TuneConfig"]

@@ -1,7 +1,8 @@
-"""Config dataclasses of the serving tick, the kernel autotuner and the
-LM stack, copied from the JAX package's ``repro.configs.base`` (field
-names and defaults unchanged) with the port's backend names: ``"torch"``
-for the plain PyTorch path and ``"cuda"`` for the hand-written kernels.
+"""Config dataclasses of the serving tick, the fleet that serves it, the
+kernel autotuner and the LM stack, copied from the JAX package's
+``repro.configs.base`` (field names and defaults unchanged) with the
+port's backend names: ``"torch"`` for the plain PyTorch path and
+``"cuda"`` for the hand-written kernels.
 ``repro_torch.convert`` maps the JAX names (``"jnp"`` / ``"pallas"``)
 onto these.
 """
@@ -267,3 +268,97 @@ class TuneConfig:
     reps: int = 5                   # timed repetitions per candidate
     prune_to: int = 8               # candidates timed after the ranking
     max_candidates: int = 64        # cap on the enumerated space
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Continuous-batching serving policy for the cognitive path
+    (``repro_torch.serve.fleet``).
+
+    ``batch``: tick batch (slot count).
+    ``max_queue``: admission-control bound; submits beyond it are
+    REJECTED immediately (backpressure, not buffering).
+    ``default_deadline_ms``: per-request deadline measured from
+    enqueue, applied when the submit carries none (None = requests
+    never expire).
+    ``double_buffer``: two host staging banks, so tick N+1's pack and
+    upload overlap tick N's compute (results then deliver one
+    ``step()`` later: pipeline depth 2).
+    ``shard``: partition the tick batch over a data mesh when more than
+    one device is visible (the port serves one card: no mesh)."""
+    name: str = "fleet"
+    batch: int = 8
+    max_queue: int = 64
+    default_deadline_ms: Optional[float] = None
+    double_buffer: bool = True
+    shard: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """One deterministic fault-injection schedule
+    (``repro_torch.serve.faults``).  ``FaultPlan.from_config`` expands it
+    into an explicit per-(tick, slot) event list with
+    ``numpy.random.default_rng(seed)``: the same config always gives the
+    same schedule.  Probabilities are per dispatched tick; slot-targeted
+    kinds draw their slot uniformly.
+
+    * ``p_corrupt_input``: NaN poison written into a staged voxel slot
+      just before upload;
+    * ``p_nan_output``: NaN/Inf forced into one slot of the fetched NPU
+      outputs;
+    * ``p_transient``: the tick raises ``TransientTickError`` at
+      harvest;
+    * ``p_stall``: the tick's harvest stalls ``stall_ms`` past its
+      dispatch;
+    * ``p_malformed``: the client edge submits a structurally invalid
+      request that tick.
+    """
+    name: str = "chaos"
+    seed: int = 0
+    p_corrupt_input: float = 0.0
+    p_nan_output: float = 0.0
+    p_transient: float = 0.0
+    p_stall: float = 0.0
+    p_malformed: float = 0.0
+    stall_ms: float = 50.0
+    inf_fraction: float = 0.25      # poison with +inf instead of NaN
+
+
+@dataclasses.dataclass(frozen=True)
+class SupervisorConfig:
+    """Self-healing policy for the fleet
+    (``repro_torch.serve.supervisor``).
+
+    Health: every delivered slot passes a NaN/Inf guard (``nan_guard``:
+    a non-finite result is quarantined, never delivered); a tick whose
+    dispatch-to-harvest wall time exceeds ``tick_deadline_ms`` counts as
+    a stall; tick wall times feed a ``HeartbeatMonitor`` whose straggler
+    detector (``straggler_factor`` x the running median for
+    ``straggler_patience`` consecutive ticks) flags a slowing engine.
+
+    Breaker: ``breaker_threshold`` consecutive failed ticks demote the
+    engine one rung down the fallback ladder (``"cuda_fused"`` ->
+    ``"cuda"`` -> ``"torch"``); after ``half_open_after`` degraded ticks
+    the next tick probes the rung above, and ``recovery_threshold``
+    clean probes promote back up.
+
+    Requests: transiently failed ones retry up to ``max_retries`` times
+    behind ``retry_backoff_ms * 2^attempt`` plus seeded jitter; one in
+    flight past ``hedge_after_ms`` gets one hedged duplicate (first
+    delivery wins).  ``prewarm`` runs every rung once at construction."""
+    name: str = "supervisor"
+    nan_guard: bool = True
+    tick_deadline_ms: Optional[float] = None
+    breaker_threshold: int = 3
+    half_open_after: int = 8
+    recovery_threshold: int = 2
+    heartbeat_timeout_s: float = 60.0
+    straggler_factor: float = 6.0
+    straggler_patience: int = 4
+    max_retries: int = 2
+    retry_backoff_ms: float = 4.0
+    retry_jitter_ms: float = 1.0
+    retry_seed: int = 0
+    hedge_after_ms: Optional[float] = None
+    prewarm: bool = False           # run every ladder rung up front

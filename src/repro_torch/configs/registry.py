@@ -1,7 +1,8 @@
 """Named configurations of the port, copied from the JAX package's
 ``repro.configs.registry``: the ten LM architectures (with ``reduced``
 and the shape cells), the paper's four spiking architectures, the ISP
-orderings, the event encodings and the autotuner's sweep policies.
+orderings, the event encodings, the fleet's serving, fault and
+supervision policies and the autotuner's sweep policies.
 The JAX ``"pallas"`` entries are ``"cuda"`` here, its ``"pallas_fused"``
 ones ``"cuda_fused"``."""
 from __future__ import annotations
@@ -11,9 +12,10 @@ from typing import Dict, List, Tuple
 
 from repro_torch.configs import base
 from repro_torch.configs.base import (DEFAULT_ISP_STAGES, EncodingConfig,
-                                      ISPConfig, MLAConfig, ModelConfig,
-                                      MoEConfig, SNNConfig, SSMConfig,
-                                      TuneConfig)
+                                      FaultConfig, FleetConfig, ISPConfig,
+                                      MLAConfig, ModelConfig, MoEConfig,
+                                      SNNConfig, SSMConfig,
+                                      SupervisorConfig, TuneConfig)
 
 # ---------------------------------------------------------------------------
 # The LM architectures (the reference registry's ten, same fields)
@@ -221,6 +223,67 @@ ENCODING_CONFIGS: Dict[str, EncodingConfig] = {
                                     oob="drop", event_capacity=256),
 }
 
+
+FLEET_CONFIGS: Dict[str, FleetConfig] = {
+    # balanced default: double-buffered, bounded queue
+    "fleet": FleetConfig(name="fleet"),
+    # ADAS/UAV edge profile: small batch, hard 50 ms deadline, depth-1
+    # pipeline (no extra tick of latency), tiny admission queue
+    "edge_realtime": FleetConfig(name="edge_realtime", batch=4,
+                                 max_queue=8, default_deadline_ms=50.0,
+                                 double_buffer=False),
+    # offline/throughput profile: wide ticks, deep queue, no deadlines
+    "throughput": FleetConfig(name="throughput", batch=16, max_queue=512),
+}
+
+
+def get_fleet_config(name: str) -> FleetConfig:
+    return FLEET_CONFIGS[name]
+
+
+FAULT_CONFIGS: Dict[str, FaultConfig] = {
+    # clean control run
+    "none": FaultConfig(name="none"),
+    # the chaos-smoke schedule: every fault kind present, rates high
+    # enough that a short soak sees each one several times
+    "chaos": FaultConfig(name="chaos", seed=7,
+                         p_corrupt_input=0.02, p_nan_output=0.05,
+                         p_transient=0.05, p_stall=0.03,
+                         p_malformed=0.03, stall_ms=40.0),
+    # NaN storm: the quarantine and breaker paths
+    "nan_storm": FaultConfig(name="nan_storm", seed=11,
+                             p_nan_output=0.25, inf_fraction=0.5),
+    # flaky accelerator: transient launch failures and stalls
+    "flaky_device": FaultConfig(name="flaky_device", seed=13,
+                                p_transient=0.15, p_stall=0.05,
+                                stall_ms=80.0),
+}
+
+
+def get_fault_config(name: str) -> FaultConfig:
+    return FAULT_CONFIGS[name]
+
+
+SUPERVISOR_CONFIGS: Dict[str, SupervisorConfig] = {
+    # balanced default: quarantine, breaker, retries, no hedging
+    "supervisor": SupervisorConfig(name="supervisor"),
+    # soak profile: a single failed tick demotes, so a short run walks
+    # the whole demote -> probe -> promote cycle; hedging past 250 ms
+    # covers stalled ticks
+    "soak": SupervisorConfig(name="soak", breaker_threshold=1,
+                             half_open_after=4, recovery_threshold=2,
+                             max_retries=3, retry_backoff_ms=2.0,
+                             hedge_after_ms=250.0),
+    # edge profile: no retries (a stale frame is worthless), a hard tick
+    # deadline folded into the breaker's health
+    "edge_strict": SupervisorConfig(name="edge_strict", max_retries=0,
+                                    tick_deadline_ms=50.0,
+                                    breaker_threshold=2),
+}
+
+
+def get_supervisor_config(name: str) -> SupervisorConfig:
+    return SUPERVISOR_CONFIGS[name]
 
 TUNE_CONFIGS: Dict[str, TuneConfig] = {
     # full sweep: every legal candidate ranked, the top 8 timed

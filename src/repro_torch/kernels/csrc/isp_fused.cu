@@ -6,12 +6,11 @@
 // (C = 1 for a Bayer mosaic, 3 for RGB), with pvec [B, P] (the planner's
 // packed stage parameters, one row per frame), stats [B, S] (a reduce
 // stage's global statistics) and consts (the stages' array constants,
-// flattened).  The gamma stage's per-frame LUT: the pointwise kernel
-// takes lut [B, 256], built by the plain gamma_lut on the device (or
-// null); a stencil block builds its frame's in shared memory from the
-// gamma parameter at gamma_off in the frame's pvec row (-1: none) with
-// gamma_lut's ops (a clamp, an IEEE reciprocal, i * float32(1/255), powf),
-// so a stencil segment is one device op.
+// flattened).  The gamma stage's per-frame LUT: every block builds its
+// frame's in shared memory from the gamma parameter at gamma_off in the
+// frame's pvec row (-1: none) with gamma_lut's ops (gamma_lut_block: a
+// clamp, an IEEE reciprocal, i * float32(1/255), powf), so a segment of
+// either kind is one device op.
 //
 // Replaces the TPU kernels pointwise_segment_pallas and
 // stencil_segment_pallas (src/repro/kernels/isp_fused.py), which run a
@@ -23,7 +22,18 @@
 // parameters in a pvec row and of its constants in consts, plus the
 // window op of a stencil segment.
 //
-// pointwise: one thread per pixel, all channels.
+// pointwise: one block per (frame, tile of the frame's flat H*W*C span),
+// all on gridDim.x (any batch up to 2^31 - 1 blocks in all), decoded by
+// a host-made magic number; the tile (256, 512 or 1024 pixels, 256
+// threads) comes from the host plan (pointwise_plan in
+// kernels/isp_fused.py, cached per shape), which this launcher checks.
+// The block copies its frame's pvec and stats rows to shared memory
+// once, loads its span into a shared stage with 16-byte loads (4-byte
+// lanes at the unaligned head and the ragged tail; the stage is offset
+// so the 16-byte loads land aligned in it), builds the frame's LUT
+// while those loads are in flight, applies the chain to whole pixels
+// (AWB and CCM mix a pixel's channels) in place and stores the span the
+// same way.  Frames of any size: a tile past the frame's end is cut.
 //
 // stencil: one instance per window op (dpc r = 2, C 1 -> 1; demosaic
 // r = 2, C 1 -> 3; nlm r = 4, C 1 or 3; sharpen r = 1, C 3) and output
@@ -63,9 +73,11 @@
 // demosaic and sharpen (one read of the input, one write of the output;
 // the halo re-reads hit L1/L2); operations for NLM (49 weights with an
 // exp and a divide each per pixel).  At [8, 64, 64] every segment moves
-// under 1 MB, so a launch's latency dominates all but NLM; a segment is
-// one device op (the gamma LUT built in the block, the flattened
-// constants cached by the wrapper).
+// under 1 MB, so a launch's latency dominates all but NLM: a segment is
+// one device op (the LUT built in the block, the flattened constants
+// cached by the wrapper).  At a VGA batch and above the pointwise kernel
+// is held by its bytes: 16-byte accesses, and blocks enough to fill the
+// card (1200 at [4, 480, 640]).
 //
 // Rounding: every step is a round-to-nearest intrinsic in the plain
 // PyTorch version's op order, so nvcc cannot contract FMAs; torch's
@@ -169,21 +181,110 @@ __device__ __forceinline__ void apply_chain(const Chain& ch, const float* pv,
   }
 }
 
-__global__ void pointwise_kernel(const float* __restrict__ x,
-                                 float* __restrict__ out,
-                                 const float* __restrict__ pvec,
-                                 const float* __restrict__ stats,
-                                 const float* __restrict__ consts,
-                                 const float* __restrict__ lut, int64_t total,
-                                 int HW, int C, int P, int S, Chain ch) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int64_t b = i / HW;
-  float v[3];
-  for (int c = 0; c < C; ++c) v[c] = x[i * C + c];
-  apply_chain(ch, pvec + b * P, stats + b * S, consts,
-              lut ? lut + b * kLut : nullptr, v, C);
-  for (int c = 0; c < C; ++c) out[i * C + c] = v[c];
+// gamma_lut's ops on the frame's gamma g, into lut[0:256] by the block's
+// threads (the caller synchronises): axis ** (1 / clamp(g, 1e-3)), axis
+// the reference's linspace as XLA evaluates it, i * float32(1/255) with
+// the endpoint 1.  Both kernels build their LUT here: one bit contract.
+__device__ __forceinline__ void gamma_lut_block(float* lut, float g) {
+  const float gc = isnan(g) ? g : (g < 1e-3f ? 1e-3f : g);
+  const float inv = __fdiv_rn(1.f, gc);
+  const float step = static_cast<float>(1.0 / (kLut - 1));
+  for (int i = threadIdx.x; i < kLut; i += blockDim.x)
+    lut[i] = powf(i < kLut - 1 ? __fmul_rn(static_cast<float>(i), step)
+                               : 1.f,
+                  inv);
+}
+
+// ---------------------------------------------------------------------------
+// pointwise segments
+// ---------------------------------------------------------------------------
+
+constexpr int kPointwiseThreads = 256;   // kernels/isp_fused.py POINTWISE_*
+
+// floats past the last 16-byte boundary at p
+__device__ __forceinline__ int phase16(const void* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// dst[0:n] = src[0:n] by the block's threads, where dst has src's 16-byte
+// phase: 4-byte lanes up to src's first 16-byte boundary, then 16-byte
+// accesses, then 4-byte lanes at the tail.
+__device__ __forceinline__ void copy_span(float* __restrict__ dst,
+                                          const float* __restrict__ src,
+                                          int n) {
+  const int lead = (4 - phase16(src)) & 3;
+  const int head = lead < n ? lead : n;
+  const int body = (n - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  const float4* s4 = reinterpret_cast<const float4*>(src + head);
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int i = threadIdx.x; i < body; i += blockDim.x) d4[i] = s4[i];
+  for (int i = head + 4 * body + threadIdx.x; i < n; i += blockDim.x)
+    dst[i] = src[i];
+}
+
+struct PointwiseArgs {
+  const float* x;
+  float* out;
+  const float* pvec;
+  const float* stats;
+  const float* consts;
+  int gamma_off;                // the gamma step's param in a pvec row, or -1
+  int P, S;
+  int tile;                     // pixels a block
+  int tiles;                    // tiles a frame
+  int64_t span;                 // floats a frame: H * W * C
+  FastDiv ft;                   // tiles
+  Chain ch;
+};
+
+// Shared floats of a block: the stage (a tile's floats and a 16-byte
+// phase's slack), the LUT, the frame's pvec and stats rows.
+__host__ __device__ constexpr int pointwise_floats(int tile, int C, int P,
+                                                   int S) {
+  return tile * C + 4 + kLut + P + S;
+}
+
+template <int kC>
+__global__ void __launch_bounds__(kPointwiseThreads)
+pointwise_kernel(const PointwiseArgs a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  // (frame, tile) on gridDim.x, the tile fastest
+  const int blk = blockIdx.x;
+  const int b = a.ft.div(blk);
+  const int t = blk - b * a.tiles;
+  const int64_t first = static_cast<int64_t>(t) * a.tile * kC;
+  const int64_t left = a.span - first;   // the frame's last tile is cut
+  const int n = static_cast<int>(left < a.tile * kC ? left : a.tile * kC);
+  const float* src = a.x + static_cast<int64_t>(b) * a.span + first;
+  float* dst = a.out + static_cast<int64_t>(b) * a.span + first;
+  float* stage = smem + phase16(src);     // src's 16-byte phase
+  float* lut = smem + a.tile * kC + 4;
+  float* pv = lut + kLut;
+  float* st = pv + a.P;
+  const float* pv_g = a.pvec + static_cast<int64_t>(b) * a.P;
+  const float* st_g = a.stats + static_cast<int64_t>(b) * a.S;
+  copy_span(stage, src, n);
+  for (int i = threadIdx.x; i < a.P; i += blockDim.x) pv[i] = pv_g[i];
+  for (int i = threadIdx.x; i < a.S; i += blockDim.x) st[i] = st_g[i];
+  // the LUT's powf while the span's loads are in flight
+  if (a.gamma_off >= 0) gamma_lut_block(lut, pv_g[a.gamma_off]);
+  __syncthreads();
+  for (int p = threadIdx.x; p < n / kC; p += blockDim.x) {
+    float v[3];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) v[c] = stage[p * kC + c];
+    apply_chain(a.ch, pv, st, a.consts, lut, v, kC);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) stage[p * kC + c] = v[c];
+  }
+  __syncthreads();
+  if (phase16(dst) == phase16(src)) {
+    copy_span(dst, stage, n);
+  } else {                      // out off x's phase: 4-byte lanes
+    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = stage[i];
+  }
 }
 
 // The descriptor from the host arrays; false if a step is not a
@@ -268,16 +369,9 @@ stencil_kernel(const StencilArgs a) {
   const float* img = a.x + (int64_t)b * H * W * kC;
   const float* wc = a.consts + a.wcoff;          // the window op's consts
   float* lb = nullptr;
-  if (a.gamma_off >= 0) {   // gamma_lut: axis ** (1 / clamp(gamma, 1e-3))
+  if (a.gamma_off >= 0) {
     lb = smem + Lay::kLutAt;
-    const float g = pv[a.gamma_off];
-    const float gc = isnan(g) ? g : (g < 1e-3f ? 1e-3f : g);
-    const float inv = __fdiv_rn(1.f, gc);
-    const float step = static_cast<float>(1.0 / (kLut - 1));
-    for (int i = threadIdx.x; i < kLut; i += blockDim.x)
-      lb[i] = powf(i < kLut - 1 ? __fmul_rn(static_cast<float>(i), step)
-                                : 1.f,
-                   inv);
+    gamma_lut_block(lb, pv[a.gamma_off]);
     __syncthreads();
   }
 
@@ -447,19 +541,40 @@ int launch_tile(const StencilArgs& a, int th, int tw, int64_t blocks,
 
 extern "C" int isp_pointwise_launch(const float* x, float* out,
                                     const float* pvec, const float* stats,
-                                    const float* consts, const float* lut,
+                                    const float* consts, int gamma_off,
                                     int B, int H, int W, int C, int P, int S,
                                     int n, const int* ops, const int* poffs,
-                                    const int* coffs, void* stream) {
-  Chain ch;
-  if ((C != 1 && C != 3) || !make_chain(n, ops, poffs, coffs, C, &ch))
+                                    const int* coffs, int tile, int threads,
+                                    int smem, void* stream) {
+  PointwiseArgs a;
+  if ((C != 1 && C != 3) || !make_chain(n, ops, poffs, coffs, C, &a.ch))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;
-  const int64_t total = (int64_t)B * H * W;
-  const int64_t blocks = (total + threads - 1) / threads;
-  pointwise_kernel<<<(unsigned)blocks, threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      x, out, pvec, stats, consts, lut, total, H * W, C, P, S, ch);
+  // the plan's tile, threads and shared bytes (pointwise_plan)
+  const int want = pointwise_floats(tile, C, P, S) *
+                   static_cast<int>(sizeof(float));
+  if (B < 1 || H < 1 || W < 1 || P < 0 || S < 0 || gamma_off >= P ||
+      (tile != 256 && tile != 512 && tile != 1024) ||
+      threads != kPointwiseThreads || smem != want || want > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tiles = ((int64_t)H * W + tile - 1) / tile;
+  const int64_t blocks = tiles * B;
+  if (blocks >= (int64_t(1) << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.x = x;
+  a.out = out;
+  a.pvec = pvec;
+  a.stats = stats;
+  a.consts = consts;
+  a.gamma_off = gamma_off;
+  a.P = P;
+  a.S = S;
+  a.tile = tile;
+  a.tiles = static_cast<int>(tiles);
+  a.span = (int64_t)H * W * C;
+  a.ft = FastDiv(static_cast<uint32_t>(tiles));
+  auto kern = C == 1 ? pointwise_kernel<1> : pointwise_kernel<3>;
+  kern<<<static_cast<unsigned>(blocks), threads, want,
+         static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

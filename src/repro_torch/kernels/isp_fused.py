@@ -16,8 +16,8 @@ row per frame, laid out by the planner), the reduce stage's global
 statistics as [B, w] (``stats``) and the array constants of the fused
 forms as a tuple (``consts``): all device tensors, so one kernel serves
 every control vector without a host sync.  The gamma stage's per-frame
-LUT is built by torch (``gamma_lut``) for the pointwise kernel and by
-each stencil block from its frame's gamma, with the same ops.  The halo
+LUT is built by each block of either kernel from its frame's gamma, with
+``gamma_lut``'s ops, so a call is one device op.  The halo
 replays each stage's reference: ``pad="wrap"`` for cyclic-roll references,
 ``pad="zero"`` for SAME-padded ones, with the zero halo set after the
 prologue, as the per-stage path pads the prologue's output.
@@ -30,8 +30,9 @@ they launch the kernels or raise.  A CUDA kernel cannot call a Python
 function, so it interprets a descriptor: one op code (``DEVICE_OPS``)
 and one parameter and constant offset per chain step, plus the window
 op.  The stencil kernel's output tile, threads and shared bytes come
-from ``stencil_plan`` (per window op and frame shape, cached), which the
-CPU tests hold to its invariants.
+from ``stencil_plan`` (per window op and frame shape, cached), the
+pointwise kernel's from ``pointwise_plan``; the CPU tests hold both to
+their invariants.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.isp.gamma import LUT_SIZE, gamma_lut
+from repro_torch.isp.gamma import LUT_SIZE
 from repro_torch.kernels.build import (check_f32, check_launch, load,
                                        stream_of)
 
@@ -58,13 +59,14 @@ WINDOW_RADIUS = {"dpc": 2, "demosaic": 2, "nlm": 4, "sharpen": 1}
 MAX_STEPS = 8       # chain steps a descriptor holds (csrc kMaxSteps)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, out, pvec, stats, consts, lut (the stencil: the gamma step's param
-# offset, or -1), then the ints, the descriptor arrays (ops, param
-# offsets, const offsets), the stencil's window op and plan, the stream
-_POINTWISE_SIG = ("isp_pointwise_launch",        # B H W C P S n
-                  [_P] * 6 + [_I] * 7 + [_P] * 3 + [_P])
-_STENCIL_SIG = ("isp_stencil_launch",            # B H W Cin Cout P S n
-                [_P] * 5 + [_I] * 9 + [_P] * 3   # wop wpoff wcoff r zero
+# x, out, pvec, stats, consts, the gamma step's param offset (or -1),
+# then the ints, the descriptor arrays (ops, param offsets, const
+# offsets), the stencil's window op, each kernel's plan, the stream
+_POINTWISE_SIG = ("isp_pointwise_launch",        # gamma B H W C P S n
+                  [_P] * 5 + [_I] * 8 + [_P] * 3  # tile threads smem
+                  + [_I] * 3 + [_P])
+_STENCIL_SIG = ("isp_stencil_launch",            # gamma B H W Cin Cout P
+                [_P] * 5 + [_I] * 9 + [_P] * 3   # S n; wop wpoff wcoff r
                 + [_I] * 9 + [_P])               # th tw threads smem
 
 # The stencil kernel's tiles (csrc/isp_fused.cu launch_tile; the
@@ -313,6 +315,57 @@ def stencil_plan(op: str, B: int, H: int, W: int, c_in: int) -> StencilPlan:
 
 
 # ---------------------------------------------------------------------------
+# the pointwise kernel's launch plan
+# ---------------------------------------------------------------------------
+
+POINTWISE_TILES = (1024, 512, 256)  # pixels a block, largest first
+POINTWISE_THREADS = 256
+POINTWISE_SMEM_LIMIT = 48 * 1024    # static launch, no opt-in
+
+
+class PointwisePlan(NamedTuple):
+    """One pointwise launch: tiles of ``tile`` pixels of a frame's flat
+    ``H * W * C`` span, one block each, ``tiles`` a frame (the tile
+    fastest, then the frame, all on gridDim.x), ``threads`` a block and
+    ``smem`` shared bytes a block (the staged span with a 16-byte
+    phase's slack, the gamma LUT, the frame's pvec and stats rows)."""
+    tile: int
+    threads: int
+    tiles: int
+    blocks: int
+    smem: int
+
+
+def pointwise_smem(tile: int, c: int, p: int, s: int) -> int:
+    """Shared bytes of a pointwise block (csrc pointwise_floats)."""
+    return 4 * (tile * c + 4 + LUT_SIZE + p + s)
+
+
+@functools.lru_cache(maxsize=None)
+def pointwise_plan(B: int, H: int, W: int, C: int, P: int,
+                   S: int) -> PointwisePlan:
+    """The pointwise kernel's plan on B frames of H x W x C with pvec
+    [B, P] and stats [B, S]: the largest of ``POINTWISE_TILES`` whose
+    grid puts two blocks on every SM (else the smallest: a launch's
+    latency sets the time there), its threads and shared bytes.  Cached
+    per shape: the tick asks once per segment."""
+    if C not in (1, 3):
+        raise ValueError(f"pointwise_plan: C must be 1 or 3, got {C}")
+    for tile in POINTWISE_TILES:
+        if B * -(-H * W // tile) >= MIN_BLOCKS:
+            break
+    tiles = -(-H * W // tile)
+    blocks = B * tiles
+    if blocks > GRID_LIMIT:
+        raise ValueError(f"pointwise_plan: {blocks} blocks past gridDim.x")
+    smem = pointwise_smem(tile, C, P, S)
+    if smem > POINTWISE_SMEM_LIMIT:
+        raise ValueError(f"pointwise_plan: {smem} shared bytes (P {P}, S "
+                         f"{S}) past {POINTWISE_SMEM_LIMIT}")
+    return PointwisePlan(tile, POINTWISE_THREADS, tiles, blocks, smem)
+
+
+# ---------------------------------------------------------------------------
 # wrappers of the CUDA kernels
 # ---------------------------------------------------------------------------
 
@@ -387,27 +440,28 @@ def pointwise_segment(x, pvec, stats, consts=(), *,
                       chain: Tuple[ChainStep, ...], bh: int = BH,
                       bw: int = BW):
     """x [B, H, W(, C)] float32, pvec [B, P], stats [B, w], consts a
-    tuple of tensors -> the same shape as x."""
+    tuple of tensors -> the same shape as x.  On a CUDA tensor: one
+    launch on its ``pointwise_plan``, the gamma LUT built in the
+    kernel."""
     dev = _check_inputs("pointwise_segment", x, pvec, stats)
     if dev.type == "cpu":
         return pointwise_segment_torch(x, pvec, stats, consts, chain=chain,
                                        bh=bh, bw=bw)
     (n, ops, poffs, coffs), _ = _descriptor(chain, consts)
-    g = gamma_offset(chain)
-    lut = (gamma_lut(pvec[:, g], device=pvec.device).contiguous()
-           if g >= 0 else None)
     B, H, W = x.shape[:3]
     C = x.shape[3] if x.dim() == 4 else 1
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
     flat = _flat_consts(consts, dev)
+    P, S = pvec.shape[1], stats.shape[1]
+    plan = pointwise_plan(B, H, W, C, P, S)
     lib = load("isp_fused", _POINTWISE_SIG)
     with torch.cuda.device(dev):
         err = lib.isp_pointwise_launch(
             x.data_ptr(), out.data_ptr(), pvec.data_ptr(), stats.data_ptr(),
-            flat.data_ptr(), 0 if lut is None else lut.data_ptr(),
-            B, H, W, C, pvec.shape[1], stats.shape[1], n, ops, poffs, coffs,
+            flat.data_ptr(), gamma_offset(chain), B, H, W, C, P, S, n, ops,
+            poffs, coffs, plan.tile, plan.threads, plan.smem,
             stream_of(dev))
     check_launch("isp_pointwise_segment", err)
     return out

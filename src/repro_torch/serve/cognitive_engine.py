@@ -30,6 +30,9 @@ class PerceptionResult(NamedTuple):
     stage_params: Dict[str, Dict[str, np.ndarray]]
     # per-layer spike rates of the tick batch (collect_sparsity=True)
     sparsity: Optional[Dict[str, float]] = None
+    # the request's lifecycle (scheduler.RequestTelemetry), set by the
+    # FleetEngine; None through the CognitiveEngine
+    telemetry: Optional[Any] = None
 
 
 @dataclasses.dataclass

@@ -10,13 +10,24 @@ every output packed into a single flat tensor.  The engine snapshots the
 launch table once at construction (``tune_table``) and runs every tick
 pinned to it, so a later ``tune.set_table`` never reaches a built
 engine.  One device, no mesh; CUDA graphs for the tick are later work.
-``torch.profiler`` spans ``tick.upload``, ``tick.encode``, ``tick.npu``,
-``tick.isp`` and ``tick.fetch`` mark the stages (``python -m
-repro_torch.profile_tick`` reads them).
+
+The tick splits as the reference's does: ``upload`` (the bank's copy,
+non-blocking, an event recorded behind it on the bank), ``dispatch``
+(the tick's launches and the packed outputs' copy into a pinned host
+buffer of this tick's own, an event recorded behind it; returns at
+once) and ``fetch`` (waits on that event alone, then unpacks views of
+that buffer).  So on one stream the harvest of tick k waits for tick k,
+never for a tick k+1 dispatched after it.  The host buffer comes from
+PyTorch's caching host allocator, which records the non-blocking copy
+and hands the block out again only once the copy has completed and the
+last view of it is gone.  On the CPU, ``dispatch`` computes the tick
+and ``fetch`` unpacks it.  ``torch.profiler`` spans ``tick.upload``,
+``tick.encode``, ``tick.npu``, ``tick.isp`` and ``tick.fetch`` mark the
+stages (``python -m repro_torch.profile_tick`` reads them).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +42,19 @@ from repro_torch.isp.pipeline import (control_vector_pipeline_batch,
 from repro_torch.isp.stages import BACKENDS as ISP_BACKENDS
 from repro_torch.isp.stages import control_to_stage_params
 from repro_torch.kernels import tune
+
+
+class Dispatched:
+    """One dispatched tick: its outputs packed into ``flat`` (a pinned
+    host tensor of its own, with ``event`` behind its copy, or the CPU
+    tensor itself) and what ``fetch`` needs to unpack them."""
+
+    def __init__(self, flat, event, layout, stages, has_rates):
+        self.flat = flat
+        self.event = event
+        self.layout: List[Tuple[tuple, tuple]] = layout  # (key, shape)
+        self.stages = stages                             # {stage: [param]}
+        self.has_rates = has_rates
 
 
 class EngineCore:
@@ -87,6 +111,7 @@ class EngineCore:
                                  f"TuningTable or None, got {tune_table!r}")
             tune_table = tune.active_table() or tune.TuningTable()
         self.tune_table: Optional[tune.TuningTable] = tune_table
+        self.n_devices = 1
 
     # ------------------------------------------------------------------
     def _encode(self, events, voxels, from_events):
@@ -120,16 +145,24 @@ class EngineCore:
 
     def upload(self, bank):
         """ONE host->device copy of the whole staging bank; returns the
-        device views ``(voxels, bayer, events, from_events)``."""
+        device views ``(voxels, bayer, events, from_events)``.  On a card
+        the copy is non-blocking from the pinned bank, and the event
+        recorded behind it on the bank keeps the bank from being
+        re-packed before the copy lands."""
         with record_function("tick.upload"):
             dev = bank.buffer.to(self.device, non_blocking=True, copy=True)
+            if self.device.type == "cuda":
+                ev = torch.cuda.Event()
+                ev.record()
+                bank.mark_copied(ev)
             return bank.device_views(dev)
 
-    def fetch(self, outputs):
-        """ONE device->host copy of the tick's outputs (packed into one
-        flat float32 tensor), unpacked into numpy arrays of the same
-        structure."""
-        out, rgb, sp = outputs
+    def dispatch(self, dev_views) -> Dispatched:
+        """Launch the tick on uploaded device views and return at once:
+        its outputs are packed into one flat float32 tensor and, on a
+        card, copied without blocking into a pinned host buffer of this
+        tick's own, an event recorded behind the copy."""
+        out, rgb, sp = self.step(*dev_views)
         leaves: Dict[tuple, torch.Tensor] = {
             ("raw_pred",): out.raw_pred, ("control",): out.control,
             ("sparsity",): out.sparsity, ("tile_skip",): out.tile_skip,
@@ -139,25 +172,45 @@ class EngineCore:
                 leaves[("sp", s, k)] = v
         for k, v in (out.layer_rates or {}).items():
             leaves[("rates", k)] = v
+        layout = [(key, tuple(t.shape)) for key, t in leaves.items()]
+        stages = {s: list(params) for s, params in sp.items()}
         with record_function("tick.fetch"):
             flat = torch.cat([t.reshape(-1).to(torch.float32)
-                              for t in leaves.values()]).cpu().numpy()
+                              for t in leaves.values()])
+            if self.device.type != "cuda":
+                return Dispatched(flat, None, layout, stages,
+                                  out.layer_rates is not None)
+            host = torch.empty(flat.numel(), dtype=torch.float32,
+                               pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        return Dispatched(host, event, layout, stages,
+                          out.layer_rates is not None)
+
+    def fetch(self, outputs: Dispatched):
+        """The dispatched tick's outputs as numpy arrays of the step's
+        structure: waits on the tick's own copy event alone."""
+        with record_function("tick.fetch"):
+            if outputs.event is not None:
+                outputs.event.synchronize()
+            flat = outputs.flat.numpy()
         host, off = {}, 0
-        for key, t in leaves.items():
-            n = t.numel()
-            host[key] = flat[off:off + n].reshape(tuple(t.shape))
+        for key, shape in outputs.layout:
+            n = int(np.prod(shape, dtype=np.int64))
+            host[key] = flat[off:off + n].reshape(shape)
             off += n
         rates = ({k[1]: host[k] for k in host if k[0] == "rates"}
-                 if out.layer_rates is not None else None)
+                 if outputs.has_rates else None)
         npu = NPUOutput(raw_pred=host[("raw_pred",)],
                         control=host[("control",)],
                         sparsity=np.float32(host[("sparsity",)]),
                         tile_skip=np.float32(host[("tile_skip",)]),
                         layer_rates=rates)
         stage_params = {s: {k: host[("sp", s, k)] for k in params}
-                        for s, params in sp.items()}
+                        for s, params in outputs.stages.items()}
         return npu, host[("rgb",)], stage_params
 
     def tick(self, bank):
-        """upload -> step -> fetch in one call."""
-        return self.fetch(self.step(*self.upload(bank)))
+        """upload -> dispatch -> fetch in one call."""
+        return self.fetch(self.dispatch(self.upload(bank)))

@@ -54,7 +54,10 @@ import torch
 from repro_torch.core.encoding import (OOB_POLICIES, VOXEL_MODES,
                                        EventStream, encode_batch,
                                        events_to_voxel_batch)
-from repro_torch.configs.registry import ISP_CONFIGS
+from repro_torch.configs.base import FleetConfig
+from repro_torch.configs.registry import (ENCODING_CONFIGS, ISP_CONFIGS,
+                                          reduced_snn)
+from repro_torch.core.npu import init_npu
 from repro_torch.core.layers import (blocked_matmul, fold,
                                      instance_norm_affine, pool_slices,
                                      spike_conv as conv_plain, spike_im2col)
@@ -85,6 +88,9 @@ from repro_torch.kernels import spike_dwconv as dw_mod
 from repro_torch.kernels import spike_matmul as mm_mod
 from repro_torch.kernels.spike_dwconv import spike_dwconv
 from repro_torch.kernels.spike_matmul import spike_matmul
+from repro_torch.serve.cognitive_engine import PerceptionRequest
+from repro_torch.serve.fleet import FleetEngine
+from repro_torch.serve.transport import stage_request, validate_request
 from repro_torch.testing import norm_affine_lif_contract, spike_mismatch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -775,6 +781,123 @@ def test_isp_fused_segments_match_plain(dev, name, B, H, W):
         x = want.contiguous()
 
 
+@pytest.mark.parametrize("label", list(chip_smoke.POINTWISE_CASES))
+@pytest.mark.parametrize("shape", [(8, 64, 64), (2, 37, 53), (3, 5, 7),
+                                   (1, 1, 1), (5, 3, 1), (2, 17, 33),
+                                   (3, 32, 35)])
+def test_pointwise_segment_bitexact(dev, label, shape):
+    """Row 12's cases (a C = 3 chain with gamma, a Bayer chain, a chain
+    with no gamma) on frames ragged, smaller than a tile and one pixel:
+    the kernel gives its plain version's bits (the no-gamma chain's
+    tonemap and CCM within 1e-6)."""
+    g = torch.Generator(dev).manual_seed(sum(shape) + len(label))
+    kernel, plain, args, kw = chip_smoke.pointwise_call(label, shape, dev, g)
+    got, want = kernel(*args, **kw), plain(*args, **kw)
+    if label in chip_smoke.POINTWISE_EXACT:
+        assert torch.equal(got, want), label
+    else:
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0, msg=label)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("label", ["[awb*+gamma]", "[exposure]"])
+def test_pointwise_segment_off_16_bytes(dev, offset, label):
+    """x 4, 8 or 12 bytes past a 16-byte boundary (its output aligned):
+    the spans' 16-byte parts move and the store takes 4-byte lanes; the
+    bits do not change."""
+    g = torch.Generator(dev).manual_seed(offset)
+    kernel, plain, args, kw = chip_smoke.pointwise_call(label, (2, 37, 53),
+                                                        dev, g)
+    x = args[0]
+    buf = torch.zeros(x.numel() + offset, device=dev)
+    xo = buf[offset:].view(x.shape)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16 == 4 * offset
+    want = plain(*args, **kw)
+    assert torch.equal(kernel(xo, *args[1:], **kw), want)
+    assert torch.equal(kernel(*args, **kw), want)
+
+
+def _fleet_on_card(dev, batch=2):
+    """A reduced spiking-YOLO fleet on the all-kernel configs, and four
+    numpy-made voxel requests."""
+    cfg = reduced_snn("spiking_yolo", backend="cuda")
+    params = init_npu(torch.Generator().manual_seed(0), cfg, device=dev)
+    fleet = FleetEngine(params, cfg, ISP_CONFIGS["cuda"],
+                        enc_cfg=ENCODING_CONFIGS["cuda"],
+                        fleet_cfg=FleetConfig(batch=batch), device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [PerceptionRequest(
+        rid=i, voxels=(rng.random((cfg.time_steps, cfg.height, cfg.width,
+                                   2)) < 0.15).astype(np.float32),
+        bayer=rng.uniform(0.05, 0.95, (cfg.height, cfg.width)).astype(
+            np.float32)) for i in range(2 * batch)]
+    return fleet, reqs
+
+
+def _stage(fleet, bank, reqs):
+    for i, r in enumerate(reqs):
+        stage_request(bank, i, r, validate_request(r, 2), fleet.core.enc_cfg)
+
+
+def test_harvest_waits_for_its_own_tick_only(dev):
+    """Ticks A and B in flight, a spin kernel behind B: fetch(A) returns
+    while an event behind the spin is pending, with A's own outputs."""
+    fleet, reqs = _fleet_on_card(dev)
+    banks = fleet.buffers.banks
+    assert all(b.buffer.is_pinned() for b in banks)
+    _stage(fleet, banks[0], reqs[:2])
+    _stage(fleet, banks[1], reqs[2:])
+    pending, _, (out_a, rgb_a, _), (out_b, _, _) = \
+        chip_smoke.harvest_check(fleet.core, banks[0], banks[1])
+    assert pending
+    alone, rgb_alone, _ = fleet.core.tick(banks[0])
+    assert np.array_equal(out_a.raw_pred, alone.raw_pred)
+    assert np.array_equal(rgb_a, rgb_alone)
+    assert not np.array_equal(out_a.raw_pred, out_b.raw_pred)
+
+
+def test_bank_is_not_repacked_before_its_copy_event(dev):
+    """A bank uploaded behind a spin kernel: staging into it waits for
+    the copy's event, so the device copy holds the bank as uploaded."""
+    fleet, reqs = _fleet_on_card(dev)
+    bank = fleet.buffers.front
+    _stage(fleet, bank, reqs[:2])
+    pending, done, intact = chip_smoke.bank_event_check(
+        fleet.core, bank, reqs[3], fleet.core.enc_cfg)
+    assert pending and done and intact
+
+
+def test_fleet_serves_on_the_card(dev):
+    """A supervised fleet on the card serves every request on rung 0;
+    its ladder is the two kernel routes, bit-equal, and rung 0 is within
+    1e-4 of a core on the plain SNN layers."""
+    from repro_torch.configs.base import SupervisorConfig
+    from repro_torch.serve.engine_core import EngineCore
+    fleet, reqs = _fleet_on_card(dev)
+    sup = FleetEngine(fleet.cores[0].params, fleet.cfg, ISP_CONFIGS["cuda"],
+                      enc_cfg=ENCODING_CONFIGS["cuda"],
+                      fleet_cfg=FleetConfig(batch=2),
+                      supervisor_cfg=SupervisorConfig(), device=dev)
+    assert sup.ladder_names == ["cuda_fused", "cuda"]
+    done = sup.run_to_completion(reqs)
+    assert sorted(s.rid for s in done) == [0, 1, 2, 3]
+    assert {s.request.result.telemetry.rung for s in done} == {"cuda_fused"}
+    bank = sup.buffers.front
+    _stage(sup, bank, reqs[:2])
+    ref = sup.cores[0].tick(bank)
+    out, rgb, _ = sup.cores[1].tick(bank)
+    assert np.array_equal(out.raw_pred, ref[0].raw_pred)
+    assert np.array_equal(rgb, ref[1])
+    plain = EngineCore(fleet.cores[0].params,
+                       dataclasses.replace(fleet.cfg, backend="torch"),
+                       ISP_CONFIGS["cuda"], enc_cfg=ENCODING_CONFIGS["cuda"],
+                       device=dev)
+    out, rgb, _ = plain.tick(bank)
+    np.testing.assert_allclose(out.raw_pred, ref[0].raw_pred, atol=1e-4)
+    np.testing.assert_allclose(rgb, ref[1], atol=1e-4)
+
+
 @pytest.mark.parametrize("B,H,W", [(2, 37, 53), (1, 5, 7)])
 def test_isp_stencil_every_tile_equal(dev, B, H, W, monkeypatch):
     """Every stencil segment of the hdr ordering under each tile its op
@@ -932,6 +1055,10 @@ def test_launch_counters(dev):
         kernel, plain, args, kw = segment_call(ex, raw, None)
         raw = kernel(*args, **kw)
         plain(*args, **kw)                  # plain: no launch
+    kernel, plain, args, kw = chip_smoke.pointwise_call(    # one a call
+        "[exposure]", (2, 8, 8), dev, torch.Generator(dev).manual_seed(0))
+    kernel(*args, **kw)
+    plain(*args, **kw)                      # plain: no launch
     xf = torch.ones(2, 8, 8, 4, device=dev)
     spike_dwconv(xf, torch.ones(3, 3, 1, 4, device=dev), stride=2)
     spike_dwconv(xf.cpu(), torch.ones(3, 3, 1, 4), stride=2)   # plain
@@ -957,5 +1084,5 @@ def test_launch_counters(dev):
                               "spike_conv_lif": 1, "backbone_segment": 1,
                               "event_voxel": 1, "demosaic": 1, "nlm": 1,
                               "isp_stencil_segment": 2,
-                              "isp_pointwise_segment": 1,
+                              "isp_pointwise_segment": 2,
                               "spike_dwconv": 1, "max_pool": 3}

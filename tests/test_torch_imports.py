@@ -38,7 +38,9 @@ def test_every_module_imports_without_jax_or_repro():
               "kernels.backbone_fuse", "kernels.backbone_segment",
               "models.blocks", "models.attention", "models.transformer",
               "models.lm", "serve.engine", "launch.serve",
-              "kernels.flash_attention"):
+              "kernels.flash_attention", "serve.fleet", "serve.faults",
+              "serve.supervisor", "serve.scheduler",
+              "distributed.fault_tolerance"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
