@@ -227,6 +227,29 @@ Phases (any failure raises and exits non-zero):
              the card) and a seeded "chaos" run (no non-finite result
              delivered, every request terminal, a demotion and a
              promotion in the telemetry), one "fleet" line;
+5b. train  — full-width spiking-YOLO (64x64, T 5, batch 8, seeded
+             random weights) trained through the kernels on a
+             numpy-seeded synthetic scene batch, the reference's
+             "detector" recipe (AdamW lr 4e-3, weight decay 1e-4, clip
+             1.0, warmup_cosine with a warmup of 100): one timed step
+             (forward, backward, optimizer, each ended by a synchronise,
+             again warm after 2 more through make_snn_train_step) in
+             "detect" and
+             "cognitive" mode, on the per-op route (rows 1-4), a
+             forced-fused table (row 5) and a forced-segment table (row
+             7); each step's launches counted (each route's kernels must
+             launch), its loss and every gradient leaf finite and not
+             all zero, held to the plain backend's step on the card (loss
+             within 1e-4 relative, the gradients' relative L2 gap within
+             1e-2: room for the forward's near-threshold flips, counted
+             by the layer walk of the scene); the three routes' losses
+             equal and their gradients within 1e-5; device ops and busy
+             time of a step (torch.profiler) and its peak memory.  Then
+             rows 1-8's backwards (plain PyTorch) at each arch's
+             full-width layer shapes on the kernel route's own inputs:
+             each op's gradients within 1e-5 of plain autograd on the
+             same forward (the kernel's spikes forced into the plain
+             LIF), both backwards timed;
 6. LM      — after the SNN engines' memory is released: full-width
              qwen2-7b (28 layers, bf16, random weights from a CUDA
              generator seeded 0; parameter count and bytes resident
@@ -316,6 +339,11 @@ by name under torch.profiler at the first and last shape), and every
 max_pool of VGG and DenseNet on numpy-seeded spikes in [T, B] order,
 beside the fold copy and the parent's path; one JSON line, no result
 line.
+
+    python3 chip_smoke.py --train-phase
+
+builds only the NPU kernels and runs phase 5b alone; one JSON line, no
+result line.
 
     python3 chip_smoke.py --flash-phase
 
@@ -456,6 +484,27 @@ NONFINITE_T = (float("nan"), float("inf"), float("-inf"), 1e10, -1e10)
 FLEET_REQUESTS = 64
 CHAOS_TICKS = 48
 HARVEST_SLEEP_S = 0.2           # the spin that a harvest must not wait for
+# the train phase: the reference's "detector" recipe (configs/base.py:
+# 355-391, configs/registry.py:277-278), steps per (mode, route) after
+# the timed one, the kernels each route's step must launch
+TRAIN_RECIPE = dict(lr=4e-3, weight_decay=1e-4, grad_clip=1.0)
+TRAIN_SCHEDULE = dict(warmup=100, total=2000, min_ratio=0.3)
+TRAIN_STEPS = 2
+TRAIN_ROUTE_KERNELS = {
+    "per_op": ("spike_conv", "norm_affine_lif", "lif_scan", "spike_matmul"),
+    "fused": ("spike_conv_lif", "spike_conv", "lif_scan", "spike_matmul"),
+    "segment": ("backbone_segment", "spike_conv", "norm_affine_lif",
+                "lif_scan", "spike_matmul")}
+# a kernel route's step against the plain backend's on the card: a
+# near-threshold flip of the forward (counted by the layer walk) would
+# move the loss and the gradients, so the bars leave room for a few (the
+# H100 run with 0 flips: loss equal, gradients 5.5e-7 apart)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-2
+# an op's backward against plain autograd on the same forward (its spikes
+# forced): rounding only, the bar of tests/test_lif_backend.py
+BWD_RTOL = 1e-5
+BWD_REPS = 5
 # the paper's other three backbones, served beside spiking-YOLO
 NEW_ARCHS = ("spiking_mobilenet", "spiking_vgg", "spiking_densenet")
 TICK_KERNELS = ("event_voxel", "demosaic", "nlm")
@@ -2565,10 +2614,13 @@ def sweep_phase(all_archs, vox):
 def layer_walk(params, cfg, plain_cfg, vox):
     """Every layer of the kernel path on the kernel path's own input,
     held to the plain layer's currents on the same input (a pool to the
-    plain pool, equal)."""
+    plain pool, equal).  Returns the flipped and near-threshold neurons
+    summed over the layers."""
     import torch
     from repro_torch.core import layers as L
     from repro_torch.testing import spike_mismatch
+
+    totals = {"flipped": 0, "near": 0}
 
     def held(name, got, z):
         res = spike_mismatch(z, got, tol=NEAR_TOL, tau=cfg.tau_mem,
@@ -2577,6 +2629,8 @@ def layer_walk(params, cfg, plain_cfg, vox):
               f"away from threshold")
         print(f"  layer {name:11s} flipped {res['flipped']} "
               f"(near threshold {res['near']})")
+        totals["flipped"] += res["flipped"]
+        totals["near"] += res["near"]
 
     def conv(name, p, x, stride, depthwise):
         kw = dict(stride=stride, depthwise=depthwise)
@@ -2611,6 +2665,7 @@ def layer_walk(params, cfg, plain_cfg, vox):
     want = L.apply_spiking_dense(o, hc, plain_cfg, fire=False)
     check(torch.allclose(got, want, atol=1e-4, rtol=1e-5),
           "ctrl_out disagrees with the plain layer")
+    return totals
 
 
 def check_results(done, cfg, isp_cfg):
@@ -3965,6 +4020,445 @@ def lm_phase(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# the train phase: surrogate-gradient BPTT + AdamW at full width
+# ---------------------------------------------------------------------------
+
+def train_scene(cfg, rng, dev, batch=BATCH, max_boxes=4):
+    """A numpy-seeded synthetic batch at the config's frame size: up to
+    ``max_boxes`` boxes of two classes painted on a grey frame
+    (clean_rgb), its noisy, dimmed RGGB mosaic (bayer), and
+    EVENT_CAPACITY DVS events a window on the boxes' edges, 2% of them
+    uniform noise."""
+    import numpy as np
+    import torch
+    from repro_torch.core.encoding import EventStream
+    from repro_torch.data.synthetic import SceneBatch
+    H, W, M, N = cfg.height, cfg.width, max_boxes, EVENT_CAPACITY
+    cls = rng.integers(0, 2, (batch, M)).astype(np.float32)
+    cxy = rng.uniform(0.2, 0.8, (batch, M, 2)).astype(np.float32)
+    wh = rng.uniform(0.1, 0.35, (batch, M, 2)).astype(np.float32)
+    valid = rng.random((batch, M)) < 0.8
+    valid[:, 0] = True
+    yy, xx = np.meshgrid(np.linspace(0, 1, H), np.linspace(0, 1, W),
+                         indexing="ij")
+    clean = np.full((batch, H, W, 3), 0.45, np.float32)
+    colors = np.array([[0.25, 0.45, 0.85], [0.85, 0.3, 0.25]], np.float32)
+    for b in range(batch):
+        for m in range(M):
+            if valid[b, m]:
+                inside = ((np.abs(xx - cxy[b, m, 0]) < wh[b, m, 0] / 2)
+                          & (np.abs(yy - cxy[b, m, 1]) < wh[b, m, 1] / 2))
+                clean[b][inside] = colors[int(cls[b, m])]
+    mosaic = np.empty((batch, H, W), np.float32)
+    mosaic[:, 0::2, 0::2] = clean[:, 0::2, 0::2, 0]
+    mosaic[:, 0::2, 1::2] = clean[:, 0::2, 1::2, 1]
+    mosaic[:, 1::2, 0::2] = clean[:, 1::2, 0::2, 1]
+    mosaic[:, 1::2, 1::2] = clean[:, 1::2, 1::2, 2]
+    bayer = np.clip(mosaic * 0.8 + rng.normal(0, 0.02, mosaic.shape), 0, 1)
+    obj = rng.integers(0, M, (batch, N))
+    u, side = rng.random((batch, N)), rng.integers(0, 4, (batch, N))
+    c = np.take_along_axis(cxy, obj[..., None], 1)
+    s = np.take_along_axis(wh, obj[..., None], 1)
+    ex = np.where(side % 2 == 0, c[..., 0] + (u - 0.5) * s[..., 0],
+                  c[..., 0] + np.where(side == 1, 0.5, -0.5) * s[..., 0])
+    ey = np.where(side % 2 == 1, c[..., 1] + (u - 0.5) * s[..., 1],
+                  c[..., 1] + np.where(side == 0, -0.5, 0.5) * s[..., 1])
+    noise = rng.random((batch, N)) < 0.02
+    ex = np.where(noise, rng.random((batch, N)), ex)
+    ey = np.where(noise, rng.random((batch, N)), ey)
+    ev = EventStream(
+        t=torch.tensor(rng.random((batch, N)).astype(np.float32)),
+        x=torch.tensor(np.clip(ex * W, 0, W - 1).astype(np.int32)),
+        y=torch.tensor(np.clip(ey * H, 0, H - 1).astype(np.int32)),
+        p=torch.tensor(rng.integers(0, 2, (batch, N)).astype(np.int32)),
+        valid=torch.tensor(np.take_along_axis(valid, obj, 1) | noise))
+    boxes = np.concatenate([cls[..., None], cxy, wh], axis=-1)
+    return SceneBatch(events=EventStream(*(a.to(dev) for a in ev)),
+                      bayer=torch.tensor(bayer.astype(np.float32)).to(dev),
+                      boxes=torch.tensor(boxes).to(dev),
+                      valid=torch.tensor(valid).to(dev),
+                      clean_rgb=torch.tensor(clean).to(dev))
+
+
+def _rel_l2(a, b):
+    d, n = float((a - b).norm()), float(b.norm())
+    return d / n if n else d
+
+
+def _maxrel(a, b):
+    return float((a - b).abs().max() / (b.abs().max() + 1e-30))
+
+
+def grad_gap(grads, want):
+    """(global relative L2 gap, the worst leaf's (path, relative L2 gap))
+    of gradient trees ``grads`` against ``want``."""
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    w = dict(tree_leaves(want))
+    per = {k: _rel_l2(g, w[k]) for k, g in tree_leaves(grads)}
+    flat = torch.cat([g.reshape(-1) for _, g in tree_leaves(grads)])
+    wflat = torch.cat([w[k].reshape(-1) for k, _ in tree_leaves(grads)])
+    worst = max(per.items(), key=lambda kv: kv[1])
+    return _rel_l2(flat, wflat), worst
+
+
+def timed_step(loss_fn, params, opt, scene, cfg, opt_cfg, sched):
+    """One train step in its three parts, each ended by a synchronise:
+    -> (loss, parts, grads, (params, opt), {forward_ms, backward_ms,
+    optimizer_ms})."""
+    import torch
+    from repro_torch.core import train as TR
+    from repro_torch.optim.adamw import adamw_update
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, leaves = TR.with_leaves(params)
+    with torch.enable_grad():
+        loss, parts = loss_fn(p, scene, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = TR.grads_of(loss, p, leaves)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    new = adamw_update(params, grads, opt, opt_cfg, sched)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return loss.detach(), parts, grads, new[:2], {
+        "forward_ms": (t1 - t0) * 1e3, "backward_ms": (t2 - t1) * 1e3,
+        "optimizer_ms": (t3 - t2) * 1e3}
+
+
+def train_phase(all_archs, dev, card):
+    """Full-width spiking-YOLO (64x64, T 5, batch 8) trained through the
+    kernels: the reference's "detector" recipe, ``detect`` and
+    ``cognitive`` steps on the per-op, forced-fused and forced-segment
+    routes, each step's launches counted, its loss and every gradient
+    leaf checked finite and held to the plain backend's on the card; then
+    the per-op backward checks and times of rows 1-8 (``backward_phase``).
+    Returns the report."""
+    import numpy as np
+    import torch
+    from repro_torch.core import train as TR
+    from repro_torch.core.backbones import fused_route_segments
+    from repro_torch.core.encoding import voxel_batch
+    from repro_torch.kernels import build, ops, tune
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_leaves
+    from repro_torch.optim.schedule import warmup_cosine
+    params, cfg = all_archs["spiking_yolo"]
+    plain = dataclasses.replace(cfg, backend="torch")
+    scene = train_scene(cfg, np.random.default_rng(11), dev)
+    opt_cfg = AdamWConfig(**TRAIN_RECIPE)
+    sched = warmup_cosine(TRAIN_RECIPE["lr"], **TRAIN_SCHEDULE)
+    keys = [tune.shape_key("conv_lif", **d)
+            for d in conv_lif_dims(params, cfg, BATCH)]
+    tables = {"per_op": tune.TuningTable(),
+              "fused": ops.fused_conv_lif_table(keys),
+              "segment": ops.fused_segment_table(
+                  [k for *_, k in fused_route_segments(cfg, BATCH)])}
+    vox = voxel_batch(scene.events, time_steps=cfg.time_steps,
+                      height=cfg.height, width=cfg.width)
+    print(f"  the scene's forward, layer by layer, kernel route vs plain "
+          f"(flips by the near-threshold rule, {NEAR_TOL}):")
+    with torch.no_grad(), tune.pinned(tables["per_op"]):
+        flips = layer_walk(params, cfg, plain, vox)
+    report = {"card": card, "arch": cfg.name, "batch": BATCH,
+              "recipe": TRAIN_RECIPE, "flips": flips, "steps": {}}
+    for mode in TR.MODES:
+        loss_fn = TR.LOSSES[mode]
+        lp, _, gp = TR.value_and_grad(loss_fn, params, scene, plain)
+        check(bool(torch.isfinite(lp)), f"train {mode}: plain loss {lp}")
+        route_grads = {}
+        for route, table in tables.items():
+            label = f"train {mode} {route}"
+            opt = adamw_init(params, opt_cfg)
+            with tune.pinned(table):
+                build.reset_launches()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                loss, parts, grads, (p1, o1), split = timed_step(
+                    loss_fn, params, opt, scene, cfg, opt_cfg, sched)
+                launches = {k: v for k, v in build.LAUNCHES.items() if v}
+                peak = torch.cuda.max_memory_allocated(dev) - base
+                need = TRAIN_ROUTE_KERNELS[route]
+                check(all(launches.get(k, 0) > 0 for k in need),
+                      f"{label}: launches {launches}, need {need}")
+                check(bool(torch.isfinite(loss)), f"{label}: loss {loss}")
+                check(all(bool(torch.isfinite(g).all())
+                          for _, g in tree_leaves(grads)),
+                      f"{label}: a non-finite gradient")
+                total = sum(float(g.abs().sum())
+                            for _, g in tree_leaves(grads))
+                check(total > 0, f"{label}: every gradient is zero")
+                loss_rel = abs(float(loss) - float(lp)) / abs(float(lp))
+                gap, (leaf, leaf_gap) = grad_gap(grads, gp)
+                check(loss_rel <= TRAIN_LOSS_RTOL and gap <= TRAIN_GRAD_RTOL,
+                      f"{label}: loss {float(loss)} vs plain {float(lp)} "
+                      f"(rel {loss_rel:.3g}), gradients {gap:.3g} from the "
+                      f"plain backend's (worst leaf {leaf} {leaf_gap:.3g})")
+                route_grads[route] = (loss, grads)
+                # the step function itself, a few steps on
+                step = TR.make_snn_train_step(cfg, opt_cfg, mode, sched)
+                state = TR.SNNTrainState(p1, o1, torch.ones(
+                    (), dtype=torch.int32, device=dev))
+                losses = [float(loss)]
+                step_ms = []
+                for _ in range(TRAIN_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, sp = step(state, scene)
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(float(sp["loss"]))
+                    check(np.isfinite(losses[-1]) and np.isfinite(
+                        float(sp["grad_norm"])), f"{label}: step {sp}")
+                # the split again, warm (the first step loaded the
+                # route's kernels)
+                split = timed_step(loss_fn, params, opt, scene, cfg, opt_cfg,
+                                   sched)[-1]
+                wall, busy, dev_ops, _ = profile_window(
+                    lambda: step(state, scene), 2)
+            row = {"loss_rel_vs_plain": loss_rel, "grad_gap_vs_plain": gap,
+                   "worst_leaf": [leaf, leaf_gap], "losses": losses,
+                   "step_ms": step_ms, **split, "device_ops": dev_ops,
+                   "device_busy_ms": busy, "profiled_wall_ms": wall,
+                   "peak_bytes": peak, "launches": launches,
+                   "grad_norm": float(sp["grad_norm"])}
+            report["steps"][f"{mode}/{route}"] = row
+            print(f"  {label}: loss {float(loss):.6f} (plain "
+                  f"{float(lp):.6f}, rel {loss_rel:.2e}), gradients "
+                  f"{gap:.2e} from the plain backend's (worst leaf {leaf} "
+                  f"{leaf_gap:.2e}); forward {split['forward_ms']:.1f} ms, "
+                  f"backward {split['backward_ms']:.1f}, optimizer "
+                  f"{split['optimizer_ms']:.1f}; steps "
+                  f"{', '.join(f'{t:.1f}' for t in step_ms)} ms, losses "
+                  f"{', '.join(f'{v:.4f}' for v in losses)}; {dev_ops:.0f} "
+                  f"device ops a step, busy {busy:.2f} of {wall:.2f} ms "
+                  f"profiled; peak {peak / 2**20:.1f} MiB; launches "
+                  f"{launches}")
+        # the three routes give the per-op route's spikes, so their
+        # losses and gradients are the per-op route's
+        l0, g0 = route_grads["per_op"]
+        for route in ("fused", "segment"):
+            lr, gr = route_grads[route]
+            d = max(_maxrel(g, dict(tree_leaves(g0))[k])
+                    for k, g in tree_leaves(gr))
+            check(float(lr) == float(l0) and d <= BWD_RTOL,
+                  f"train {mode} {route}: loss {float(lr)} vs per-op "
+                  f"{float(l0)}, gradients {d:.3g} apart")
+            report["steps"][f"{mode}/{route}"]["grad_rel_vs_per_op"] = d
+    report["backward"] = backward_phase(all_archs, vox)
+    return report
+
+
+def forced_lif(z, spikes, cfg):
+    """The plain LIF over currents z [T, ...] with the forward's
+    ``spikes`` as its outputs and in its resets, differentiated by
+    autograd through the surrogate ``spike`` (each spike straight-through
+    onto the given one): the plain backward of that very forward."""
+    import torch
+    from repro_torch.core.lif import f32_decay, spike
+    decay, vr = f32_decay(cfg.tau_mem), cfg.v_reset
+    u = torch.full_like(z[0], vr)
+    out = []
+    for t in range(z.shape[0]):
+        u = decay * (u - vr) + vr + z[t]
+        sg = spike(u - cfg.v_threshold, cfg.surrogate_beta)
+        s = spikes[t] + (sg - sg.detach())
+        u = u * (1.0 - s) + vr * s
+        out.append(s)
+    return torch.stack(out)
+
+
+class BackwardStats:
+    """Per kernel row: the op's backward and the plain autograd backward,
+    ms summed over the layers checked, and the worst relative gap."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def add(self, name, ms, plain_ms, err):
+        r = self.rows.setdefault(name, {"launches": 0, "bwd_ms": 0.0,
+                                        "plain_bwd_ms": 0.0,
+                                        "max_rel": 0.0})
+        r["launches"] += 1
+        r["bwd_ms"] += ms
+        r["plain_bwd_ms"] += plain_ms
+        r["max_rel"] = max(r["max_rel"], err)
+
+
+def bwd_check(st, name, op_fn, plain_fn, inputs, seed):
+    """Gradients of ``op_fn(*inputs)`` (the kernel op) and of
+    ``plain_fn(*inputs, out)`` (plain PyTorch, given the op's output) for
+    one seeded output gradient: every input's within BWD_RTOL relative
+    (max |diff| over max |plain|); both backwards timed.  Returns the
+    op's output."""
+    import torch
+    ks = [t.detach().requires_grad_() for t in inputs]
+    ps = [t.detach().requires_grad_() for t in inputs]
+    with torch.enable_grad():
+        out = op_fn(*ks)
+        want = plain_fn(*ps, out.detach())
+    g = torch.randn(out.shape, generator=torch.Generator(
+        out.device).manual_seed(seed), device=out.device)
+    gk = torch.autograd.grad(out, ks, g, retain_graph=True)
+    gp = torch.autograd.grad(want, ps, g, retain_graph=True)
+    err = max(_maxrel(a, b) for a, b in zip(gk, gp))
+    check(all(bool(torch.isfinite(a).all()) for a in gk)
+          and err <= BWD_RTOL, f"{name} backward: {err:.3g} from the plain "
+          f"backward (bar {BWD_RTOL})")
+    st.add(name, time_ms(lambda: torch.autograd.grad(
+        out, ks, g, retain_graph=True), reps=BWD_REPS, warmup=1),
+        time_ms(lambda: torch.autograd.grad(want, ps, g, retain_graph=True),
+                reps=BWD_REPS, warmup=1), err)
+    return out.detach()
+
+
+def backward_phase(all_archs, vox):
+    """Rows 1-8's backwards on the card at each arch's full-width layer
+    shapes, on the kernel route's own inputs (the tick's forward walked
+    layer by layer): each op's gradients held to plain autograd on the
+    same forward (``forced_lif`` where a kernel's spikes are the
+    forward), and both backwards timed.  Rows: spike_conv and
+    norm_affine_lif (every conv), spike_conv_lif (every firing conv, the
+    fused route), spike_dwconv (MobileNet), max_pool (VGG, DenseNet),
+    lif_scan and spike_matmul (the control head), backbone_segment
+    (every fused-route segment, held to the per-layer kernel route)."""
+    import torch
+    from repro_torch.core import layers as L
+    from repro_torch.core.backbones import fused_route_segments
+    from repro_torch.core.lif import lif_scan
+    from repro_torch.kernels import ops, tune
+    from repro_torch.kernels.spike_conv_lif import conv_lif_plan
+    out = {}
+    for ai, (arch, (params, cfg)) in enumerate(all_archs.items()):
+        st = BackwardStats()
+        seed = [ai * 1000]
+        segs = fused_route_segments(cfg, BATCH)
+        seg_in = {seg.layers[0].name: None for seg, _, _ in segs}
+
+        def nxt():
+            seed[0] += 1
+            return seed[0]
+
+        def norm_plain(y4, s, b, spikes):
+            return forced_lif(L.instance_norm_affine(y4, s, b), spikes, cfg)
+
+        def conv(name, p, x, stride, depthwise):
+            if seg_in.get(name, 0) is None:     # a segment's first layer
+                seg_in[name] = x
+            T, B = x.shape[:2]
+            w, s, b = p["w"], p["scale"], p["bias"]
+            xf = L.fold(x).contiguous()
+            if depthwise:
+                y = bwd_check(st, "spike_dwconv", lambda xf, w:
+                              ops.spike_dwconv_op(xf, w, stride=stride),
+                              lambda xf, w, _: L.spike_conv(
+                                  xf, w, stride=stride, depthwise=True),
+                              (xf, w), nxt())
+            else:
+                y = bwd_check(st, "spike_conv", lambda xf, w:
+                              ops.spike_conv_op(xf, w, stride=stride),
+                              lambda xf, w, _: L.spike_conv(xf, w,
+                                                            stride=stride),
+                              (xf, w), nxt())
+            y4 = L.unfold(y, T, B).reshape(T, B, -1, y.shape[-1]) \
+                .contiguous()
+            spikes = bwd_check(st, "norm_affine_lif", lambda y4, s, b:
+                               ops.norm_affine_lif_op(
+                                   y4, s, b, tau=cfg.tau_mem,
+                                   v_th=cfg.v_threshold,
+                                   v_reset=cfg.v_reset,
+                                   beta=cfg.surrogate_beta),
+                               norm_plain, (y4, s, b), nxt())
+            if not depthwise:
+                plan = conv_lif_plan(T, B, y4.shape[2], w.shape[3],
+                                     w.shape[0] * w.shape[1] * w.shape[2])
+                fused = tune.LaunchConfig(bm=plan.cluster, gate="mask",
+                                          fused=True)
+                lif = dict(tau=cfg.tau_mem, v_th=cfg.v_threshold,
+                           v_reset=cfg.v_reset)
+
+                def fused_plain(xf, w, s, b, spikes):
+                    yp = L.unfold(L.spike_conv(xf, w, stride=stride), T, B)
+                    return forced_lif(L.instance_norm_affine(
+                        yp.reshape(y4.shape), s, b), spikes.reshape(
+                            y4.shape), cfg).reshape(spikes.shape)
+                got = bwd_check(st, "spike_conv_lif", lambda xf, w, s, b:
+                                ops._conv_lif_apply(
+                                    fused, xf, w, s, b, T=T, B=B,
+                                    stride=stride, lif=lif,
+                                    beta=cfg.surrogate_beta),
+                                fused_plain, (xf, w, s, b), nxt())
+                check(torch.equal(got.reshape(spikes.shape), spikes),
+                      f"{arch} {name}: the fused kernel's spikes differ "
+                      f"from the per-op pair's")
+            return spikes.reshape(T, B, *y.shape[1:])
+
+        def pool(name, x, window):
+            T, B = x.shape[:2]
+            return bwd_check(st, "max_pool", lambda x:
+                             ops.max_pool_op(x, window=window),
+                             lambda x, _: L.unfold(L.pool_slices(
+                                 L.fold(x), window), T, B), (x,), nxt())
+
+        with torch.no_grad():
+            feats = backbone_walk(cfg, params["backbone"], vox, conv, pool,
+                                  lambda fs: torch.cat(fs, dim=-1))
+            h = conv("head_conv", params["head"]["conv"], feats, 1, False)
+            T, B = h.shape[:2]
+            bwd_check(st, "spike_conv", lambda xf, w: ops.spike_conv_op(
+                xf, w), lambda xf, w, _: L.spike_conv(xf, w),
+                (L.fold(h).contiguous(), params["head"]["pred"]["w"]),
+                nxt())
+            c = params["ctrl_hidden"]
+            cur = feats.mean(dim=(2, 3)) @ c["w"]
+            hc = bwd_check(st, "lif_scan", lambda z, b: ops.lif_scan_op(
+                z, bias=b, tau=cfg.tau_mem, v_th=cfg.v_threshold,
+                v_reset=cfg.v_reset, beta=cfg.surrogate_beta),
+                lambda z, b, _: lif_scan(
+                    z + b, tau=cfg.tau_mem, v_th=cfg.v_threshold,
+                    v_reset=cfg.v_reset, beta=cfg.surrogate_beta),
+                (cur, c["bias"]), nxt())
+            bwd_check(st, "spike_matmul", ops.spike_matmul_op,
+                      lambda x, w, _: L.blocked_matmul(x, w),
+                      (hc.reshape(T * B, -1), params["ctrl_out"]["w"]),
+                      nxt())
+        # row 7: each fused-route segment on the walk's input to it, the
+        # segment kernel's backward against the per-layer route's
+        table = ops.fused_segment_table([k for *_, k in segs])
+        for seg, _, _ in segs:
+            x = seg_in[seg.layers[0].name]
+            sp = tuple(s.anon() for s in seg.layers)
+            flat = [t for s in seg.layers for t in (
+                params["backbone"][s.name]["w"],
+                params["backbone"][s.name]["scale"],
+                params["backbone"][s.name]["bias"])]
+            lif = dict(tau=cfg.tau_mem, v_th=cfg.v_threshold,
+                       v_reset=cfg.v_reset, beta=cfg.surrogate_beta)
+
+            def run(x, *flat):
+                return ops.backbone_segment_op(
+                    x, [flat[i:i + 3] for i in range(0, len(flat), 3)],
+                    specs=sp, **lif)
+
+            def fused(x, *flat):
+                with tune.pinned(table):
+                    return run(x, *flat)
+
+            def per_layer(x, *rest):
+                with tune.pinned(tune.TuningTable()):
+                    return run(x, *rest[:-1])
+            bwd_check(st, "backbone_segment", fused, per_layer,
+                      (x, *flat), nxt())
+        out[arch] = st.rows
+        print(f"  {arch} backwards (op / plain ms summed, worst rel): "
+              + "; ".join(f"{k} {r['launches']}x {r['bwd_ms']:.4f} / "
+                          f"{r['plain_bwd_ms']:.4f} {r['max_rel']:.1e}"
+                          for k, r in st.rows.items()))
+    return out
+
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -3991,9 +4485,10 @@ def main() -> int:
     conv_lif_only = sys.argv[1:] == ["--conv-lif-phase"]
     segment_only = sys.argv[1:] == ["--segment-phase"]
     isp_pool_only = sys.argv[1:] == ["--isp-pool-phase"]
+    train_only = sys.argv[1:] == ["--train-phase"]
     if sys.argv[1:] and not kernel_archs and not flash_only \
             and not norm_only and not conv_lif_only and not segment_only \
-            and not isp_pool_only:
+            and not isp_pool_only and not train_only:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -4012,6 +4507,7 @@ def main() -> int:
              ["backbone_segment", "spike_conv", "norm_affine_lif",
               "spike_dwconv", "max_pool"] if segment_only
              else ["isp_fused", "max_pool"] if isp_pool_only
+             else list(NPU_KERNELS) if train_only
              else list(build.SOURCES))
     build.build_all(built)
     print(f"[2/7] build: {time.perf_counter() - t0:.1f} s")
@@ -4041,6 +4537,10 @@ def main() -> int:
         return 0
     if conv_lif_only:
         print(json.dumps({"conv_lif_phase": conv_lif_phase(
+            {"spiking_yolo": (params, cfg), **archs}, dev, card)}))
+        return 0
+    if train_only:
+        print(json.dumps({"train": train_phase(
             {"spiking_yolo": (params, cfg), **archs}, dev, card)}))
         return 0
     reqs = make_requests(cfg, np.random.default_rng(0))
@@ -4121,6 +4621,13 @@ def main() -> int:
     cognitive_phase(params, cfg, reqs, dev)
     fleet_report = fleet_phase(params, cfg, dev, card,
                                tables["spiking_yolo"][0])
+    print(f"[5b/7] training: full-width spiking_yolo (batch {BATCH}), "
+          f"detect and cognitive steps on the per-op, forced-fused and "
+          f"forced-segment routes; rows 1-8's backwards")
+    t_train = time.perf_counter()
+    train_report = train_phase({"spiking_yolo": (params, cfg), **archs}, dev,
+                               card)
+    print(f"  train phase: {time.perf_counter() - t_train:.1f} s")
 
     # release the SNN engines' memory before the 15 GB model
     import gc
@@ -4160,6 +4667,7 @@ def main() -> int:
     print(json.dumps({"lm": lm_report}))
     print(json.dumps({"fleet": {k: fleet_report[k] for k in
                                 ("clean", "chaos", "harvest")}}))
+    print(json.dumps({"train": train_report}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

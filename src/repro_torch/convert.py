@@ -20,7 +20,9 @@ import torch
 
 from repro_torch.configs.base import (EncodingConfig, ISPConfig,
                                       ModelConfig, SNNConfig)
+from repro_torch.core.encoding import as_stream
 from repro_torch.core.npu import resolve_device
+from repro_torch.data.synthetic import SceneBatch
 from repro_torch.models.attention import KVCache
 from repro_torch.models.transformer import check_supported, layout
 
@@ -37,6 +39,32 @@ def params_from_numpy(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return torch.tensor(np.asarray(tree, np.float32)).to(device)
+
+
+def scene_from_numpy(scene, device="cuda") -> SceneBatch:
+    """The reference's ``SceneBatch`` (its leaves anything ``np.asarray``
+    takes) -> the port's, on ``device``: events as float32 t, int32
+    x/y/p and bool valid, float32 frames and boxes, bool valid."""
+    device = resolve_device(device)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32)).to(device)
+    ev = scene.events
+    return SceneBatch(
+        events=as_stream(type(ev)(*(np.array(a) for a in ev)), device),
+        bayer=f32(scene.bayer), boxes=f32(scene.boxes),
+        valid=torch.tensor(np.asarray(scene.valid, bool)).to(device),
+        clean_rgb=f32(scene.clean_rgb))
+
+
+def opt_state_from_numpy(opt, device="cuda"):
+    """The reference's AdamW state ({"m", "v", "count"}, as numpy) -> the
+    port's: the moments as float32 trees, ``count`` an int32 scalar."""
+    device = resolve_device(device)
+    return {"m": params_from_numpy(opt["m"], device),
+            "v": params_from_numpy(opt["v"], device),
+            "count": torch.tensor(int(np.asarray(opt["count"])),
+                                  dtype=torch.int32, device=device)}
 
 
 def _mapped(cls, cfg, names=BACKEND_NAMES):

@@ -74,7 +74,8 @@ def _run_layers(p, x, cfg: SNNConfig, specs, tape=None):
             # so same-shaped segments share one entry
             x = backbone_segment_op(
                 x, params, specs=tuple(s.anon() for s in seg.layers),
-                tau=cfg.tau_mem, v_th=cfg.v_threshold, v_reset=cfg.v_reset)
+                tau=cfg.tau_mem, v_th=cfg.v_threshold, v_reset=cfg.v_reset,
+                beta=cfg.surrogate_beta)
         else:
             x = _run_per_layer(p, x, cfg, seg.layers, tape)
     return x

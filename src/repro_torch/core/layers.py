@@ -19,6 +19,14 @@ through ``spike_conv_op``, dense firing through ``lif_scan_op``, a
 spike-input dense through ``spike_matmul_op`` and a max-pool through
 ``max_pool_op``.  On CPU tensors those ops take their kernels' plain
 versions, so both backends compute the same function.
+
+Both backends are differentiable: the ``"torch"`` layers through
+autograd and the surrogate ``spike`` of ``repro_torch.core.lif``, the
+``"cuda"`` ops through their own backward (``kernels/ops.py``).  A
+max-pool's gradient goes whole to the first element of its window, in
+(row, column) order, that equals the window's max, as the reference's
+``reduce_window`` VJP gives it; a chain of ``torch.maximum`` would split
+ties, and spikes tie all the time.
 """
 from __future__ import annotations
 
@@ -49,11 +57,12 @@ def _fire(y, cfg: SNNConfig, bias=None):
     if _check_backend(cfg):
         from repro_torch.kernels.ops import lif_scan_op
         return lif_scan_op(y, bias=bias, tau=cfg.tau_mem,
-                           v_th=cfg.v_threshold, v_reset=cfg.v_reset)
+                           v_th=cfg.v_threshold, v_reset=cfg.v_reset,
+                           beta=cfg.surrogate_beta)
     if bias is not None:
         y = y + bias
     return lif_scan(y, tau=cfg.tau_mem, v_th=cfg.v_threshold,
-                    v_reset=cfg.v_reset)
+                    v_reset=cfg.v_reset, beta=cfg.surrogate_beta)
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +125,25 @@ def _patch_slices(xf: torch.Tensor, kh: int, kw: int, stride: int):
                j:j + (Wo - 1) * stride + 1:stride, :]
             for i in range(kh) for j in range(kw)]
     return taps, (Ho, Wo)
+
+
+def patches_grad(shape, kh: int, kw: int, stride: int,
+                 tap_grad) -> torch.Tensor:
+    """The adjoint of ``_patch_slices``: d xf [N, H, W, C] of an input of
+    ``shape``, where ``tap_grad(t)`` is the gradient [N, Ho, Wo, C] of
+    tap t's view; taps that overlap add up."""
+    N, H, W, C = shape
+    plo_h, phi_h, Ho = _same_pads(H, kh, stride)
+    plo_w, phi_w, Wo = _same_pads(W, kw, stride)
+    dxp = None
+    for t in range(kh * kw):
+        g = tap_grad(t)
+        if dxp is None:
+            dxp = g.new_zeros((N, H + plo_h + phi_h, W + plo_w + phi_w, C))
+        i, j = divmod(t, kw)
+        dxp[:, i:i + (Ho - 1) * stride + 1:stride,
+            j:j + (Wo - 1) * stride + 1:stride, :] += g
+    return dxp[:, plo_h:plo_h + H, plo_w:plo_w + W, :]
 
 
 def spike_im2col(xf: torch.Tensor, kh: int, kw: int, stride: int = 1):
@@ -190,7 +218,8 @@ def apply_spiking_conv(p, x, cfg: SNNConfig, *, stride: int = 1,
         from repro_torch.kernels.ops import spike_conv_lif_op
         out = spike_conv_lif_op(xf, p["w"], p["scale"], p["bias"], T=T,
                                 B=B, stride=stride, tau=cfg.tau_mem,
-                                v_th=cfg.v_threshold, v_reset=cfg.v_reset)
+                                v_th=cfg.v_threshold, v_reset=cfg.v_reset,
+                                beta=cfg.surrogate_beta)
         return _record(tape, tag, out)
     if use_kernels:
         from repro_torch.kernels.ops import spike_conv_op, spike_dwconv_op
@@ -201,7 +230,8 @@ def apply_spiking_conv(p, x, cfg: SNNConfig, *, stride: int = 1,
             from repro_torch.kernels.ops import norm_affine_lif_op
             out = norm_affine_lif_op(y, p["scale"], p["bias"],
                                      tau=cfg.tau_mem, v_th=cfg.v_threshold,
-                                     v_reset=cfg.v_reset)
+                                     v_reset=cfg.v_reset,
+                                     beta=cfg.surrogate_beta)
             return _record(tape, tag, out)
     else:
         y = unfold(spike_conv(xf, p["w"], stride=stride,
@@ -241,11 +271,7 @@ def apply_spiking_dense(p, x, cfg: SNNConfig, *, fire: bool = True,
     return out
 
 
-def pool_slices(xf: torch.Tensor, window: int) -> torch.Tensor:
-    """Plain max-pool of xf [N, H, W, C] -> [N, H//window, W//window, C]:
-    the elementwise max of the window's strided slices, taken in
-    (row, column) order (VALID, stride = window; a ragged tail is
-    dropped)."""
+def _max_of_slices(xf: torch.Tensor, window: int) -> torch.Tensor:
     _, H, W, _ = xf.shape
     ho, wo = H // window, W // window
     out = None
@@ -254,6 +280,46 @@ def pool_slices(xf: torch.Tensor, window: int) -> torch.Tensor:
             s = xf[:, di:ho * window:window, dj:wo * window:window, :]
             out = s if out is None else torch.maximum(out, s)
     return out
+
+
+def pool_grad(xf: torch.Tensor, g: torch.Tensor, window: int) -> torch.Tensor:
+    """The max-pool's VJP: xf [N, H, W, C] the pooled input, g [N, H//window,
+    W//window, C] -> d xf, each window's gradient on the first element,
+    in (row, column) order, that equals its max (a ragged tail gets 0)."""
+    _, H, W, _ = xf.shape
+    ho, wo = H // window, W // window
+    m = _max_of_slices(xf, window)
+    d = torch.zeros_like(xf)
+    taken = torch.zeros(m.shape, dtype=torch.bool, device=xf.device)
+    for di in range(window):
+        for dj in range(window):
+            at = (slice(None), slice(di, ho * window, window),
+                  slice(dj, wo * window, window))
+            hit = (xf[at] == m) & ~taken
+            d[at] = torch.where(hit, g, 0.0)
+            taken |= hit
+    return d
+
+
+class _Pool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xf, window):
+        ctx.save_for_backward(xf)
+        ctx.window = window
+        return _max_of_slices(xf, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        xf, = ctx.saved_tensors
+        return pool_grad(xf, g, ctx.window), None
+
+
+def pool_slices(xf: torch.Tensor, window: int) -> torch.Tensor:
+    """Plain max-pool of xf [N, H, W, C] -> [N, H//window, W//window, C]:
+    the elementwise max of the window's strided slices, taken in
+    (row, column) order (VALID, stride = window; a ragged tail is
+    dropped).  Its gradient is ``pool_grad``'s first-maximum rule."""
+    return _Pool.apply(xf, window)
 
 
 def max_pool(x: torch.Tensor, window: int = 2,

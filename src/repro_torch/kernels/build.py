@@ -135,9 +135,24 @@ def load(name: str, signature) -> ctypes.CDLL:
     return lib
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where grad mode is on and a tensor requires grad: a kernel
+    called outside its op's autograd Function (or one with no backward)
+    would return a result with no graph, dropping it silently."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward here; "
+                           f"an input requires grad (call it under "
+                           f"torch.no_grad(), or through its op in "
+                           f"kernels/ops.py where it has one)")
+
+
 def check_f32(name: str, *tensors) -> torch.device:
     """The one device of ``tensors``, after checking that each is float32,
-    contiguous and on that device (a CPU or CUDA device)."""
+    contiguous and on that device (a CPU or CUDA device), and, on a CUDA
+    device, that none needs a gradient the kernel cannot give
+    (``refuse_grad``)."""
     dev = tensors[0].device
     for t in tensors:
         if t.dtype != torch.float32:
@@ -148,6 +163,8 @@ def check_f32(name: str, *tensors) -> torch.device:
             raise ValueError(f"{name}: tensors must be contiguous")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cuda":
+        refuse_grad(name, *tensors)
     return dev
 
 

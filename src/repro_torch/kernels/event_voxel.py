@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.core.encoding import (EventStream, check_oob,
                                        events_to_voxel_batch, resolve_mode)
-from repro_torch.kernels.build import check_launch, load, stream_of
+from repro_torch.kernels.build import (check_launch, load, refuse_grad,
+                                       stream_of)
 
 # t x y p valid from_events vox out, B N T H W, window, mode drop,
 # cluster cells clusters share threads smem, stream
@@ -113,6 +114,8 @@ def _check_stream(evs: EventStream) -> torch.device:
             raise ValueError(f"event_voxel: {name} must be contiguous")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"event_voxel: unsupported device {dev}")
+    if dev.type == "cuda":
+        refuse_grad("event_voxel", evs.t)
     return dev
 
 
@@ -197,6 +200,7 @@ def event_voxel_encode(evs: EventStream, voxels: torch.Tensor,
                                     window=window, mode=mode, oob=oob)
         return torch.where(from_events[None, :, None, None, None],
                            enc.transpose(0, 1), voxels)
+    refuse_grad("event_voxel_encode", voxels)
     out = torch.empty((B, time_steps, height, width, 2),
                       dtype=torch.float32, device=dev)
     if out.numel() == 0:

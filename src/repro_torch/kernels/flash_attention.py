@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.build import (LAUNCHES, check_launch, load,
-                                      stream_of)
+                                      refuse_grad, stream_of)
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
@@ -256,6 +256,7 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         _check(q, k, v)
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset, window=window)
+    refuse_grad("flash_attention", q, k, v)
     return _launch(q, k, v, causal=causal, q_offset=q_offset, window=window,
                    design=kernel_design(q.dtype, q.shape[3], v.shape[3]))
 

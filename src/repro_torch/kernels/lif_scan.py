@@ -38,10 +38,10 @@ _NORM_SIG = ("norm_affine_lif_launch",
 
 def lif_scan(currents: torch.Tensor, *, bias=None, tau: float = 2.0,
              v_th: float = 1.0, v_reset: float = 0.0) -> torch.Tensor:
-    """currents [T, N] float32 -> spikes [T, N] (forward only) of
-    ``currents + bias``: ``bias`` is None or [C], C dividing N (the
-    currents are [T, N / C, C] flattened, as a dense layer's [T, B, C]
-    folds), and its add is part of the one launch."""
+    """currents [T, N] float32 -> spikes [T, N] of ``currents + bias``:
+    ``bias`` is None or [C], C dividing N (the currents are [T, N / C, C]
+    flattened, as a dense layer's [T, B, C] folds), and its add is part
+    of the one launch.  Its gradient: ``kernels.ops.lif_scan_op``."""
     if currents.dim() != 2:
         raise ValueError(f"lif_scan: expected [T, N], got {currents.shape}")
     T, N = currents.shape

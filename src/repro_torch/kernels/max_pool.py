@@ -16,7 +16,8 @@ import ctypes
 import torch
 
 from repro_torch.core.layers import fold, pool_slices
-from repro_torch.kernels.build import check_launch, load, stream_of
+from repro_torch.kernels.build import (check_launch, load, refuse_grad,
+                                       stream_of)
 
 _SIG = ("max_pool_launch",
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 2
@@ -80,6 +81,7 @@ def max_pool(x: torch.Tensor, *, window: int = 2,
         return pool_slices(fold(x5), window)
     if dev.type != "cuda":
         raise ValueError(f"max_pool: unsupported device {dev}")
+    refuse_grad("max_pool", x)
     T, B, H, W, C = x5.shape
     out = torch.empty((B * T, H // window, W // window, C),
                       dtype=torch.float32, device=dev)

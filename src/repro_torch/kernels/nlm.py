@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.isp.nlm import nlm_denoise
 from repro_torch.kernels.build import (check_f32, check_launch, load,
-                                       stream_of)
+                                       refuse_grad, stream_of)
 from repro_torch.kernels.isp_fused import nlm_tile_smem, stencil_plan
 
 # img, strength, its stride, a scalar strength, out, B H W C, th tw
@@ -60,6 +60,7 @@ def nlm(img: torch.Tensor, strength=0.1) -> torch.Tensor:
     B, H, W, C = chans.shape
     if not 1 <= C <= MAX_CHANNELS:
         raise ValueError(f"nlm: 1 to {MAX_CHANNELS} channels, got {C}")
+    refuse_grad("nlm", strength)
     s, stride, value = _strength(strength, B, dev)
     out = torch.empty_like(chans)
     if out.numel() == 0:

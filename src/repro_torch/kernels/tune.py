@@ -486,13 +486,16 @@ def measure(runner: Callable[[LaunchConfig], object], cfg: LaunchConfig,
     """Minimum over ``reps`` calls of ``runner(cfg)`` (µs), after one
     warm-up call; on the card each call is timed from an idle device to
     its result (host launch cost included).  A candidate that raises is
-    a fault, not a loser: the error propagates."""
-    _wait(runner(cfg))
-    best = float("inf")
-    for _ in range(max(1, reps)):
-        t0 = time.perf_counter()
+    a fault, not a loser: the error propagates.  The calls run under
+    ``torch.no_grad()``: a sweep inside a train step records nothing in
+    its graph."""
+    with torch.no_grad():
         _wait(runner(cfg))
-        best = min(best, time.perf_counter() - t0)
+        best = float("inf")
+        for _ in range(max(1, reps)):
+            t0 = time.perf_counter()
+            _wait(runner(cfg))
+            best = min(best, time.perf_counter() - t0)
     return best * 1e6
 
 

@@ -60,6 +60,7 @@ from repro_torch.configs.registry import (ENCODING_CONFIGS, ISP_CONFIGS,
 from repro_torch.core.npu import init_npu
 from repro_torch.core.layers import (blocked_matmul, fold,
                                      instance_norm_affine, pool_slices,
+                                     unfold,
                                      spike_conv as conv_plain, spike_im2col)
 from repro_torch.isp.demosaic import demosaic_mhc
 from repro_torch.isp.fuse import compile_plan, segment_call
@@ -1086,3 +1087,188 @@ def test_launch_counters(dev):
                               "isp_stencil_segment": 2,
                               "isp_pointwise_segment": 2,
                               "spike_dwconv": 1, "max_pool": 3}
+
+
+# ---------------------------------------------------------------------------
+# the ops' backwards on the card (plain PyTorch behind each kernel forward)
+# ---------------------------------------------------------------------------
+
+class _Cfg:
+    tau_mem, v_threshold, v_reset, surrogate_beta = 2.0, 1.0, 0.0, 4.0
+
+
+def _bwd_gap(op_fn, plain_fn, inputs, seed=0):
+    """(op output, the worst relative gap of its input gradients from
+    plain autograd's, given the op's output) for one seeded output
+    gradient."""
+    ks = [t.detach().requires_grad_() for t in inputs]
+    ps = [t.detach().requires_grad_() for t in inputs]
+    out = op_fn(*ks)
+    want = plain_fn(*ps, out.detach())
+    g = torch.randn(out.shape, generator=torch.Generator(
+        out.device).manual_seed(seed), device=out.device)
+    gk = torch.autograd.grad(out, ks, g)
+    gp = torch.autograd.grad(want, ps, g)
+    for a in gk:
+        assert torch.isfinite(a).all()
+    return out.detach(), max(float((a - b).abs().max()
+                                   / (b.abs().max() + 1e-30))
+                             for a, b in zip(gk, gp))
+
+
+def _forced_norm(y4, s, b, spikes):
+    return chip_smoke.forced_lif(instance_norm_affine(y4, s, b), spikes,
+                                 _Cfg)
+
+
+@pytest.mark.parametrize("k,stride,depthwise", [(3, 1, False), (3, 2, False),
+                                                (1, 1, False), (3, 1, True),
+                                                (3, 2, True)])
+def test_conv_backward_matches_plain_autograd(dev, k, stride, depthwise):
+    """spike_conv_op / spike_dwconv_op: the kernel forward and its plain
+    adjoints within 1e-5 of autograd through the plain conv."""
+    rng = np.random.default_rng(k * 10 + stride)
+    xf = _spikes(rng, (10, 17, 15, 24), 0.2).to(dev)
+    w = torch.tensor(rng.normal(0, 0.5, (k, k, 1 if depthwise else 24,
+                                         24 if depthwise else 40))
+                     .astype(np.float32), device=dev)
+    op = ops.spike_dwconv_op if depthwise else ops.spike_conv_op
+    _, gap = _bwd_gap(lambda x, w: op(x, w, stride=stride),
+                      lambda x, w, _: conv_plain(x, w, stride=stride,
+                                                 depthwise=depthwise),
+                      (xf, w))
+    assert gap <= 1e-5
+
+
+@pytest.mark.parametrize("T,B,HW,C", [(5, 2, 256, 24), (3, 3, 100, 33)])
+def test_norm_affine_lif_backward_matches_plain_autograd(dev, T, B, HW, C):
+    """On the kernel's own spikes (forced into the plain LIF): the
+    statistics contract's flips near threshold do not enter."""
+    rng = np.random.default_rng(T + C)
+    y = torch.tensor(rng.normal(0.3, 1.0, (T, B, HW, C)).astype(np.float32),
+                     device=dev)
+    s = torch.tensor(rng.normal(1, 0.2, C).astype(np.float32), device=dev)
+    b = torch.tensor(rng.normal(0, 0.2, C).astype(np.float32), device=dev)
+    _, gap = _bwd_gap(lambda y, s, b: ops.norm_affine_lif_op(y, s, b, **LIF),
+                      _forced_norm, (y, s, b))
+    assert gap <= 1e-5
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_spike_conv_lif_backward_matches_plain_autograd(dev, stride):
+    T, B, H, cin, cout = 3, 2, 13, 12, 20
+    rng = np.random.default_rng(stride)
+    xf = _spikes(rng, (B * T, H, H, cin), 0.2).to(dev)
+    w = torch.tensor(rng.normal(0, 0.5, (3, 3, cin, cout)).astype(np.float32),
+                     device=dev)
+    s = torch.tensor(rng.normal(1, 0.2, cout).astype(np.float32), device=dev)
+    b = torch.tensor(rng.normal(0, 0.2, cout).astype(np.float32), device=dev)
+    Ho = -(-H // stride)
+    plan = conv_lif_plan(T, B, Ho * Ho, cout, 9 * cin)
+    fused = tune.LaunchConfig(bm=plan.cluster, gate="mask", fused=True)
+
+    def op(x, w, s, b):
+        return ops._conv_lif_apply(fused, x, w, s, b, T=T, B=B,
+                                   stride=stride, lif=LIF, beta=4.0)
+
+    def plain(x, w, s, b, spikes):
+        y = conv_plain(x, w, stride=stride)
+        y4 = y.reshape(B, T, Ho * Ho, cout).transpose(0, 1)
+        return _forced_norm(y4, s, b, spikes.reshape(y4.shape)).reshape(
+            spikes.shape)
+    build.reset_launches()
+    _, gap = _bwd_gap(op, plain, (xf, w, s, b))
+    assert gap <= 1e-5
+    # the forward and its rematerialised conv
+    assert build.LAUNCHES["spike_conv_lif"] == 1
+    assert build.LAUNCHES["spike_conv"] == 1
+
+
+def test_lif_scan_and_spike_matmul_backward_match_plain_autograd(dev):
+    rng = np.random.default_rng(0)
+    cur = torch.tensor(rng.normal(0.8, 0.5, (5, 8, 64)).astype(np.float32),
+                       device=dev)
+    bias = torch.tensor(rng.normal(0, 0.3, 64).astype(np.float32),
+                        device=dev)
+    spikes, gap = _bwd_gap(
+        lambda c, b: ops.lif_scan_op(c, bias=b, **LIF),
+        lambda c, b, _: klif.lif_scan_plain(c + b, **LIF), (cur, bias))
+    assert gap <= 1e-5
+    w = torch.tensor(rng.normal(0, 1, (64, 8)).astype(np.float32), device=dev)
+    _, gap = _bwd_gap(ops.spike_matmul_op,
+                      lambda x, w, _: blocked_matmul(x, w),
+                      (spikes.reshape(40, 64), w))
+    assert gap <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(5, 8, 64, 64, 32), (3, 2, 9, 7, 5)])
+def test_max_pool_backward_first_maximum(dev, shape):
+    """[T, B] spikes where they lie: the gradient equal to the plain
+    pool's (each window's on its first maximum)."""
+    rng = np.random.default_rng(shape[2])
+    x = _spikes(rng, shape, 0.3).to(dev)
+    T, B = shape[:2]
+    _, gap = _bwd_gap(lambda x: ops.max_pool_op(x, window=2),
+                      lambda x, _: unfold(pool_slices(fold(x), 2), T, B),
+                      (x,))
+    assert gap == 0.0
+
+
+@pytest.mark.parametrize("case", ["stride2_chain", "single_layer_pool",
+                                  "depthwise_inside"])
+def test_backbone_segment_backward_equals_per_layer_route(dev, case):
+    """The segment kernel's backward (recomputed on the per-layer kernel
+    route) against the per-layer route's own: the same spikes, so the
+    same gradients."""
+    x, params, specs = _segment_case(case, dev)
+    flat = [t for p in params for t in p]
+    T, B, H, W, _ = x.shape
+    key = tune.shape_key("backbone_seg", **ops.segment_dims(
+        specs, T=T, B=B, H=H, W=W))
+    table = ops.fused_segment_table([key])
+
+    def run(x, *flat):
+        return ops.backbone_segment_op(
+            x, [flat[i:i + 3] for i in range(0, len(flat), 3)], specs=specs,
+            **LIF)
+
+    def fused(x, *flat):
+        with tune.pinned(table):
+            return run(x, *flat)
+
+    def per_layer(x, *rest):
+        with tune.off():
+            return run(x, *rest[:-1])
+    build.reset_launches()
+    _, gap = _bwd_gap(fused, per_layer, (x, *flat))
+    assert gap <= 1e-5
+    assert build.LAUNCHES["backbone_segment"] == 1
+
+
+def test_kernels_without_a_backward_refuse_grad(dev):
+    """No wrapper drops a graph silently: a kernel called outside its
+    op's Function, or one with no backward (ISP, event), raises on an
+    input that requires grad while grad mode is on; under no_grad it
+    runs."""
+    raw = torch.rand(2, 16, 16, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        demosaic(raw)
+    rgb = torch.rand(2, 16, 16, 3, device=dev)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        nlm(rgb, torch.full((2,), 0.3, device=dev, requires_grad=True))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        spike_conv(torch.ones(2, 8, 8, 4, device=dev, requires_grad=True),
+                   torch.ones(3, 3, 4, 8, device=dev))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        max_pool(torch.ones(1, 2, 4, 4, 3, device=dev, requires_grad=True))
+    evs = _events(np.random.default_rng(0), 2, 64, 3, 8, 8)
+    evs = EventStream(*(a.to(dev) for a in evs))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        event_voxel(evs._replace(t=evs.t.clone().requires_grad_()),
+                    time_steps=3, height=8, width=8)
+    with torch.no_grad():
+        demosaic(raw)
+    # through the op's Function the same kernel takes a graph
+    x = torch.ones(2, 8, 8, 4, device=dev, requires_grad=True)
+    ops.spike_conv_op(x, torch.ones(3, 3, 4, 8, device=dev)).sum().backward()
+    assert x.grad is not None
