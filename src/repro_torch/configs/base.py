@@ -1,5 +1,5 @@
 """Config dataclasses of the serving tick, the fleet that serves it, the
-kernel autotuner and the LM stack, copied from the JAX package's
+detector's training runs, the kernel autotuner and the LM stack, copied from the JAX package's
 ``repro.configs.base`` (field names and defaults unchanged) with the
 port's backend names: ``"torch"`` for the plain PyTorch path and
 ``"cuda"`` for the hand-written kernels.
@@ -256,6 +256,41 @@ class SNNConfig:
     num_anchors: int = 2
     backend: str = "torch"
     control_dim: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """One detector training run (``repro_torch.train.detector``).
+
+    ``arch``/``backend`` resolve to an :class:`SNNConfig`
+    (``reduced=True`` selects the CPU/CI dims of ``reduced_snn``); the
+    run uses AdamW under the warmup-cosine schedule, and every training
+    batch is seeded from ``(seed, step)`` so a resumed run replays the
+    data order of an uninterrupted one.  ``eval_seed`` seeds the
+    held-out eval scenes, a stream of its own (disjoint from the
+    training stream by construction).  ``shard``: data-parallel over
+    the visible cards (the port trains on one card: no mesh)."""
+    name: str = "detector"
+    arch: str = "spiking_yolo"      # key into registry SNN_ARCHS
+    backend: str = "torch"          # "torch" | "cuda" spiking-layer path
+    reduced: bool = True            # reduced_snn dims (CPU/CI) vs full
+    steps: int = 300
+    batch: int = 8                  # global batch
+    lr: float = 4e-3
+    weight_decay: float = 1e-4
+    grad_clip: float = 1.0
+    warmup: int = 20                # warmup_cosine ramp steps
+    min_lr_ratio: float = 0.3       # cosine floor as a fraction of lr
+    ckpt_every: int = 100
+    keep_ckpts: int = 3
+    log_every: int = 25
+    seed: int = 0                   # training data + init stream
+    eval_seed: int = 1000           # held-out eval scene stream
+    eval_batches: int = 4
+    eval_batch: int = 8
+    max_boxes: int = 4              # scene generator knobs
+    n_events: int = 2048
+    shard: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,10 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import (EncodingConfig, ISPConfig,
-                                      ModelConfig, SNNConfig)
+                                      ModelConfig, SNNConfig, TrainConfig)
 from repro_torch.core.encoding import as_stream
-from repro_torch.core.npu import resolve_device
 from repro_torch.data.synthetic import SceneBatch
+from repro_torch.device import resolve_device
 from repro_torch.models.attention import KVCache
 from repro_torch.models.transformer import check_supported, layout
 
@@ -95,6 +95,12 @@ def encoding_config(cfg) -> EncodingConfig:
     """The port's EncodingConfig with the same fields, backend name
     mapped."""
     return _mapped(EncodingConfig, cfg)
+
+
+def train_config(cfg) -> TrainConfig:
+    """The port's TrainConfig with the same fields, backend name
+    mapped."""
+    return _mapped(TrainConfig, cfg)
 
 
 def _tensor(a, device) -> torch.Tensor:

@@ -14,10 +14,12 @@ from repro_torch.core.layers import apply_spiking_dense, init_spiking_dense
 from repro_torch.core.sparsity import (SparsityTape, activity_sparsity,
                                        tile_skip_fraction)
 from repro_torch.core.yolo import apply_yolo_head, init_yolo_head
+from repro_torch.device import resolve_device
 
 
 class NPUOutput(NamedTuple):
-    raw_pred: torch.Tensor     # [B, h, w, A, 5+nc] detection head output
+    raw_pred: torch.Tensor     # [B, h, w, A, 5+nc] detections ([B, nc]
+    #                            logits with the classification head)
     control: torch.Tensor      # [B, control_dim] in [0, 1]
     sparsity: torch.Tensor     # scalar: network activity sparsity
     tile_skip: torch.Tensor    # scalar: tile-skip fraction of the features
@@ -32,32 +34,20 @@ def configure_for_isp(cfg: SNNConfig, isp_cfg: ISPConfig,
                                control_dim=isp_cfg.control_dim + spare)
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises for CUDA without a card
-    instead of falling back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' but no CUDA device is available; pass "
-            "device='cpu' to run the plain path on the CPU")
-    return device
-
-
 def init_npu(gen: torch.Generator, cfg: SNNConfig,
              device="cuda") -> Dict[str, Any]:
     """Random He-normal parameters (the reference's scales) drawn from
     ``gen`` on the CPU, then moved to ``device``."""
     device = resolve_device(device)
-    if not cfg.detect:
-        raise NotImplementedError("the classification head is not ported")
     init_bb, _ = BACKBONES[cfg.backbone]
     cout = backbone_out_channels(cfg)
-    p: Dict[str, Any] = {
-        "backbone": init_bb(gen, cfg),
-        "head": init_yolo_head(gen, cout, cfg),
-        "ctrl_hidden": init_spiking_dense(gen, cout, 64),
-        "ctrl_out": init_spiking_dense(gen, 64, cfg.control_dim),
-    }
+    p: Dict[str, Any] = {"backbone": init_bb(gen, cfg)}
+    if cfg.detect:
+        p["head"] = init_yolo_head(gen, cout, cfg)
+    else:
+        p["cls"] = init_spiking_dense(gen, cout, cfg.num_classes)
+    p["ctrl_hidden"] = init_spiking_dense(gen, cout, 64)
+    p["ctrl_out"] = init_spiking_dense(gen, 64, cfg.control_dim)
     return params_to(p, device)
 
 
@@ -70,13 +60,21 @@ def params_to(p, device):
 
 def npu_forward(params, voxels: torch.Tensor, cfg: SNNConfig, *,
                 collect_sparsity: bool = False) -> NPUOutput:
-    """voxels: [T, B, H, W, 2] (from repro_torch.core.encoding)."""
-    if not cfg.detect:
-        raise NotImplementedError("the classification head is not ported")
+    """voxels: [T, B, H, W, 2] (from repro_torch.core.encoding).
+    ``raw_pred`` is the detection head's [B, h, w, A, 5+nc], or with
+    ``cfg.detect`` off the classification head's logits [B, nc]: the
+    features' spatial mean through a non-firing dense layer, averaged
+    over T (a plain product, no kernel)."""
     tape = SparsityTape() if collect_sparsity else None
     _, apply_bb = BACKBONES[cfg.backbone]
     feats = apply_bb(params["backbone"], voxels, cfg, tape=tape)
-    raw = apply_yolo_head(params["head"], feats, cfg, tape=tape)
+    if cfg.detect:
+        raw = apply_yolo_head(params["head"], feats, cfg, tape=tape)
+    else:
+        pooled_t = feats.mean(dim=(2, 3))              # [T, B, C]
+        logits = apply_spiking_dense(params["cls"], pooled_t, cfg,
+                                     fire=False)
+        raw = logits.mean(dim=0)                       # [B, nc]
 
     # cognitive control head: scene lighting/motion profile -> ISP params
     pooled = feats.mean(dim=(2, 3))                    # [T, B, C]

@@ -1,2 +1,3 @@
-"""The port's fault-tolerance pieces the serving supervisor uses
-(``fault_tolerance``); sharded serving and training come later."""
+"""The port's fault-tolerance pieces (``fault_tolerance``): the serving
+supervisor's heartbeats and the elastic restart plan; sharded serving
+and training come later."""

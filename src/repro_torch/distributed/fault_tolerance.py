@@ -1,8 +1,9 @@
-"""Heartbeat bookkeeping and straggler detection, the counterpart of the
-part of ``repro.distributed.fault_tolerance`` that the serving
-supervisor (``repro_torch.serve.supervisor``) needs: ``WorkerState`` and
-``HeartbeatMonitor``.  Pure host-side Python on an injected clock, so a
-fake clock drives it deterministically.
+"""Heartbeat bookkeeping, straggler detection and the elastic restart
+decision, the counterpart of ``repro.distributed.fault_tolerance``:
+``WorkerState`` and ``HeartbeatMonitor`` (the serving supervisor's,
+``repro_torch.serve.supervisor``), ``RestartPlan`` and ``plan_restart``.
+Pure host-side Python on an injected clock, so a fake clock drives it
+deterministically.
 
 Straggler rule: a worker whose last ``patience`` step times all exceed
 ``straggler_factor`` x the median of every live worker's retained
@@ -67,3 +68,52 @@ class HeartbeatMonitor:
 
     def healthy_count(self) -> int:
         return len(self.workers) - len(self.dead_workers())
+
+
+@dataclasses.dataclass
+class RestartPlan:
+    """What the runner does after failures are detected."""
+    survivors: int
+    new_mesh_shape: tuple
+    restore_step: Optional[int]
+    dropped_batches: int = 0   # deterministic data skipping on resume
+
+
+def plan_restart(n_devices_alive: int, ckpt_latest: Optional[int],
+                 model_parallel: int = 16,
+                 steps_per_checkpoint: int = 100,
+                 failed_step: Optional[int] = None) -> RestartPlan:
+    """Elastic restart decision: the largest (data, model) mesh the
+    survivors support, resuming from the newest checkpoint (data order
+    stays deterministic: the loader is keyed on the step counter).
+
+    ``failed_step`` (the step the run died at, when known) makes
+    ``dropped_batches`` exact: ``failed_step - restore_step``.  Without
+    it the plan takes the pessimistic bound ``restore_step %
+    steps_per_checkpoint``, which is zero for a checkpoint-aligned
+    restore step (so pass ``failed_step`` whenever it is known)."""
+    if n_devices_alive <= 0:
+        raise ValueError(
+            f"cannot plan a restart with n_devices_alive="
+            f"{n_devices_alive}; no surviving devices means a cold "
+            f"restart, not an elastic reshard")
+    mp = model_parallel
+    while n_devices_alive % mp or mp < 1:
+        mp //= 2
+    mp = max(mp, 1)
+    dp = n_devices_alive // mp
+    restore = ckpt_latest
+    if restore is None:
+        dropped = 0
+    elif failed_step is not None:
+        if failed_step < restore:
+            raise ValueError(
+                f"failed_step={failed_step} precedes the restore "
+                f"checkpoint at step {restore}")
+        dropped = failed_step - restore
+    else:
+        dropped = restore % steps_per_checkpoint
+    return RestartPlan(survivors=n_devices_alive,
+                       new_mesh_shape=(dp, mp),
+                       restore_step=restore,
+                       dropped_batches=dropped)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
-from repro_torch.core.npu import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.engine import Request, ServeEngine
 

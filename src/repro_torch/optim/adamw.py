@@ -2,8 +2,10 @@
 ``repro.optim.adamw``.
 
 Leaves are visited in the reference's order (a dict's keys sorted, as
-``jax.tree_util`` flattens them) and named by their ``"/"``-joined
-keys, the paths the weight-decay mask reads.  Scalars follow the
+``jax.tree_util`` flattens them; ``tree_leaves`` also takes the
+NamedTuples and sequences of a train state, as the checkpoints do) and
+named by their ``"/"``-joined keys, the paths the weight-decay mask
+reads.  Scalars follow the
 reference's float32 arithmetic: the bias corrections ``1 - b1**count``
 and ``1 - b2**count`` are float32 powers of a float32 step count, not
 Python floats.  The update writes new tensors (the reference's pure
@@ -30,25 +32,42 @@ class AdamWConfig:
     state_dtype: str = "float32"
 
 
-def tree_leaves(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
-    """(path, leaf) of a nested dict of tensors, keys sorted at each
-    level."""
+def tree_leaves(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) pairs of a tree of dicts, NamedTuples, lists and
+    tuples in JAX's flattening order, named by JAX's path strings: a
+    dict's keys sorted (``a/b``), a NamedTuple's fields in order
+    (``.field``), a sequence's items in order (``0``); ``None`` holds no
+    leaf."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += tree_leaves(tree[k], f"{prefix}/{k}" if prefix else k)
-        return out
-    return [(prefix, tree)]
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    elif isinstance(tree, (list, tuple)):
+        items = [(str(i), x) for i, x in enumerate(tree)]
+    else:
+        return [(prefix, tree)]
+    out = []
+    for key, sub in items:
+        out += tree_leaves(sub, f"{prefix}/{key}" if prefix else key)
+    return out
 
 
 def tree_unflatten(like, leaves):
-    """A nested dict shaped like ``like`` holding ``leaves`` in
-    ``tree_leaves`` order."""
+    """A tree shaped like ``like`` holding ``leaves`` in ``tree_leaves``
+    order."""
     it = iter(leaves)
 
-    def walk(tree):
-        if isinstance(tree, dict):
-            return {k: walk(tree[k]) for k in sorted(tree)}
+    def walk(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(x) for x in t))
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(x) for x in t)
         return next(it)
     return walk(like)
 

@@ -35,8 +35,8 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import EncodingConfig, ISPConfig, SNNConfig
 from repro_torch.core.encoding import ENCODING_BACKENDS, encode_batch
-from repro_torch.core.npu import NPUOutput, npu_forward, params_to, \
-    resolve_device
+from repro_torch.core.npu import NPUOutput, npu_forward, params_to
+from repro_torch.device import resolve_device
 from repro_torch.isp.pipeline import (control_vector_pipeline_batch,
                                       legacy_control_permutation)
 from repro_torch.isp.stages import BACKENDS as ISP_BACKENDS

@@ -59,7 +59,7 @@ import numpy as np
 from repro_torch.configs.base import (EncodingConfig, FleetConfig,
                                       ISPConfig, SNNConfig,
                                       SupervisorConfig)
-from repro_torch.core.npu import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.kernels import tune
 from repro_torch.serve.cognitive_engine import (PerceptionRequest,
                                                 PerceptionResult)

@@ -40,7 +40,9 @@ def test_every_module_imports_without_jax_or_repro():
               "models.lm", "serve.engine", "launch.serve",
               "kernels.flash_attention", "serve.fleet", "serve.faults",
               "serve.supervisor", "serve.scheduler",
-              "distributed.fault_tolerance"):
+              "distributed.fault_tolerance", "data.synthetic",
+              "checkpoint.manager", "train.trainer", "train.detector",
+              "launch.train", "device"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -110,6 +112,36 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy(tree)
     assert params_from_numpy(tree, device="cpu")["w"].device.type == "cpu"
+
+
+def test_data_layer_imports_no_model():
+    """The scene generator sits below the model: importing it loads
+    neither the NPU nor the training modules."""
+    code = ("import sys, repro_torch.data.synthetic\n"
+            "print(sorted(n for n in sys.modules if n.startswith(\n"
+            "    ('repro_torch.core.npu', 'repro_torch.core.train',\n"
+            "     'repro_torch.train'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_training_entry_points_default_to_cuda():
+    from repro_torch.configs.registry import TRAIN_CONFIGS
+    from repro_torch.data.synthetic import make_scene_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.detector import train_detector
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_scene_batch(gen, batch=1, height=32, width=32, time_steps=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_detector(TRAIN_CONFIGS["detector_smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--reduced", "--steps", "1"])
 
 
 @pytest.mark.parametrize("name", ["fused", "hdr_fused"])
