@@ -271,6 +271,26 @@ Phases (any failure raises and exits non-zero):
              full width on the four archs, the kernel backend's logits
              within 1e-4 of the plain backend's, its launches counted;
              one "detector" line;
+5d. data parallelism — the fleet (full-width spiking-YOLO, batch 8,
+             "cuda" encoding, ISP "cuda" and "fused", untuned route) on
+             an explicit two-entry mesh [cuda:0, cuda:0]: one tick's
+             launches twice the one-device fleet's, 128 requests through
+             it and the one-device fleet in turns, each within 1e-5 of
+             the one-device fleet's, step p50/p99 of both; then 2 ranks
+             spawned on the card (torch.multiprocessing, gloo with CUDA
+             tensors: NCCL refuses two ranks on one device):
+             TRAIN_CONFIGS["detector"] on "cuda" at batch 8, the
+             data-parallel step's loss within 1e-5 and its gradients'
+             relative L2 within 1e-2 of the one-process step's, two
+             steps' losses within 1e-5, every rank's state bit-equal,
+             host ms a step beside one process's; the manual
+             data-parallel step (int8 over "pod") finite, its first
+             step within 1e-5 of a one-process replay, ranks bit-equal;
+             the pipeline ring within 1e-5 (or why gloo did not run it);
+             with 2+ cards the same on NCCL ranks and the fleet on
+             mesh="auto", on one card a line saying they did not run;
+             each figure a line with the card's name and power limit;
+             one "dist" line;
 6. LM      — after the SNN engines' memory is released: full-width
              qwen2-7b (28 layers, bf16, random weights from a CUDA
              generator seeded 0; parameter count and bytes resident
@@ -371,6 +391,11 @@ result line.
 builds only the NPU kernels and runs phase 5c alone; one JSON line, no
 result line.
 
+    python3 chip_smoke.py --dist-phase
+
+builds only the NPU, encoding and ISP kernels and runs phase 5d alone;
+one JSON line, no result line.
+
     python3 chip_smoke.py --flash-phase
 
 builds only flash_attention and runs it alone at one qwen2-7b prefill
@@ -385,6 +410,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -525,6 +551,23 @@ TRAIN_ROUTE_KERNELS = {
 # examples/train_detector.py:56-83 on the reduced config, the step it
 # resumes from, the full-width run's horizon and loss bar, the
 # classification head's bar (kernel vs plain backend, full width)
+# phase 5d (data parallelism): rounds of REQUESTS requests through the
+# mesh fleet and the one-device fleet in turns; the training checks' steps
+# and bars (the fleet's as E2E_TOL's; a replay of the same kernels on the
+# same rows within 1e-5; the detector's DP step against the one-process
+# step: the loss, the gradients' relative L2 and every state leaf after
+# DIST_STEPS steps within 1e-5, the bars of tests/_torch_distributed_main.py)
+DIST_ROUNDS = 8
+DIST_STEPS = 2
+E2E_DIST_TOL = 1e-5
+DIST_LOSS_RTOL = 1e-5
+DIST_GRAD_RTOL = 1e-5
+DIST_STATE_TOL = 1e-5
+DIST_REPLAY_TOL = 1e-5
+# gloo's TCP transport breaking the connection when its point-to-point
+# calls are handed CUDA tensors: the sender's writev of device memory
+# fails, its peer sees the connection close
+GLOO_CUDA_P2P_ERRORS = ("Bad address", "Connection closed by peer")
 GATE_LOSS_RATIO = 0.5
 GATE_AP_BEFORE_MAX = 0.05
 GATE_AP_AFTER_MIN = 0.15
@@ -2916,16 +2959,16 @@ def bank_event_check(core, bank, req, enc_cfg):
     from repro_torch.serve.transport import stage_request, validate_request
     bank.wait_copied()
     torch.cuda._sleep(int(HARVEST_SLEEP_S * SPIN_CYCLES_PER_S))
-    before = bank.buffer.numpy().copy()
-    views = core.upload(bank)
-    ev = bank._copied
+    sub, = bank.shards                  # one device: one shard
+    before = sub.buffer.numpy().copy()
+    (voxels, *_), = core.upload(bank)
+    ev = sub._copied
     pending = not ev.query()
     stage_request(bank, 0, req, validate_request(req, 2), enc_cfg)
     done = ev.query()
     torch.cuda.synchronize()
-    dev_bytes = views[0].untyped_storage()
-    copied = torch.empty(0, dtype=torch.uint8, device=views[0].device).set_(
-        dev_bytes).cpu().numpy()[:before.size]
+    copied = torch.empty(0, dtype=torch.uint8, device=voxels.device).set_(
+        voxels.untyped_storage()).cpu().numpy()[:before.size]
     return pending, done, bool(np.array_equal(copied, before))
 
 
@@ -2943,7 +2986,8 @@ def fleet_requests(cfg):
 
 def fleet_phase(params, cfg, dev, card, table):
     """The serving fleet (``repro_torch.serve.fleet.FleetEngine``) on
-    full-width spiking-YOLO at batch 8 with the all-kernel configs
+    full-width spiking-YOLO at batch 8 on one card (``mesh=None``: phase
+    5d runs the sharded fleet) with the all-kernel configs
     (ENCODING_CONFIGS["cuda"], ISP_CONFIGS["cuda"]), rung 0 on the swept
     launch table ``table``: the one-tick-only harvest and the pinned-bank
     rule on rung 0's core; the ladder's two kernel rungs on one staged
@@ -2986,14 +3030,15 @@ def fleet_phase(params, cfg, dev, card, table):
     sup = dataclasses.replace(SUPERVISOR_CONFIGS["supervisor"], prewarm=True)
     with tune.pinned(table):
         fleet = FleetEngine(params, cfg, fleet_cfg=FleetConfig(batch=BATCH),
-                            supervisor_cfg=sup, **kw)
+                            mesh=None, supervisor_cfg=sup, **kw)
         ref = CognitiveEngine(params, cfg, batch=BATCH, **kw)
     plain = EngineCore(params, dataclasses.replace(cfg, backend="torch"),
                        **kw)
     check(fleet.ladder_names == ["cuda_fused", "cuda"],
           f"fleet ladder {fleet.ladder_names}: a card's rungs are kernel "
           f"routes only")
-    check(all(b.buffer.is_pinned() for b in fleet.buffers.banks),
+    check(all(s.buffer.is_pinned() for b in fleet.buffers.banks
+              for s in b.shards),
           "fleet: the staging banks are not pinned")
     tick_kernels = dict(event_voxel=1, demosaic=1, nlm=1)
     per_tick = [dict(npu_launches_per_tick(
@@ -3113,6 +3158,7 @@ def fleet_phase(params, cfg, dev, card, table):
     plan = FaultPlan.from_config(FAULT_CONFIGS["chaos"], CHAOS_TICKS, BATCH)
     with tune.pinned(table):
         chaos = FleetEngine(params, cfg, fleet_cfg=FleetConfig(batch=BATCH),
+                            mesh=None,
                             supervisor_cfg=SUPERVISOR_CONFIGS["soak"],
                             fault_plan=plan, **kw)
     submitted, rid, bad_tick = [], 0, -1
@@ -4536,7 +4582,7 @@ def gate_run(dev, fails, log):
     diff = _first_diff(rep.state, resumed)
     cfg = rep.snn_cfg
     opt_cfg, sched = DT._recipe(tc)
-    scene = DT.make_data_fn(tc, cfg, dev)(0)
+    scene = DT.make_data_fn(tc, cfg, device=dev)(0)
     repeat = step_repeatable(DT.make_detector_train_step(cfg, opt_cfg, sched),
                              rep.state, scene)
     out = {"config": tc.name, "steps": tc.steps, "batch": tc.batch,
@@ -4646,7 +4692,7 @@ def full_width_run(dev, fails, log):
     cfg = rep.snn_cfg
     opt_cfg, sched = DT._recipe(tc)
     step = DT.make_detector_train_step(cfg, opt_cfg, sched)
-    data = DT.make_data_fn(tc, cfg, dev)
+    data = DT.make_data_fn(tc, cfg, device=dev)
     scene = data(0)
     torch.cuda.synchronize()
     build.reset_launches()
@@ -4763,6 +4809,392 @@ def detector_phase(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5d: data parallelism
+# ---------------------------------------------------------------------------
+
+def dist_fleet_check(params, cfg, dev, card, mesh, label):
+    """The fleet on ``mesh`` against the one-device fleet, full-width
+    spiking-YOLO at batch BATCH on ENCODING_CONFIGS["cuda"] and each of
+    ISP_CONFIGS["cuda"] and ["fused"], untuned (per-op) route: one
+    staged tick's launches (the mesh's: the one-device count times its
+    shards), then DIST_ROUNDS rounds of REQUESTS requests through both
+    engines in turns, every request within E2E_DIST_TOL of the
+    one-device fleet's, the step p50/p99 of each."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import FleetConfig
+    from repro_torch.configs.registry import ENCODING_CONFIGS, ISP_CONFIGS
+    from repro_torch.kernels import build, tune
+    from repro_torch.serve.cognitive_engine import PerceptionRequest
+    from repro_torch.serve.fleet import FleetEngine
+    from repro_torch.serve.scheduler import RequestStatus
+    from repro_torch.serve.transport import stage_request, validate_request
+
+    reqs = fleet_requests(cfg)
+    report = {}
+    for isp in ("cuda", "fused"):
+        kw = dict(isp_cfg=ISP_CONFIGS[isp], enc_cfg=ENCODING_CONFIGS["cuda"],
+                  device=dev, fleet_cfg=FleetConfig(batch=BATCH))
+        with tune.off():
+            engines = {"one": FleetEngine(params, cfg, mesh=None, **kw),
+                       "mesh": FleetEngine(params, cfg, mesh=mesh, **kw)}
+        shards = engines["mesh"].core.n_devices
+        check(shards > 1, f"dist fleet {label}: {shards} shards")
+        check(all(s.buffer.is_pinned() for b in
+                  engines["mesh"].buffers.banks for s in b.shards),
+              f"dist fleet {label}: a shard's staging bank is not pinned")
+        counts = {}
+        for name, f in engines.items():
+            bank = f._bank()
+            for i, r in enumerate(reqs[:BATCH]):
+                stage_request(bank, i, r, validate_request(r, 2),
+                              f.core.enc_cfg)
+            f.core.tick(bank)                       # warm-up
+            torch.cuda.synchronize()
+            build.reset_launches()                  # counts to 0 ...
+            f.core.tick(bank)
+            torch.cuda.synchronize()
+            counts[name] = {k: v for k, v in build.LAUNCHES.items() if v}
+        want = {k: shards * v for k, v in counts["one"].items()}
+        check(counts["one"] and counts["mesh"] == want,
+              f"dist fleet {label} {isp}: launches a tick {counts['mesh']}, "
+              f"want {want}")
+        steps = {name: [] for name in engines}
+        results = {name: {} for name in engines}
+        for rnd in range(DIST_ROUNDS):
+            order = list(engines.items())
+            if rnd % 2:
+                order.reverse()
+            base = REQUESTS * (rnd % (FLEET_REQUESTS // REQUESTS))
+            for name, f in order:
+                subs = [f.submit(PerceptionRequest(
+                    rid=rnd * 1000 + r.rid, voxels=r.voxels, bayer=r.bayer,
+                    events=r.events)) for r in reqs[base:base + REQUESTS]]
+                while len(f.queue) or f._inflight is not None:
+                    f.step()
+                    steps[name].append(f.last_tick_s * 1e3)
+                torch.cuda.synchronize()
+                check(all(s.status is RequestStatus.DONE for s in subs),
+                      f"dist fleet {label} {isp} {name}: statuses "
+                      f"{[s.status.value for s in subs]}")
+                results[name].update({s.rid: s.request.result for s in subs})
+        diff = {fld: max(float(np.abs(
+            np.asarray(getattr(results["mesh"][rid], fld))
+            - np.asarray(getattr(results["one"][rid], fld))).max())
+            for rid in results["one"]) for fld in ("raw_pred", "control",
+                                                   "rgb")}
+        check(all(v <= E2E_DIST_TOL for v in diff.values()),
+              f"dist fleet {label} {isp}: max|mesh - one device| {diff}")
+
+        def pct(xs, p):
+            xs = sorted(xs)
+            return xs[min(len(xs) - 1, int(p * len(xs)))]
+        row = {"shards": shards, "devices": [str(d) for d in mesh.devices],
+               "launches_a_tick": counts["mesh"],
+               "launches_a_tick_one_device": counts["one"],
+               "max_abs_diff_to_one_device": diff,
+               "requests": DIST_ROUNDS * REQUESTS,
+               **{f"step_{p}_ms{'' if n == 'mesh' else '_one_device'}":
+                  pct(steps[n], q) for n in engines
+                  for p, q in (("p50", 0.5), ("p99", 0.99))},
+               "steps": len(steps["mesh"]),
+               "steps_one_device": len(steps["one"])}
+        report[isp] = row
+        print(f"  dist fleet {label} ISP {isp} ({card}): launches a tick "
+              f"{counts['mesh']} (one device {counts['one']})")
+        print(f"  dist fleet {label} ISP {isp} ({card}): step p50 "
+              f"{row['step_p50_ms']:.3f} ms p99 {row['step_p99_ms']:.3f} ms "
+              f"over {row['steps']} steps; one device p50 "
+              f"{row['step_p50_ms_one_device']:.3f} ms p99 "
+              f"{row['step_p99_ms_one_device']:.3f} ms over "
+              f"{row['steps_one_device']} steps (in turns)")
+        print(f"  dist fleet {label} ISP {isp} ({card}): "
+              f"{row['requests']} requests each, max|mesh - one device| "
+              f"{diff}")
+        del engines
+    return report
+
+
+def _flat(tree):
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    return torch.cat([x.detach().float().reshape(-1)
+                      for _, x in tree_leaves(tree)])
+
+
+def dist_rank_checks(rank, world, backend, dev):
+    """One rank's half of the training checks (collective: every rank
+    runs every step).  Returns rank 0's report, None elsewhere."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import TRAIN_CONFIGS
+    from repro_torch.core.train import detection_loss, value_and_grad
+    from repro_torch.distributed.compress import (
+        dequantize_int8, make_manual_dp_train_step, quantize_int8)
+    from repro_torch.distributed.pipeline_parallel import pipeline_forward
+    from repro_torch.distributed.sharding import (MeshAxes, from_mesh,
+                                                  maybe_all_gather,
+                                                  rank_mesh, tree_map)
+    from repro_torch.kernels import build, tune
+    from repro_torch.optim.adamw import (adamw_init, adamw_update,
+                                         tree_leaves, tree_unflatten)
+    from repro_torch.train import detector as DT
+
+    comm = torch.device("cpu") if backend == "gloo" else dev
+
+    def gather(x, group):
+        return maybe_all_gather(x.detach().float().reshape(1, -1).to(comm),
+                                group, 0).cpu()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    lead = rank == 0
+    report = {"world": world, "backend": backend}
+    with tune.off():
+        tc = dc.replace(TRAIN_CONFIGS["detector"], backend="cuda",
+                        batch=BATCH)
+        cfg = DT.resolve_snn_config(tc)
+        opt, sched = DT._recipe(tc)
+        mesh = rank_mesh((world,), ("data",))
+        pods = rank_mesh((world, 1), ("pod", "data"))
+        ax = from_mesh(mesh)
+        group = mesh.group("data")
+        init = DT.init_detector_state(torch.Generator().manual_seed(
+            tc.seed), cfg, opt, dev)
+        glob = DT.make_data_fn(tc, cfg, device=dev)
+
+        # the detector's data-parallel step
+        state = DT.replicate_state(init, ax)
+        data = DT.make_data_fn(tc, cfg, ax, dev)
+        (loss_dp, _, grads_dp), _ = timed(lambda: DT.data_parallel_grads(
+            state.params, data(0), cfg, ax))
+        step = DT.make_detector_train_step(cfg, opt, sched, ax)
+        build.reset_launches()
+        losses, ms = [], []
+        for s in range(DIST_STEPS):
+            scene = data(s)
+            (state, m), dt = timed(lambda: step(state, scene))
+            losses.append(float(m["loss"]))
+            ms.append(dt)
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        every = gather(_flat(state), group)
+        if lead:
+            ref_loss, _, ref_grads = value_and_grad(detection_loss,
+                                                    init.params, glob(0), cfg)
+            g, r = _flat(grads_dp), _flat(ref_grads)
+            one = DT.make_detector_train_step(cfg, opt, sched)
+            rstate, ref_losses, ref_ms = init, [], []
+            for s in range(DIST_STEPS):
+                scene = glob(s)
+                (rstate, m), dt = timed(lambda: one(rstate, scene))
+                ref_losses.append(float(m["loss"]))
+                ref_ms.append(dt)
+            rel = [abs(a - b) / abs(b) for a, b in zip(
+                [float(loss_dp)] + losses, [float(ref_loss)] + ref_losses)]
+            report["detector"] = {
+                "losses": losses, "losses_one_process": ref_losses,
+                "max_loss_rel_diff": max(rel),
+                "grad_rel_l2": float((g - r).norm() / r.norm()),
+                "ranks_bit_equal": all(torch.equal(every[i], every[0])
+                                       for i in range(world)),
+                "state_max_abs_diff_to_one_process": float(
+                    (every[0] - _flat(rstate).cpu()).abs().max()),
+                "host_ms_a_step": ms, "host_ms_a_step_one_process": ref_ms,
+                "launches_rank0": launches}
+
+        # the manual data-parallel step, int8 over "pod"
+        pax = MeshAxes(pods, dp=("pod", "data"))
+
+        def loss_fn(p, scene):
+            return detection_loss(p, scene, cfg)
+
+        def update(p, gr, o):
+            return adamw_update(p, gr, o, opt)
+        mstep = make_manual_dp_train_step(loss_fn, pax, update)
+        p, o = init.params, adamw_init(init.params, opt)
+        ef = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.bfloat16,
+                                            device=dev), p)
+        mlosses, first = [], None
+        for s in range(DIST_STEPS):
+            scene = glob(s)
+            p, o, ef, m = mstep(p, o, ef, scene)
+            mlosses.append(float(m["loss"]))
+            if first is None:
+                first = p
+        every = gather(_flat(first), pods.group(("pod", "data")))
+        if lead:
+            scene = glob(0)
+            rows = BATCH // world
+            shard_g, shard_l = [], []
+            for k in range(world):
+                sl, _, sg = value_and_grad(detection_loss, init.params,
+                                           tree_map(lambda x: x[k * rows:(
+                                               k + 1) * rows], scene), cfg)
+                shard_g.append([x for _, x in tree_leaves(sg)])
+                shard_l.append(float(sl))
+            grads = []
+            for leaves in zip(*shard_g):
+                deq = [dequantize_int8(*quantize_int8(x), x.shape)
+                       for x in leaves]
+                grads.append(sum(deq) / world)
+            want, _, _ = adamw_update(init.params, tree_unflatten(
+                init.params, grads), adamw_init(init.params, opt), opt)
+            report["manual_dp"] = {
+                "losses": mlosses, "finite": bool(np.isfinite(mlosses).all()),
+                "loss_replay_rel_diff": abs(mlosses[0] - np.mean(shard_l))
+                / abs(np.mean(shard_l)),
+                "step1_max_abs_diff_to_replay": float(
+                    (every[0] - _flat(want).cpu()).abs().max()),
+                "ranks_bit_equal": all(torch.equal(every[i], every[0])
+                                       for i in range(world))}
+
+    # the pipeline ring on the card's tensors
+    rng = np.random.default_rng(0)
+    S, M, d = world, 8, 16
+    Ws = torch.from_numpy(rng.normal(0, 0.3, (S, d, d)).astype(
+        np.float32)).to(dev)
+    x = torch.from_numpy(rng.normal(0, 1, (M, 2, d)).astype(np.float32)).to(
+        dev)
+    try:
+        y = pipeline_forward(lambda q, h: torch.tanh(h @ q["w"]),
+                             {"w": Ws}, x, group)
+        ref = x
+        for s in range(S):
+            ref = torch.tanh(ref @ Ws[s])
+        pipe = {"max_abs_err": float((y - ref).abs().max())}
+    except RuntimeError as e:
+        why = str(e).splitlines()[0] if str(e) else ""
+        if not gloo_refused_cuda(backend, why):
+            raise
+        print(f"  dist pipeline rank {rank}: {backend} refused CUDA "
+              f"tensors in batch_isend_irecv: {why}", flush=True)
+        pipe = {"not_run": f"{backend} refused CUDA tensors in "
+                           f"batch_isend_irecv: {why}"}
+    report["pipeline"] = pipe
+    return report if lead else None
+
+
+def gloo_refused_cuda(backend, why):
+    """True when ``why`` (an error's first line) is gloo's TCP transport
+    failing on CUDA tensors: nothing else may turn the pipeline's card
+    check into "not run"."""
+    return (backend == "gloo" and "gloo/transport" in why
+            and any(e in why for e in GLOO_CUDA_P2P_ERRORS))
+
+
+def dist_worker(rank, world, backend, store, out, devices):
+    """A spawned rank of the training checks: the card ``devices[rank]``,
+    the process group through the file store ``store``; rank 0 writes its
+    report as JSON to ``out``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", devices[rank])
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        report = dist_rank_checks(rank, world, backend, dev)
+        if report is not None:
+            Path(out).write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_train_check(card, devices, backend, label):
+    """Spawn ``len(devices)`` ranks (``torch.multiprocessing``) and hold
+    their report: the detector's data-parallel step within
+    DIST_LOSS_RTOL (loss) and DIST_GRAD_RTOL (gradients' relative L2)
+    of the one-process step on the same route, its state after
+    DIST_STEPS steps within DIST_STATE_TOL of the one-process state,
+    every rank's state bit-equal; the manual data-parallel step finite, its first step
+    within DIST_REPLAY_TOL of a one-process replay, ranks bit-equal; the
+    pipeline ring within 1e-5, or why it did not run."""
+    import tempfile
+    import torch.multiprocessing as mp
+    world = len(devices)
+    tmp = Path(tempfile.mkdtemp(prefix="dist-", dir=ROOT / "build"))
+    out = tmp / "report.json"
+    t0 = time.perf_counter()
+    mp.spawn(dist_worker, args=(world, backend, str(tmp / "store"),
+                                str(out), list(devices)),
+             nprocs=world, join=True)
+    wall = time.perf_counter() - t0
+    rep = json.loads(out.read_text())
+    shutil.rmtree(tmp, ignore_errors=True)
+    det, man, pipe = rep["detector"], rep["manual_dp"], rep["pipeline"]
+    print(f"  dist detector step {label} ({card}): losses {det['losses']} "
+          f"(one process {det['losses_one_process']}), max loss rel diff "
+          f"{det['max_loss_rel_diff']:.3g}, gradients' rel L2 "
+          f"{det['grad_rel_l2']:.3g}, ranks bit-equal "
+          f"{det['ranks_bit_equal']}, state vs one process "
+          f"{det['state_max_abs_diff_to_one_process']:.3g}")
+    print(f"  dist detector step {label} ({card}): host ms a step "
+          f"{[round(v, 3) for v in det['host_ms_a_step']]} (one process "
+          f"{[round(v, 3) for v in det['host_ms_a_step_one_process']]}); "
+          f"rank 0's launches over {DIST_STEPS} steps "
+          f"{det['launches_rank0']}")
+    print(f"  dist manual-DP step {label} ({card}): losses {man['losses']}, "
+          f"step 1 vs replay {man['step1_max_abs_diff_to_replay']:.3g}, "
+          f"loss vs replay {man['loss_replay_rel_diff']:.3g}, ranks "
+          f"bit-equal {man['ranks_bit_equal']}")
+    print(f"  dist pipeline {label} ({card}): {pipe}")
+    print(f"  dist ranks {label} ({card}): {world} ranks, {wall:.1f} s "
+          f"with start-up")
+    check(det["max_loss_rel_diff"] <= DIST_LOSS_RTOL
+          and det["grad_rel_l2"] <= DIST_GRAD_RTOL
+          and det["state_max_abs_diff_to_one_process"] <= DIST_STATE_TOL
+          and det["ranks_bit_equal"],
+          f"dist detector step {label}: {det}")
+    check(man["finite"] and man["ranks_bit_equal"]
+          and man["step1_max_abs_diff_to_replay"] <= DIST_REPLAY_TOL
+          and man["loss_replay_rel_diff"] <= DIST_LOSS_RTOL,
+          f"dist manual-DP step {label}: {man}")
+    check("not_run" in pipe or pipe["max_abs_err"] <= 1e-5,
+          f"dist pipeline {label}: {pipe}")
+    rep["wall_s"] = wall
+    return rep
+
+
+def dist_phase(params, cfg, dev, card):
+    """Phase 5d: data parallelism on the card.  The fleet on an explicit
+    two-entry mesh [cuda:0, cuda:0] against the one-device fleet; the
+    detector's data-parallel step, the manual data-parallel step and the
+    pipeline ring on 2 ranks spawned on the one card over gloo with CUDA
+    tensors (NCCL refuses two ranks on one device); with 2+ cards the
+    same on real cards with NCCL, and the fleet on ``mesh="auto"``.
+    Returns the report (one "dist" line)."""
+    import torch
+    from repro_torch.distributed.sharding import local_mesh
+    report = {"card": card, "visible": torch.cuda.device_count()}
+    report["fleet_one_card"] = dist_fleet_check(
+        params, cfg, dev, card, local_mesh([dev, dev]), "[cuda:0, cuda:0]")
+    report["train_one_card"] = dist_train_check(card, [0, 0], "gloo",
+                                                "gloo x2 on cuda:0")
+    n = torch.cuda.device_count()
+    if n >= 2:
+        from repro_torch.launch.mesh import make_serving_mesh
+        report["fleet_cards"] = dist_fleet_check(
+            params, cfg, dev, card, make_serving_mesh(BATCH),
+            'mesh="auto"')
+        report["train_cards"] = dist_train_check(card, [0, 1], "nccl",
+                                                 "nccl on cuda:0, cuda:1")
+    else:
+        print(f"  dist on several cards ({card}): not run: "
+              f"{n} card visible (NCCL ranks and mesh=\"auto\" need 2+)")
+        report["several_cards"] = "not run: one card visible"
+    return report
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -4791,9 +5223,11 @@ def main() -> int:
     isp_pool_only = sys.argv[1:] == ["--isp-pool-phase"]
     train_only = sys.argv[1:] == ["--train-phase"]
     detector_only = sys.argv[1:] == ["--detector-phase"]
+    dist_only = sys.argv[1:] == ["--dist-phase"]
     if sys.argv[1:] and not kernel_archs and not flash_only \
             and not norm_only and not conv_lif_only and not segment_only \
-            and not isp_pool_only and not train_only and not detector_only:
+            and not isp_pool_only and not train_only and not detector_only \
+            and not dist_only:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -4813,6 +5247,8 @@ def main() -> int:
               "spike_dwconv", "max_pool"] if segment_only
              else ["isp_fused", "max_pool"] if isp_pool_only
              else list(NPU_KERNELS) if train_only or detector_only
+             else list(NPU_KERNELS) + ["event_voxel", "demosaic", "nlm",
+                                       "isp_fused"] if dist_only
              else list(build.SOURCES))
     build.build_all(built)
     print(f"[2/7] build: {time.perf_counter() - t0:.1f} s")
@@ -4833,6 +5269,12 @@ def main() -> int:
         return 0
     cfg = dataclasses.replace(SNN_ARCHS["spiking_yolo"], backend="cuda")
     params = init_npu(torch.Generator().manual_seed(0), cfg, device=dev)
+    if dist_only:
+        t0 = time.perf_counter()
+        report = dist_phase(params, cfg, dev, card)
+        print(f"  dist phase: {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"dist": report}))
+        return 0
     archs = {}
     for arch in NEW_ARCHS:
         acfg = dataclasses.replace(SNN_ARCHS[arch], backend="cuda")
@@ -4950,6 +5392,13 @@ def main() -> int:
     t_det = time.perf_counter()
     detector_report = detector_phase(dev, card)
     print(f"  detector phase: {time.perf_counter() - t_det:.1f} s")
+    print("[5d/7] data parallelism: the fleet on a two-entry mesh [cuda:0, "
+          "cuda:0] beside the one-device fleet; the detector's and the "
+          "manual data-parallel steps on 2 gloo ranks on the card; NCCL "
+          "and mesh=\"auto\" where 2+ cards are visible")
+    t_dist = time.perf_counter()
+    dist_report = dist_phase(params, cfg, dev, card)
+    print(f"  dist phase: {time.perf_counter() - t_dist:.1f} s")
 
     # release the SNN engines' memory before the 15 GB model
     import gc
@@ -4991,6 +5440,7 @@ def main() -> int:
                                 ("clean", "chaos", "harvest")}}))
     print(json.dumps({"train": train_report}))
     print(json.dumps({"detector": detector_report}))
+    print(json.dumps({"dist": dist_report}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

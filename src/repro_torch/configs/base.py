@@ -269,7 +269,8 @@ class TrainConfig:
     data order of an uninterrupted one.  ``eval_seed`` seeds the
     held-out eval scenes, a stream of its own (disjoint from the
     training stream by construction).  ``shard``: data-parallel over
-    the visible cards (the port trains on one card: no mesh)."""
+    the ranks of the process group, one a card (``torchrun``;
+    ``train.detector.make_train_mesh``)."""
     name: str = "detector"
     arch: str = "spiking_yolo"      # key into registry SNN_ARCHS
     backend: str = "torch"          # "torch" | "cuda" spiking-layer path
@@ -320,7 +321,7 @@ class FleetConfig:
     upload overlap tick N's compute (results then deliver one
     ``step()`` later: pipeline depth 2).
     ``shard``: partition the tick batch over a data mesh when more than
-    one device is visible (the port serves one card: no mesh)."""
+    one card is visible (``FleetEngine(mesh="auto")``)."""
     name: str = "fleet"
     batch: int = 8
     max_queue: int = 64

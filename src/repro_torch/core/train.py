@@ -45,10 +45,14 @@ def _voxels(scene: SceneBatch, cfg: SNNConfig) -> torch.Tensor:
                        height=cfg.height, width=cfg.width)
 
 
-def detection_loss(params, scene: SceneBatch, cfg: SNNConfig
+def detection_loss(params, scene: SceneBatch, cfg: SNNConfig, *,
+                   psum: Optional[Callable] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The YOLO loss of ``scene``; with ``psum`` (a sum over data-parallel
+    shards, ``yolo_loss``) this shard's share of the global batch's."""
     out = npu_forward(params, _voxels(scene, cfg), cfg)
-    loss, parts = yolo_loss(out.raw_pred, scene.boxes, scene.valid, cfg)
+    loss, parts = yolo_loss(out.raw_pred, scene.boxes, scene.valid, cfg,
+                            psum=psum)
     parts["sparsity"] = out.sparsity
     parts["tile_skip"] = out.tile_skip
     return loss, parts

@@ -7,7 +7,7 @@ The AP evaluation is numpy, as the reference's.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,22 +99,36 @@ def _assign_targets(gt_boxes, gt_valid, h: int, w: int, cfg: SNNConfig):
     return tgt, msk
 
 
-def yolo_loss(raw, gt_boxes, gt_valid, cfg: SNNConfig
+def yolo_loss(raw, gt_boxes, gt_valid, cfg: SNNConfig, *,
+              psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """raw [B, h, w, A, 5+nc]; gt_boxes [B, M, 5]; gt_valid [B, M] ->
-    (loss, {"xy", "wh", "obj", "cls"})."""
+    (loss, {"xy", "wh", "obj", "cls"}).
+
+    ``psum`` (data parallel: ``raw`` is one shard of the global batch)
+    sums a tensor over the shards.  The terms then divide this shard's
+    sums by the global batch's positives and anchors, so the shards'
+    losses, and their gradients, add up to the global batch's loss (the
+    reference's sharded ``jit`` computes that loss); a mean of per-shard
+    losses is not it once the shards hold different box counts."""
     B, h, w, A, _ = raw.shape
     tgt, msk = _assign_targets(gt_boxes, gt_valid, h, w, cfg)
     mf = msk.float()
-    npos = torch.clamp(mf.sum(), min=1.0)
+    obj_logit = raw[..., 4]
+    neg = (1 - mf) * F.softplus(obj_logit)
+    if psum is None:
+        npos = torch.clamp(mf.sum(), min=1.0)
+        neg_loss = neg.mean()
+    else:
+        npos = torch.clamp(psum(mf.sum()), min=1.0)
+        neg_loss = neg.sum() / psum(torch.tensor(
+            float(neg.numel()), device=raw.device))
 
     xy_pred = torch.sigmoid(raw[..., 0:2])
     xy_loss = (mf[..., None] * (xy_pred - tgt[..., 0:2]) ** 2).sum() / npos
     wh_loss = (mf[..., None] * (raw[..., 2:4] - tgt[..., 2:4]) ** 2).sum() \
         / npos
-    obj_logit = raw[..., 4]
-    obj_loss = ((1 - mf) * F.softplus(obj_logit)).mean() \
-        + (mf * F.softplus(-obj_logit)).sum() / npos
+    obj_loss = neg_loss + (mf * F.softplus(-obj_logit)).sum() / npos
     cls_logp = torch.log_softmax(raw[..., 5:], dim=-1)
     cls_loss = -(mf[..., None] * tgt[..., 5:] * cls_logp).sum() / npos
     return 5.0 * xy_loss + 5.0 * wh_loss + obj_loss + cls_loss, {

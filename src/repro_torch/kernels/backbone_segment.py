@@ -39,8 +39,8 @@ from repro_torch.core.lif import f32_decay
 from repro_torch.kernels.backbone_fuse import (MAX_FUSED_STRIDE, LayerSpec,
                                                conv_out_hw, layer_out_hw,
                                                out_channels)
-from repro_torch.kernels.build import (check_f32, check_launch, load,
-                                       stream_of)
+from repro_torch.kernels.build import (check_f32, check_launch, launch,
+                                       load)
 from repro_torch.kernels.lif_scan import norm_affine_lif_plain
 from repro_torch.kernels.spike_conv_lif import (BLOCK_RESERVE, CLASSES,
                                                 CLUSTERS, LDA, MAX_CLUSTER,
@@ -519,14 +519,15 @@ def segment_launch(x, flat, plan: SegmentPlan, *, gate: str, tau: float,
     c_dims = (ctypes.c_int * len(dims))(*dims)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     lib = load("backbone_segment", _SIG)
-    with torch.cuda.device(dev):
-        err = lib.backbone_segment_launch(
-            c_dims, c_ptrs, len(plan.layers), T, B, _GATE_CODES[gate],
-            f32_decay(tau), v_th, v_reset, eps, x.data_ptr(), out.data_ptr(),
-            act[0].data_ptr(), act[1].data_ptr(), plan.act_elems,
-            plan.cluster, plan.stages, plan.occupancy, stream_of(dev))
-    if err == _UNSCHEDULABLE:
-        raise RuntimeError(f"backbone_segment: the card cannot schedule a "
-                           f"cluster of {plan.cluster} blocks")
-    check_launch("backbone_segment", err)
+
+    def check(name, err):
+        if err == _UNSCHEDULABLE:
+            raise RuntimeError(f"backbone_segment: the card cannot schedule "
+                               f"a cluster of {plan.cluster} blocks")
+        check_launch(name, err)
+    launch("backbone_segment", dev, lib.backbone_segment_launch,
+           c_dims, c_ptrs, len(plan.layers), T, B, _GATE_CODES[gate],
+           f32_decay(tau), v_th, v_reset, eps, x.data_ptr(), out.data_ptr(),
+           act[0].data_ptr(), act[1].data_ptr(), plan.act_elems, plan.cluster,
+           plan.stages, plan.occupancy, check=check)
     return out

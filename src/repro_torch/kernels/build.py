@@ -11,9 +11,10 @@ starts one ``nvcc`` per source, all at once, and waits for every one.
 Nothing here runs at import: the CPU tests import every module of the
 port, and only a launch on a CUDA tensor builds anything.
 
-``LAUNCHES`` counts kernel launches by name.  Each wrapper adds one
-right after its kernel launched, and nowhere else, so a run can show
-that the main path went through every kernel.
+``LAUNCHES`` counts kernel launches by name.  Each wrapper launches
+through ``launch``, which enters its tensors' device, and adds one right
+after its kernel launched, and nowhere else, so a run can show that the
+main path went through every kernel.
 """
 from __future__ import annotations
 
@@ -179,3 +180,17 @@ def check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
     LAUNCHES[name] += 1
+
+
+def launch(name: str, dev: torch.device, fn, *args,
+           check=check_launch) -> None:
+    """Every wrapper's one launch path: the C launch function ``fn`` of
+    kernel ``name`` called with ``args`` and, last, ``dev``'s current
+    stream, under ``torch.cuda.device(dev)``, then ``check(name, err)``
+    (which raises on an error and counts the launch).  A launch through
+    ``ctypes`` runs on the current CUDA device, not the tensors': without
+    the guard a kernel called from another card's thread of work would
+    launch on that card with ``dev``'s pointers."""
+    with torch.cuda.device(dev):
+        err = fn(*args, stream_of(dev))
+    check(name, err)

@@ -13,8 +13,7 @@ import ctypes
 import torch
 
 from repro_torch.isp.demosaic import demosaic_mhc
-from repro_torch.kernels.build import (check_f32, check_launch, load,
-                                       stream_of)
+from repro_torch.kernels.build import check_f32, launch, load
 from repro_torch.kernels.isp_fused import demosaic_tile_smem, stencil_plan
 
 # raw, out, B H W, th tw threads smem, stream
@@ -37,10 +36,7 @@ def demosaic(raw: torch.Tensor) -> torch.Tensor:
         return out
     plan = stencil_plan("demosaic", B, H, W, 1)
     lib = load("demosaic", _SIG)
-    with torch.cuda.device(dev):
-        err = lib.demosaic_launch(raw.data_ptr(), out.data_ptr(), B, H, W,
-                                  plan.th, plan.tw, plan.threads,
-                                  demosaic_tile_smem(plan.th, plan.tw),
-                                  stream_of(dev))
-    check_launch("demosaic", err)
+    launch("demosaic", dev, lib.demosaic_launch,
+           raw.data_ptr(), out.data_ptr(), B, H, W, plan.th, plan.tw,
+           plan.threads, demosaic_tile_smem(plan.th, plan.tw))
     return out

@@ -21,8 +21,7 @@ import torch
 
 from repro_torch.core.encoding import (EventStream, check_oob,
                                        events_to_voxel_batch, resolve_mode)
-from repro_torch.kernels.build import (check_launch, load, refuse_grad,
-                                       stream_of)
+from repro_torch.kernels.build import launch, load, refuse_grad
 
 # t x y p valid from_events vox out, B N T H W, window, mode drop,
 # cluster cells clusters share threads smem, stream
@@ -129,14 +128,11 @@ def _launch(evs, out, *, select, time_steps, height, width, window, mode,
     flags, vox = (0, 0) if select is None else (select[0].data_ptr(),
                                                 select[1].data_ptr())
     lib = load("event_voxel", _SIG)
-    with torch.cuda.device(dev):
-        err = lib.event_voxel_launch(
-            *(a.data_ptr() for a in evs), flags, vox, out.data_ptr(), B, N,
-            time_steps, height, width, window, _MODE_IDS[mode],
-            int(oob == "drop"), plan.cluster, plan.cells,
-            plan.clusters, event_share(N, plan.cluster), plan.threads,
-            plan.smem, stream_of(dev))
-    check_launch("event_voxel", err)
+    launch("event_voxel", dev, lib.event_voxel_launch,
+           *(a.data_ptr() for a in evs), flags, vox, out.data_ptr(), B, N,
+           time_steps, height, width, window, _MODE_IDS[mode], int(oob ==
+           "drop"), plan.cluster, plan.cells, plan.clusters, event_share(N,
+           plan.cluster), plan.threads, plan.smem)
     return out
 
 

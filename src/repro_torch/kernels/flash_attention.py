@@ -26,8 +26,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.build import (LAUNCHES, check_launch, load,
-                                      refuse_grad, stream_of)
+from repro_torch.kernels.build import (LAUNCHES, check_launch, launch, load,
+                                       refuse_grad)
 
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
@@ -228,12 +228,10 @@ def _launch(q, k, v, *, causal: bool, q_offset: int, window: int,
     if out.numel() == 0:
         return out
     lib = load("flash_attention", _SIG)
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, Hq, Hkv, d, dv, int(causal), int(q_offset),
-            int(window), d ** -0.5, DESIGNS[design], stream_of(q.device))
-    _check_launch("flash_attention", err)
+    launch("flash_attention", q.device, lib.flash_attention_launch,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk,
+           Hq, Hkv, d, dv, int(causal), int(q_offset), int(window), d ** -0.5,
+           DESIGNS[design], check=_check_launch)
     LAUNCHES[f"flash_attention:{design}"] += 1
     return out
 
@@ -281,10 +279,7 @@ def wgmma_products(q, k, v):
                     device=q.device)
     o = torch.empty((WGMMA_BN, dv), dtype=torch.float32, device=q.device)
     lib = load("flash_attention", _PROBE_SIG)
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_probe(q.data_ptr(), k.data_ptr(),
-                                        v.data_ptr(), s.data_ptr(),
-                                        o.data_ptr(), d, dv,
-                                        stream_of(q.device))
-    _check_launch("flash_attention_probe", err)
+    launch("flash_attention_probe", q.device, lib.flash_attention_probe,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(),
+           o.data_ptr(), d, dv, check=_check_launch)
     return s, o

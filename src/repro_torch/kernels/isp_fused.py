@@ -45,8 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.isp.gamma import LUT_SIZE
-from repro_torch.kernels.build import (check_f32, check_launch, load,
-                                       stream_of)
+from repro_torch.kernels.build import check_f32, launch, load
 
 BH, BW = 128, 128   # the plain versions' default tile
 
@@ -457,13 +456,10 @@ def pointwise_segment(x, pvec, stats, consts=(), *,
     P, S = pvec.shape[1], stats.shape[1]
     plan = pointwise_plan(B, H, W, C, P, S)
     lib = load("isp_fused", _POINTWISE_SIG)
-    with torch.cuda.device(dev):
-        err = lib.isp_pointwise_launch(
-            x.data_ptr(), out.data_ptr(), pvec.data_ptr(), stats.data_ptr(),
-            flat.data_ptr(), gamma_offset(chain), B, H, W, C, P, S, n, ops,
-            poffs, coffs, plan.tile, plan.threads, plan.smem,
-            stream_of(dev))
-    check_launch("isp_pointwise_segment", err)
+    launch("isp_pointwise_segment", dev, lib.isp_pointwise_launch,
+           x.data_ptr(), out.data_ptr(), pvec.data_ptr(), stats.data_ptr(),
+           flat.data_ptr(), gamma_offset(chain), B, H, W, C, P, S, n, ops,
+           poffs, coffs, plan.tile, plan.threads, plan.smem)
     return out
 
 
@@ -498,13 +494,11 @@ def stencil_segment(x, pvec, stats, consts=(), *,
     flat = _flat_consts(consts, dev)
     plan = stencil_plan(wstep.op, B, H, W, c_in)
     lib = load("isp_fused", _STENCIL_SIG)
-    with torch.cuda.device(dev):
-        err = lib.isp_stencil_launch(
-            x.data_ptr(), out.data_ptr(), pvec.data_ptr(), stats.data_ptr(),
-            flat.data_ptr(), gamma_offset(prologue),
-            B, H, W, c_in, c_out, pvec.shape[1], stats.shape[1], n, ops,
-            poffs, coffs, DEVICE_OPS.index(wstep.op) + 1, wstep.offset,
-            starts[wstep.c_offset], radius, int(pad == "zero"), plan.th,
-            plan.tw, plan.threads, plan.smem, stream_of(dev))
-    check_launch("isp_stencil_segment", err)
+    launch("isp_stencil_segment", dev, lib.isp_stencil_launch,
+           x.data_ptr(), out.data_ptr(), pvec.data_ptr(), stats.data_ptr(),
+           flat.data_ptr(), gamma_offset(prologue), B, H, W, c_in, c_out,
+           pvec.shape[1], stats.shape[1], n, ops, poffs, coffs,
+           DEVICE_OPS.index(wstep.op) + 1, wstep.offset,
+           starts[wstep.c_offset], radius, int(pad == "zero"), plan.th,
+           plan.tw, plan.threads, plan.smem)
     return out

@@ -18,8 +18,7 @@ import torch
 
 from repro_torch.core.layers import NORM_EPS, instance_norm_affine
 from repro_torch.core.lif import f32_decay, lif_scan as lif_scan_plain
-from repro_torch.kernels.build import (check_f32, check_launch, load,
-                                       stream_of)
+from repro_torch.kernels.build import check_f32, launch, load
 from repro_torch.launch.roofline import SMS
 
 # cur, bias (or null), out, T, N, C, decay, v_th, v_reset, stream
@@ -60,12 +59,10 @@ def lif_scan(currents: torch.Tensor, *, bias=None, tau: float = 2.0,
     if N == 0 or T == 0:
         return out
     lib = load("lif_scan", _LIF_SIG)
-    with torch.cuda.device(dev):
-        err = lib.lif_scan_launch(
-            currents.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), T, N, 0 if bias is None else bias.shape[0],
-            f32_decay(tau), v_th, v_reset, stream_of(dev))
-    check_launch("lif_scan", err)
+    launch("lif_scan", dev, lib.lif_scan_launch,
+           currents.data_ptr(), None if bias is None else bias.data_ptr(),
+           out.data_ptr(), T, N, 0 if bias is None else bias.shape[0],
+           f32_decay(tau), v_th, v_reset)
     return out
 
 
@@ -278,12 +275,10 @@ def _norm_launch(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     out = torch.empty_like(y)
     lib = load("norm_affine_lif", _NORM_SIG)
     T, B, HW, C = y.shape
-    with torch.cuda.device(dev):
-        err = lib.norm_affine_lif_launch(
-            y.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            T, B, HW, C, plan.ct, plan.cluster, plan.vec, int(plan.staged),
-            plan.threads, f32_decay(tau), v_th, v_reset, eps, stream_of(dev))
-    check_launch("norm_affine_lif", err)
+    launch("norm_affine_lif", dev, lib.norm_affine_lif_launch,
+           y.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), T,
+           B, HW, C, plan.ct, plan.cluster, plan.vec, int(plan.staged),
+           plan.threads, f32_decay(tau), v_th, v_reset, eps)
     return out
 
 

@@ -16,8 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.core.layers import fold, pool_slices
-from repro_torch.kernels.build import (check_launch, load, refuse_grad,
-                                       stream_of)
+from repro_torch.kernels.build import launch, load, refuse_grad
 
 _SIG = ("max_pool_launch",
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 2
@@ -88,9 +87,7 @@ def max_pool(x: torch.Tensor, *, window: int = 2,
     if out.numel() == 0:
         return out
     lib = load("max_pool", _SIG)
-    with torch.cuda.device(dev):
-        err = lib.max_pool_launch(x5.data_ptr(), out.data_ptr(), T, B, H, W,
-                                  C, img_t, img_b, window, int(gated),
-                                  stream_of(dev))
-    check_launch("max_pool", err)
+    launch("max_pool", dev, lib.max_pool_launch,
+           x5.data_ptr(), out.data_ptr(), T, B, H, W, C, img_t, img_b, window,
+           int(gated))
     return out

@@ -16,8 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.isp.nlm import nlm_denoise
-from repro_torch.kernels.build import (check_f32, check_launch, load,
-                                       refuse_grad, stream_of)
+from repro_torch.kernels.build import check_f32, launch, load, refuse_grad
 from repro_torch.kernels.isp_fused import nlm_tile_smem, stencil_plan
 
 # img, strength, its stride, a scalar strength, out, B H W C, th tw
@@ -67,13 +66,8 @@ def nlm(img: torch.Tensor, strength=0.1) -> torch.Tensor:
         return out.reshape(img.shape)
     plan = stencil_plan("nlm", B, H, W, C)
     lib = load("nlm", _SIG)
-    with torch.cuda.device(dev):
-        err = lib.nlm_launch(chans.data_ptr(),
-                             None if s is None else s.data_ptr(), stride,
-                             value,
-                             out.data_ptr(), B, H, W, C, plan.th, plan.tw,
-                             plan.threads,
-                             nlm_tile_smem(C, plan.th, plan.tw),
-                             stream_of(dev))
-    check_launch("nlm", err)
+    launch("nlm", dev, lib.nlm_launch,
+           chans.data_ptr(), None if s is None else s.data_ptr(), stride,
+           value, out.data_ptr(), B, H, W, C, plan.th, plan.tw, plan.threads,
+           nlm_tile_smem(C, plan.th, plan.tw))
     return out.reshape(img.shape)

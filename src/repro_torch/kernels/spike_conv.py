@@ -31,8 +31,7 @@ import torch.nn.functional as F
 from repro_torch.core.layers import _same_pads, spike_conv as conv_plain
 from repro_torch.kernels.blocks import (CANONICAL_K_BLOCK, DEFAULT_BK,
                                         DEFAULT_BM)
-from repro_torch.kernels.build import (check_f32, check_launch, load,
-                                       stream_of)
+from repro_torch.kernels.build import check_f32, launch, load
 from repro_torch.launch.roofline import SMS
 
 GATES = ("mask", "inline", "none")
@@ -133,11 +132,9 @@ def spike_conv(xf: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         flags = torch.empty((t.kblocks, t.row_tiles, t.col_tiles),
                             dtype=torch.int32, device=dev)
     lib = load("spike_conv", _SIG)
-    with torch.cuda.device(dev):
-        err = lib.spike_conv_launch(
-            xf.data_ptr(), w.data_ptr(), out.data_ptr(),
-            *(0 if a is None else a.data_ptr() for a in (ws, flags)),
-            Nimg, H, W, C, Ho, Wo, kh, kw, stride, pad_h, pad_w, N, t.bn,
-            t.kgroup if t.split else 0, GATES.index(gate), stream_of(dev))
-    check_launch("spike_conv", err)
+    launch("spike_conv", dev, lib.spike_conv_launch,
+           xf.data_ptr(), w.data_ptr(), out.data_ptr(), *(0 if a is None else
+           a.data_ptr() for a in (ws, flags)), Nimg, H, W, C, Ho, Wo, kh, kw,
+           stride, pad_h, pad_w, N, t.bn, t.kgroup if t.split else 0,
+           GATES.index(gate))
     return out

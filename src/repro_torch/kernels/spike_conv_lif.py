@@ -30,8 +30,7 @@ from repro_torch.core.layers import (NORM_EPS, _same_pads,
                                      spike_conv as conv_plain)
 from repro_torch.core.lif import f32_decay
 from repro_torch.kernels.blocks import CANONICAL_K_BLOCK
-from repro_torch.kernels.build import (check_f32, check_launch, load,
-                                       stream_of)
+from repro_torch.kernels.build import check_f32, launch, load
 from repro_torch.kernels.lif_scan import norm_affine_lif_plain
 
 _SIG = ("spike_conv_lif_launch",
@@ -331,12 +330,9 @@ def _conv_lif_launch(xf, w, scale, bias, plan: ConvLifPlan, *, stride: int,
     out = torch.empty((plan.T, plan.B, Ho * Wo, N), dtype=torch.float32,
                       device=dev)
     lib = load("spike_conv_lif", _SIG)
-    with torch.cuda.device(dev):
-        err = lib.spike_conv_lif_launch(
-            xf.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), plan.T, plan.B, H, W, C, Ho, Wo, kh, kw, stride,
-            pad_h, pad_w, N, plan.ct, plan.cluster, plan.bm, plan.stages,
-            plan.vec, GATES.index(gate), f32_decay(tau), v_th, v_reset, eps,
-            stream_of(dev))
-    check_launch("spike_conv_lif", err)
+    launch("spike_conv_lif", dev, lib.spike_conv_lif_launch,
+           xf.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+           out.data_ptr(), plan.T, plan.B, H, W, C, Ho, Wo, kh, kw, stride,
+           pad_h, pad_w, N, plan.ct, plan.cluster, plan.bm, plan.stages,
+           plan.vec, GATES.index(gate), f32_decay(tau), v_th, v_reset, eps)
     return out

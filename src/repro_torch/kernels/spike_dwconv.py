@@ -21,8 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.layers import _same_pads, spike_conv
 from repro_torch.kernels.blocks import DEFAULT_BM
-from repro_torch.kernels.build import (check_f32, check_launch, load,
-                                       stream_of)
+from repro_torch.kernels.build import check_f32, launch, load
 from repro_torch.launch.roofline import SMS
 
 MAX_THREADS = 256           # threads a block at most (csrc kMaxThreads)
@@ -185,12 +184,10 @@ def _launch(xf: torch.Tensor, w: torch.Tensor, stride: int,
         raise ValueError(f"spike_dwconv: {t.blocks} blocks pass the int "
                          f"range")
     lib = load("spike_dwconv", _SIG)
-    with torch.cuda.device(dev):
-        err = lib.spike_dwconv_launch(
-            xf.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, C, t.Ho,
-            t.Wo, kh, kw, stride, t.pad_h, t.pad_w, t.vec, t.cg, t.bh, t.bw,
-            t.col_threads, stream_of(dev))
-    check_launch("spike_dwconv", err)
+    launch("spike_dwconv", dev, lib.spike_dwconv_launch,
+           xf.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, C, t.Ho, t.Wo,
+           kh, kw, stride, t.pad_h, t.pad_w, t.vec, t.cg, t.bh, t.bw,
+           t.col_threads)
     return out
 
 

@@ -12,8 +12,7 @@ import ctypes
 import torch
 
 from repro_torch.core.layers import blocked_matmul
-from repro_torch.kernels.build import (check_f32, check_launch, load,
-                                       stream_of)
+from repro_torch.kernels.build import check_f32, launch, load
 
 PATHS = ("small", "tiled")
 SMALL_MAX_OUTPUTS = 4096    # M * N at most on the small path
@@ -56,11 +55,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, path: str) -> torch.Tensor:
         return out.zero_()
     rows = small_rows(M, N) if path == "small" else 0
     lib = load("spike_matmul", _SIG)
-    with torch.cuda.device(x.device):
-        err = lib.spike_matmul_launch(x.data_ptr(), w.data_ptr(),
-                                      out.data_ptr(), M, K, N, rows,
-                                      stream_of(x.device))
-    check_launch("spike_matmul", err)
+    launch("spike_matmul", x.device, lib.spike_matmul_launch,
+           x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, rows)
     return out
 
 

@@ -1,1 +1,2 @@
-"""Launch-side models of the card (``roofline``)."""
+"""Launch-side models of the card (``roofline``), meshes (``mesh``) and
+the entry points (``serve``, ``train``)."""

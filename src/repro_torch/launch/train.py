@@ -2,6 +2,13 @@
 
   python -m repro_torch.launch.train --arch spiking_yolo --steps 100 \\
       [--reduced] [--ckpt-dir DIR] [--device cuda|cpu]
+  torchrun --nproc-per-node N -m repro_torch.launch.train ...
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1 in the environment) each rank
+joins the launcher's process group, NCCL on the card ``LOCAL_RANK``
+(gloo with ``--device cpu``), and ``train_detector`` trains
+data-parallel over the ranks (``--batch`` is the global batch; the
+world must divide it); rank 0 logs and writes the checkpoints.
 
 The SNN archs (``spiking_*``) train the detector on synthetic scenes
 through :func:`repro_torch.train.detector.train_detector` (``train_snn``),
@@ -18,6 +25,9 @@ parameters and the batch of step ``s`` drawn from seed 0; a run with
 from __future__ import annotations
 
 import argparse
+import os
+
+import torch
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import TrainConfig
@@ -36,22 +46,47 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.arch in registry.SNN_ARCHS:
-        return train_snn(args)
+        device = join_process_group(args.device)
+        try:
+            return train_snn(args, device)
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
     raise NotImplementedError(
         f"{args.arch}: LM training is not ported (ROADMAP.md queue 1 "
         f"item 5.5); the SNN archs are {sorted(registry.SNN_ARCHS)}")
 
 
-def train_snn(args):
+def join_process_group(device):
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1): join its process group
+    (``env://``), NCCL with one card a rank (``LOCAL_RANK``), gloo on the
+    CPU; returns this rank's device.  Otherwise ``device`` as it is."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return device
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    torch.distributed.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo")
+    return device
+
+
+def train_snn(args, device=None):
     """The detector on ``args.arch`` (reduced dims with ``--reduced``),
-    trained and evaluated by ``train_detector``.  Returns the final
-    state."""
+    trained and evaluated by ``train_detector`` on ``device`` (default
+    ``args.device``).  Returns the final state; rank 0 prints the last
+    step."""
     tc = TrainConfig(name="launch", arch=args.arch, backend="cuda",
                      reduced=args.reduced, steps=args.steps,
                      batch=args.batch, ckpt_every=args.ckpt_every)
-    report = train_detector(tc, ckpt_dir=args.ckpt_dir, device=args.device)
+    report = train_detector(tc, ckpt_dir=args.ckpt_dir,
+                            device=device if device is not None
+                            else args.device)
     final = report.history[-1]
-    print(f"final: step={final['step']} loss={final['loss']:.4f}")
+    if not (torch.distributed.is_initialized()
+            and torch.distributed.get_rank()):
+        print(f"final: step={final['step']} loss={final['loss']:.4f}")
     return report.state
 
 

@@ -1,5 +1,5 @@
 """EngineCore: the device-side half of the cognitive serving tick, the
-counterpart of ``repro.serve.engine_core`` on one device.
+counterpart of ``repro.serve.engine_core``.
 
 A tick is ``encode -> npu_forward -> control -> ISP`` run eagerly on the
 engine's device, each stage on the backend its config names
@@ -9,7 +9,7 @@ the tick's kernels on the current stream, and ONE device->host copy of
 every output packed into a single flat tensor.  The engine snapshots the
 launch table once at construction (``tune_table``) and runs every tick
 pinned to it, so a later ``tune.set_table`` never reaches a built
-engine.  One device, no mesh; CUDA graphs for the tick are later work.
+engine.  CUDA graphs for the tick are later work.
 
 The tick splits as the reference's does: ``upload`` (the bank's copy,
 non-blocking, an event recorded behind it on the bank), ``dispatch``
@@ -24,9 +24,25 @@ last view of it is gone.  On the CPU, ``dispatch`` computes the tick
 and ``fetch`` unpacks it.  ``torch.profiler`` spans ``tick.upload``,
 ``tick.encode``, ``tick.npu``, ``tick.isp`` and ``tick.fetch`` mark the
 stages (``python -m repro_torch.profile_tick`` reads them).
+
+The tick is data-parallel over the engine's devices, as the reference's
+sharded executable is: one device without a mesh, every device of a
+serving ``mesh`` (a ``("data",)`` mesh over local devices,
+``launch.mesh.make_serving_mesh``).  Each device holds a parameter copy
+and is one shard of the bank (``bank.shards``: a ``ShardedBank`` holds
+one ``StagingBank`` per device, a ``StagingBank`` is its own only
+shard), whose rows go up in one copy of their own.  Each shard's tick is
+dispatched under ``torch.cuda.device`` of its device (its current
+stream; every kernel wrapper launches on its tensors' device,
+``kernels/build.py`` ``launch``) and copied back behind an event of its
+own, and ``fetch`` waits on every shard's event and reassembles each
+output in slot order; the batch-reduced scalars (``sparsity``,
+``tile_skip``, ``layer_rates``) are the shards' mean, as the one-device
+tick's mean over equal shards.  One shard's outputs are its own.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -42,6 +58,12 @@ from repro_torch.isp.pipeline import (control_vector_pipeline_batch,
 from repro_torch.isp.stages import BACKENDS as ISP_BACKENDS
 from repro_torch.isp.stages import control_to_stage_params
 from repro_torch.kernels import tune
+
+
+def on_device(dev: torch.device):
+    """``torch.cuda.device(dev)`` on a card, nothing on the CPU."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
 
 
 class Dispatched:
@@ -66,7 +88,8 @@ class EngineCore:
                  control_order: str = "pipeline",
                  enc_cfg: Optional[EncodingConfig] = None,
                  collect_sparsity: bool = False, device="cuda",
-                 tune_table="active"):
+                 tune_table="active", mesh=None,
+                 batch: Optional[int] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.isp_cfg = isp_cfg if isp_cfg is not None else ISPConfig()
@@ -90,17 +113,37 @@ class EngineCore:
         if control_order not in ("pipeline", "legacy"):
             raise ValueError(f"control_order must be 'pipeline' or "
                              f"'legacy', got {control_order!r}")
-        self.perm = None
+        perm = None
         if control_order == "legacy":
-            p = legacy_control_permutation(self.isp_cfg.stages)
-            if cfg.control_dim <= max(p):
+            perm = legacy_control_permutation(self.isp_cfg.stages)
+            if cfg.control_dim <= max(perm):
                 raise ValueError(
                     f"NPU control_dim={cfg.control_dim} too narrow for "
-                    f"the legacy slot layout (needs > {max(p)})")
-            self.perm = torch.tensor(p, dtype=torch.int64,
-                                     device=self.device)
+                    f"the legacy slot layout (needs > {max(perm)})")
         self.collect_sparsity = bool(collect_sparsity)
-        self.params = params_to(npu_params, self.device)
+
+        # a parameter copy per device: the engine's device, or every
+        # device of the mesh's data axis
+        self.devices = [self.device]
+        if mesh is not None:
+            if mesh.axis_names != ("data",) or mesh.devices is None:
+                raise ValueError(f"a serving mesh is one ('data',) axis "
+                                 f"over local devices, got {mesh!r}")
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(f"mesh {mesh!r} is not on device="
+                                 f"{self.device.type!r}")
+            self.devices = list(mesh.devices)
+            self.device = self.devices[0]
+        self.n_devices = len(self.devices)
+        if batch is not None and batch % self.n_devices:
+            raise ValueError(
+                f"tick batch={batch} not divisible by the mesh's "
+                f"{self.n_devices} data-parallel devices")
+        self.replicas = [params_to(npu_params, d) for d in self.devices]
+        self.params = self.replicas[0]
+        self.perms = [None if perm is None else
+                      torch.tensor(perm, dtype=torch.int64, device=d)
+                      for d in self.devices]
         # The launch table every tick resolves through: "active" snapshots
         # the table active now (an empty one, the untuned defaults, when
         # none is), an explicit TuningTable pins that one (an empty table
@@ -111,7 +154,6 @@ class EngineCore:
                                  f"TuningTable or None, got {tune_table!r}")
             tune_table = tune.active_table() or tune.TuningTable()
         self.tune_table: Optional[tune.TuningTable] = tune_table
-        self.n_devices = 1
 
     # ------------------------------------------------------------------
     def _encode(self, events, voxels, from_events):
@@ -125,17 +167,19 @@ class EngineCore:
                             oob=e.oob)
 
     @torch.no_grad()
-    def step(self, voxels, bayer, events, from_events):
-        """The tick on device tensors -> (NPUOutput, rgb [B, H, W, 3],
-        stage params {stage: {param: [B]}})."""
+    def step(self, voxels, bayer, events, from_events, shard: int = 0):
+        """The tick on device tensors of ``shard`` (its device's parameter
+        copy) -> (NPUOutput, rgb [B, H, W, 3], stage params {stage:
+        {param: [B]}})."""
+        perm = self.perms[shard]
         with tune.pinned(self.tune_table):
             if self.cfg.in_channels == 2:
                 with record_function("tick.encode"):
                     voxels = self._encode(events, voxels, from_events)
             with record_function("tick.npu"):
-                out = npu_forward(self.params, voxels, self.cfg,
+                out = npu_forward(self.replicas[shard], voxels, self.cfg,
                                   collect_sparsity=self.collect_sparsity)
-            ctrl = out.control[:, self.perm] if self.perm is not None \
+            ctrl = out.control[:, perm] if perm is not None \
                 else out.control[:, :self.isp_cfg.control_dim]
             with record_function("tick.isp"):
                 rgb = control_vector_pipeline_batch(bayer, ctrl,
@@ -143,26 +187,39 @@ class EngineCore:
                 sp = control_to_stage_params(ctrl, self.isp_cfg.stages)
         return out, rgb, sp
 
-    def upload(self, bank):
-        """ONE host->device copy of the whole staging bank; returns the
-        device views ``(voxels, bayer, events, from_events)``.  On a card
-        the copy is non-blocking from the pinned bank, and the event
-        recorded behind it on the bank keeps the bank from being
-        re-packed before the copy lands."""
+    def upload(self, bank) -> List[tuple]:
+        """ONE host->device copy of each shard's bank to its device;
+        returns each shard's device views ``(voxels, bayer, events,
+        from_events)``.  On a card the copy is non-blocking from the
+        pinned bank, and the event recorded behind it on the bank keeps
+        the bank from being re-packed before the copy lands."""
         with record_function("tick.upload"):
-            dev = bank.buffer.to(self.device, non_blocking=True, copy=True)
-            if self.device.type == "cuda":
-                ev = torch.cuda.Event()
-                ev.record()
-                bank.mark_copied(ev)
-            return bank.device_views(dev)
+            views = []
+            for sub, dev in zip(bank.shards, self.devices, strict=True):
+                with on_device(dev):
+                    buf = sub.buffer.to(dev, non_blocking=True, copy=True)
+                    if dev.type == "cuda":
+                        ev = torch.cuda.Event()
+                        ev.record()
+                        sub.mark_copied(ev)
+                views.append(sub.device_views(buf))
+            return views
 
-    def dispatch(self, dev_views) -> Dispatched:
-        """Launch the tick on uploaded device views and return at once:
-        its outputs are packed into one flat float32 tensor and, on a
-        card, copied without blocking into a pinned host buffer of this
-        tick's own, an event recorded behind the copy."""
-        out, rgb, sp = self.step(*dev_views)
+    def dispatch(self, dev_views) -> List[Dispatched]:
+        """Launch each shard's tick on its uploaded device views, under
+        its device, and return at once: its outputs are packed into one
+        flat float32 tensor and, on a card, copied without blocking into
+        a pinned host buffer of this tick's own, an event recorded behind
+        the copy."""
+        out = []
+        for i, (views, dev) in enumerate(zip(dev_views, self.devices,
+                                             strict=True)):
+            with on_device(dev):
+                out.append(self._dispatch(i, views))
+        return out
+
+    def _dispatch(self, shard: int, dev_views) -> Dispatched:
+        out, rgb, sp = self.step(*dev_views, shard=shard)
         leaves: Dict[tuple, torch.Tensor] = {
             ("raw_pred",): out.raw_pred, ("control",): out.control,
             ("sparsity",): out.sparsity, ("tile_skip",): out.tile_skip,
@@ -177,7 +234,7 @@ class EngineCore:
         with record_function("tick.fetch"):
             flat = torch.cat([t.reshape(-1).to(torch.float32)
                               for t in leaves.values()])
-            if self.device.type != "cuda":
+            if flat.device.type != "cuda":
                 return Dispatched(flat, None, layout, stages,
                                   out.layer_rates is not None)
             host = torch.empty(flat.numel(), dtype=torch.float32,
@@ -188,9 +245,14 @@ class EngineCore:
         return Dispatched(host, event, layout, stages,
                           out.layer_rates is not None)
 
-    def fetch(self, outputs: Dispatched):
+    def fetch(self, outputs: List[Dispatched]):
         """The dispatched tick's outputs as numpy arrays of the step's
-        structure: waits on the tick's own copy event alone."""
+        structure: waits on each shard's own copy event alone (never on a
+        tick dispatched after it), the shards reassembled in slot
+        order."""
+        return _gather([self._fetch(o) for o in outputs])
+
+    def _fetch(self, outputs: Dispatched):
         with record_function("tick.fetch"):
             if outputs.event is not None:
                 outputs.event.synchronize()
@@ -214,3 +276,32 @@ class EngineCore:
     def tick(self, bank):
         """upload -> dispatch -> fetch in one call."""
         return self.fetch(self.dispatch(self.upload(bank)))
+
+
+def _gather(parts):
+    """Shards' ``(NPUOutput, rgb, stage params)`` -> the whole tick's:
+    every batch leaf concatenated in slot order, the batch-reduced
+    scalars averaged (equal shards: the mean over the whole batch).  One
+    shard's are the tick's."""
+    if len(parts) == 1:
+        return parts[0]
+
+    def cat(xs):
+        return np.concatenate(xs, axis=0)
+
+    def mean(xs):
+        return np.float32(np.mean(np.asarray(xs, np.float32)))
+
+    npus = [p[0] for p in parts]
+    rates = None
+    if npus[0].layer_rates is not None:
+        rates = {k: mean([n.layer_rates[k] for n in npus])
+                 for k in npus[0].layer_rates}
+    npu = NPUOutput(raw_pred=cat([n.raw_pred for n in npus]),
+                    control=cat([n.control for n in npus]),
+                    sparsity=mean([n.sparsity for n in npus]),
+                    tile_skip=mean([n.tile_skip for n in npus]),
+                    layer_rates=rates)
+    stage_params = {s: {k: cat([p[2][s][k] for p in parts]) for k in ps}
+                    for s, ps in parts[0][2].items()}
+    return npu, cat([p[1] for p in parts]), stage_params

@@ -150,9 +150,7 @@ class FaultInjector:
         tick = self._ticker.tick
         for ev in self._plan.events_at(tick):
             if ev.kind is FaultKind.CORRUPT_INPUT:
-                bank.wait_copied()
-                voxels = bank.voxels
-                voxels[:, ev.slot % voxels.shape[1]] = ev.value
+                bank.fill_voxels(ev.slot % bank.batch, ev.value)
                 self.n_injected += 1
         return self._core.upload(bank)
 

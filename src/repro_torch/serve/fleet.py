@@ -1,5 +1,6 @@
 """FleetEngine: continuously batched, self-healing serving of the
-cognitive tick on one card, the counterpart of ``repro.serve.fleet``.
+cognitive tick on one card or sharded over a host's cards, the
+counterpart of ``repro.serve.fleet``.
 
 It composes:
 
@@ -42,8 +43,14 @@ ticks move it: any other error of a tick (a kernel that fails to build
 or launch raises ``RuntimeError``) propagates out of ``step()``, so the
 ladder never hides a broken kernel.
 
-One card: ``mesh="auto"`` resolves to None, and an explicit mesh raises
-(sharded serving comes with the port's ``distributed`` package).
+``mesh="auto"`` shards each tick's slots over the largest count of
+visible cards that divides the batch (``launch.mesh.make_serving_mesh``;
+one card, ``FleetConfig.shard=False`` or ``device="cpu"``: no mesh); an
+explicit ``("data",)`` mesh over local devices is taken as it is (on the
+CPU a mesh of ``torch.device("cpu")`` entries), and every ladder rung
+builds its core on it.  One process keeps the one admission queue and
+supervisor; each shard's tick runs on its own device
+(``serve.engine_core``), its slots staged in a ``ShardedBank``.
 Every delivered ``PerceptionResult`` carries a
 ``scheduler.RequestTelemetry``; ``stats()`` reduces them to p50/p99/
 p99.9 latency and the availability envelope.
@@ -61,6 +68,7 @@ from repro_torch.configs.base import (EncodingConfig, FleetConfig,
                                       SupervisorConfig)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import tune
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.serve.cognitive_engine import (PerceptionRequest,
                                                 PerceptionResult)
 from repro_torch.serve.engine_core import EngineCore
@@ -69,7 +77,7 @@ from repro_torch.serve.faults import (FaultInjector, FaultPlan,
 from repro_torch.serve.scheduler import (AdmissionQueue, RequestStatus,
                                          ServeRequest)
 from repro_torch.serve.supervisor import FleetSupervisor
-from repro_torch.serve.transport import (DoubleBuffer, StagingBank,
+from repro_torch.serve.transport import (DoubleBuffer, ShardedBank,
                                          stage_request, validate_request)
 
 
@@ -104,8 +112,10 @@ class _Inflight:
 
 
 class FleetEngine:
-    """Continuous-batching front-end over the cognitive tick on one
-    device (``device``, default the card).  ``supervisor_cfg`` enables
+    """Continuous-batching front-end over the cognitive tick on
+    ``device`` (default the card), or on a ``("data",)`` serving
+    ``mesh`` of its type (``"auto"``: the visible cards that divide the
+    batch when ``FleetConfig.shard``).  ``supervisor_cfg`` enables
     self-healing; ``fault_plan`` wraps every ladder rung in a
     :class:`FaultInjector` (testing and chaos runs); ``fault_advance``
     sets how an injected stall manifests (default: sleep; tests advance
@@ -126,24 +136,23 @@ class FleetEngine:
                  device="cuda"):
         self.fleet_cfg = fleet_cfg if fleet_cfg is not None else FleetConfig()
         fc = self.fleet_cfg
-        if mesh == "auto":
-            mesh = None                 # one card
-        if mesh is not None:
-            raise NotImplementedError(
-                "FleetEngine serves one device: sharded serving over a "
-                "mesh waits for the port's distributed package (ROADMAP.md "
-                "queue 1 item 4)")
-        self.mesh = None
+        dev = resolve_device(device)
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh must be 'auto', None or a Mesh, "
+                                 f"got {mesh!r}")
+            mesh = (make_serving_mesh(fc.batch) if fc.shard
+                    and dev.type == "cuda" else None)
+        self.mesh = mesh
 
         def _core(core_cfg, tune_table):
             return EngineCore(
                 npu_params, core_cfg, isp_cfg, frame_hw=frame_hw,
                 control_order=control_order, enc_cfg=enc_cfg,
-                collect_sparsity=collect_sparsity, device=device,
-                tune_table=tune_table)
+                collect_sparsity=collect_sparsity, device=dev,
+                tune_table=tune_table, mesh=mesh, batch=fc.batch)
 
-        ladder = fleet_ladder(cfg, resolve_device(device).type,
-                              supervisor_cfg is not None)
+        ladder = fleet_ladder(cfg, dev.type, supervisor_cfg is not None)
         self.ladder_names = [name for name, _, _ in ladder]
         self.cores = [_core(c, t) for _, c, t in ladder]
         if fault_plan is not None:
@@ -178,9 +187,12 @@ class FleetEngine:
         if supervisor_cfg is not None and supervisor_cfg.prewarm:
             self._prewarm()
 
-    def _bank(self) -> StagingBank:
-        return StagingBank(self.cfg, self.batch, self.core.frame_hw,
+    def _bank(self) -> ShardedBank:
+        """A staging bank for one tick: one buffer per device of the core,
+        each holding that device's rows."""
+        return ShardedBank(self.cfg, self.batch, self.core.frame_hw,
                            self.core.enc_cfg.event_capacity,
+                           self.core.n_devices,
                            pin_memory=self.core.device.type == "cuda")
 
     # ------------------------------------------------------------------
@@ -270,7 +282,7 @@ class FleetEngine:
             sreq.attempts += 1
             packed.append((slot, sreq))
         for slot in range(len(packed), self.batch):
-            bank.from_events[slot] = False  # recycled slots stay inert
+            bank.set_inert(slot)            # recycled slots stay inert
 
         # dispatch the new tick before harvesting the old one: its
         # upload and launches are queued behind the old tick's

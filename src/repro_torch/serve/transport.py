@@ -7,6 +7,9 @@ A :class:`StagingBank` lives in ONE contiguous host byte buffer (pinned
 when the engine serves a GPU) with a numpy view per field, so a tick
 uploads the whole bank with one host->device copy and the device side
 takes its fields as views of that one copy (``StagingBank.device_views``).
+The fleet stages into a :class:`ShardedBank`: one such bank per device
+of its engine (one device without a serving mesh), each with that
+device's rows, so one copy per device.
 
 The pinned-bank rule: ``EngineCore.upload`` copies a pinned bank with
 ``non_blocking=True``, so the bank is not free when ``upload`` returns.
@@ -46,6 +49,7 @@ class StagingBank:
                  pin_memory: bool = False):
         H, W = frame_hw
         cap = event_capacity
+        self.batch = batch
         fields = [
             ("voxels", (cfg.time_steps, batch, cfg.height, cfg.width,
                         cfg.in_channels), np.float32),
@@ -74,6 +78,11 @@ class StagingBank:
                                   p=v["ev_p"], valid=v["ev_valid"])
         self.from_events = v["from_events"]
         self._copied = None         # the event behind the last upload
+
+    @property
+    def shards(self) -> Tuple["StagingBank", ...]:
+        """The banks a tick uploads, one per device: this one."""
+        return (self,)
 
     def mark_copied(self, event) -> None:
         """Record ``event`` (recorded behind this bank's host->device
@@ -105,6 +114,17 @@ class StagingBank:
         self.bayer[slot] = np.asarray(bayer, np.float32)
         self.from_events[slot] = True
 
+    def set_inert(self, slot: int) -> None:
+        """An unfilled slot rides the tick on its stale or zero voxels."""
+        self.wait_copied()
+        self.from_events[slot] = False
+
+    def fill_voxels(self, slot: int, value: float) -> None:
+        """Overwrite a slot's voxel window with ``value`` (fault
+        injection's corrupt input)."""
+        self.wait_copied()
+        self.voxels[:, slot] = value
+
     def device_views(self, dev_buffer: torch.Tensor):
         """Typed views ``(voxels, bayer, events, from_events)`` of a
         device copy of :attr:`buffer`."""
@@ -114,6 +134,51 @@ class StagingBank:
         events = EventStream(t=v["ev_t"], x=v["ev_x"], y=v["ev_y"],
                              p=v["ev_p"], valid=v["ev_valid"])
         return v["voxels"], v["bayer"], events, v["from_events"]
+
+
+class ShardedBank:
+    """A tick's slots split by rows over the engine's devices (one
+    without a serving mesh): one :class:`StagingBank` (its own
+    contiguous, pinned buffer) per shard,
+    slot ``s`` in shard ``s // (batch / shards)``, so each device's rows
+    go up in one host->device copy of its own.  Writers use the same
+    calls as on a :class:`StagingBank`; each waits for its shard's last
+    copy."""
+
+    def __init__(self, cfg: SNNConfig, batch: int,
+                 frame_hw: Tuple[int, int], event_capacity: int,
+                 n_shards: int, pin_memory: bool = False):
+        if batch % n_shards:
+            raise ValueError(f"tick batch={batch} does not split over "
+                             f"{n_shards} shards")
+        self.batch = batch
+        self.per = batch // n_shards
+        self.shards = tuple(StagingBank(cfg, self.per, frame_hw,
+                                        event_capacity, pin_memory)
+                            for _ in range(n_shards))
+
+    def _at(self, slot: int) -> Tuple[StagingBank, int]:
+        return self.shards[slot // self.per], slot % self.per
+
+    def stage_voxels(self, slot: int, voxels, bayer) -> None:
+        bank, j = self._at(slot)
+        bank.stage_voxels(j, voxels, bayer)
+
+    def stage_events(self, slot: int, ev: EventStream, bayer) -> None:
+        bank, j = self._at(slot)
+        bank.stage_events(j, ev, bayer)
+
+    def set_inert(self, slot: int) -> None:
+        bank, j = self._at(slot)
+        bank.set_inert(j)
+
+    def fill_voxels(self, slot: int, value: float) -> None:
+        bank, j = self._at(slot)
+        bank.fill_voxels(j, value)
+
+    def wait_copied(self) -> None:
+        for bank in self.shards:
+            bank.wait_copied()
 
 
 class DoubleBuffer:

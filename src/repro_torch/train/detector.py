@@ -15,14 +15,28 @@ by construction.  Eval decodes boxes (:func:`decode_boxes`) and reports
 dataset AP@IoU0.50 (:func:`average_precision`), the paper's §IV-C
 metric.
 
-Data-parallel training over several cards (the reference's
-``make_train_mesh``, ``shard_scene``, ``replicate_state``) is not
-ported: with one card ``tc.shard`` runs the local path, as the
-reference's one-device mesh does; with more cards visible it raises.
+Data parallelism (the reference's ``make_train_mesh``, ``shard_scene``,
+``replicate_state``): one rank per card (``torchrun``; gloo processes
+on the CPU), a ``("data",)`` mesh over the ranks of the process group
+(``distributed.sharding.rank_mesh``).  Every rank builds the *global*
+batch of step ``s`` and takes its rows, so the batch is the one-process
+batch by construction; the state is broadcast from rank 0 and stays
+bit-equal on every rank, since every rank applies the same summed
+gradients.  The step computes the reference's sharded loss, the global
+batch's: each rank divides its sums by the all-reduced positives and
+the global anchor count (``core.yolo.yolo_loss(psum=)``), and the
+gradients and metrics are summed over the ranks in one ``all_reduce``
+of a flat buffer, so ``grad_clip``'s global norm sees the one-process
+gradients.  Only rank 0 logs, evaluates and writes checkpoints.  A world
+that does not divide ``tc.batch`` raises (under ``torchrun`` the world
+is fixed at launch; the reference shrinks its mesh to a divisor); with
+several cards visible and no process group, ``tc.shard`` raises rather
+than train on one card.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, Iterable, List, NamedTuple, \
     Optional, Tuple
@@ -36,13 +50,18 @@ from repro_torch.configs.registry import get_snn_config, reduced_snn
 from repro_torch.core.encoding import voxel_batch
 from repro_torch.core.npu import init_npu, npu_forward
 from repro_torch.core.train import (detection_loss, init_snn_state,
-                                    make_snn_train_step)
+                                    make_snn_train_step, value_and_grad)
 from repro_torch.core.yolo import average_precision, decode_boxes
 from repro_torch.data.synthetic import (EVAL_STREAM, TRAIN_STREAM,
                                         SceneBatch, make_scene_batch,
                                         stream_generator)
 from repro_torch.device import resolve_device
-from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+from repro_torch.distributed.sharding import (Mesh, MeshAxes,
+                                              batch_sharding, from_mesh,
+                                              maybe_psum, rank_mesh,
+                                              replicated_sharding, tree_map)
+from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                     tree_leaves, tree_unflatten)
 from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.train.trainer import Trainer
 
@@ -65,26 +84,114 @@ def init_detector_state(gen: torch.Generator, cfg: SNNConfig,
 detector_loss = detection_loss
 
 
+# the metrics that are means over the batch: the ranks' values averaged
+# (equal shards); every other metric is a rank's share of the global sum
+_BATCH_MEANS = ("sparsity", "tile_skip")
+
+
+def data_parallel_grads(params, scene: SceneBatch, cfg: SNNConfig,
+                        ax: MeshAxes):
+    """(loss, parts, grads) of the global batch from this rank's shard
+    ``scene``: this shard's share of the global loss
+    (``detection_loss(psum=)``), then the loss, the parts and the
+    gradients summed over the data-parallel ranks in one ``all_reduce``
+    of a flat buffer (the batch means averaged).  Every rank returns the
+    same values."""
+    group = ax.mesh.group(ax.dp)
+    loss, parts, grads = value_and_grad(
+        functools.partial(detection_loss,
+                          psum=functools.partial(maybe_psum, group=group)),
+        params, scene, cfg)
+    leaves = [g for _, g in tree_leaves(grads)]
+    names = list(parts)
+    flat = torch.cat([g.reshape(-1) for g in leaves] + [torch.stack(
+        [loss] + [parts[k].to(loss.dtype) for k in names])])
+    flat = maybe_psum(flat, group)
+    sizes = [g.numel() for g in leaves]
+    *gs, scalars = torch.split(flat, sizes + [1 + len(names)])
+    grads = tree_unflatten(grads, [g.view_as(x) for g, x in zip(gs, leaves)])
+    parts = {k: scalars[1 + i] / ax.dp_size if k in _BATCH_MEANS
+             else scalars[1 + i] for i, k in enumerate(names)}
+    return scalars[0], parts, grads
+
+
 def make_detector_train_step(cfg: SNNConfig, opt_cfg: AdamWConfig,
-                             lr_schedule: Optional[Callable] = None):
+                             lr_schedule: Optional[Callable] = None,
+                             ax: MeshAxes = MeshAxes()):
     """(state, scene) -> (state, metrics): ``value_and_grad`` of
     :func:`detector_loss` then ``adamw_update`` under the schedule, the
-    steps of ``make_snn_train_step(mode="detect")``."""
-    inner = make_snn_train_step(cfg, opt_cfg, "detect", lr_schedule)
+    steps of ``make_snn_train_step(mode="detect")``.  With a mesh
+    (``ax``, over ranks) ``scene`` is this rank's shard
+    (:func:`shard_scene`) and the gradients are the global batch's
+    (:func:`data_parallel_grads`)."""
+    if ax.mesh is None:
+        inner = make_snn_train_step(cfg, opt_cfg, "detect", lr_schedule)
 
-    def step(state: DetectorTrainState, scene: SceneBatch):
-        new, metrics = inner(state, scene)
-        return DetectorTrainState(*new), metrics
+        def step(state: DetectorTrainState, scene: SceneBatch):
+            new, metrics = inner(state, scene)
+            return DetectorTrainState(*new), metrics
+        return step
 
-    return step
+    def dp_step(state: DetectorTrainState, scene: SceneBatch):
+        loss, parts, grads = data_parallel_grads(state.params, scene, cfg,
+                                                 ax)
+        params, opt, om = adamw_update(state.params, grads, state.opt,
+                                       opt_cfg, lr_schedule)
+        parts.update(om)
+        parts["loss"] = loss
+        return DetectorTrainState(params, opt, state.step + 1), parts
+
+    return dp_step
 
 
-def _check_one_device(tc: TrainConfig, device: torch.device) -> None:
-    if tc.shard and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "train_detector trains on one card: data-parallel training "
-            "over a mesh waits for the port's distributed package "
-            "(ROADMAP.md queue 1 item 4); pass shard=False")
+# ---------------------------------------------------------------------------
+# Data-parallel placement over a ("data",) mesh of ranks
+# ---------------------------------------------------------------------------
+
+def make_train_mesh(tc: TrainConfig, device="cuda") -> Optional[Mesh]:
+    """The ``("data",)`` mesh over the ranks of the process group when
+    ``tc.shard`` and the group holds more than one; ``None`` for one
+    process (callers take the local path).  Raises for a world that does
+    not divide ``tc.batch``, and, with no process group, for several
+    visible cards on ``device="cuda"``: start one rank per card with
+    ``torchrun`` instead of training on one."""
+    import torch.distributed as dist
+    if not tc.shard:
+        return None
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        if world == 1:
+            return None
+        if tc.batch % world:
+            raise ValueError(f"batch={tc.batch} does not split over the "
+                             f"{world} ranks of the process group")
+        return rank_mesh((world,), ("data",))
+    if torch.device(device).type == "cuda" \
+            and torch.cuda.device_count() > 1:
+        raise RuntimeError(
+            f"{torch.cuda.device_count()} cards are visible and no process "
+            f"group is up: start one rank per card (torchrun "
+            f"--nproc-per-node N -m repro_torch.launch.train ...), or pass "
+            f"shard=False to train on one card")
+    return None
+
+
+def shard_scene(scene: SceneBatch, ax: MeshAxes) -> SceneBatch:
+    """This rank's rows of every SceneBatch leaf (dim 0)."""
+    s = batch_sharding(ax)
+    if s is None:
+        return scene
+    return tree_map(s.place, scene)
+
+
+def replicate_state(state: DetectorTrainState,
+                    ax: MeshAxes) -> DetectorTrainState:
+    """The mesh's first rank's state on every rank (each leaf
+    broadcast), so all start bit-equal."""
+    s = replicated_sharding(ax)
+    if s is None:
+        return state
+    return tree_map(s.place, state)
 
 
 # ---------------------------------------------------------------------------
@@ -168,15 +275,18 @@ def resolve_snn_config(tc: TrainConfig) -> SNNConfig:
     return dataclasses.replace(get_snn_config(tc.arch), backend=tc.backend)
 
 
-def make_data_fn(tc: TrainConfig, cfg: SNNConfig, device="cuda"):
-    """Training batches on ``device``, deterministic in the step."""
+def make_data_fn(tc: TrainConfig, cfg: SNNConfig, ax: MeshAxes = MeshAxes(),
+                 device="cuda"):
+    """Training batches on ``device``, deterministic in the step: the
+    global batch, and on a mesh this rank's rows of it."""
     device = resolve_device(device)
 
     def data(step: int) -> SceneBatch:
-        return make_scene_batch(
+        return shard_scene(make_scene_batch(
             stream_generator(tc.seed, step, TRAIN_STREAM), batch=tc.batch,
             height=cfg.height, width=cfg.width, time_steps=cfg.time_steps,
-            max_boxes=tc.max_boxes, n_events=tc.n_events, device=device)
+            max_boxes=tc.max_boxes, n_events=tc.n_events, device=device),
+            ax)
 
     return data
 
@@ -190,35 +300,62 @@ def _recipe(tc: TrainConfig):
     return opt_cfg, schedule
 
 
+def _place(state, ax: MeshAxes, ckpt, lead: bool, log):
+    """-> (start step, state, checkpoint manager) of a run.  One process:
+    the trainer resumes by itself (start None).  On a mesh every rank
+    restores the newest checkpoint, rank 0's state is broadcast, and only
+    rank 0 keeps the manager to write."""
+    if ax.mesh is None:
+        return None, state, ckpt
+    log(f"[detector] data-parallel over {ax.dp_size} ranks "
+        f"(mesh axes {ax.mesh.axis_names})")
+    start = ckpt.latest_step() if ckpt is not None else None
+    if start is not None:
+        state = ckpt.restore(start, like=state)
+        log(f"[detector] resuming from step {start}")
+    return start or 0, replicate_state(state, ax), ckpt if lead else None
+
+
 def train_detector(tc: TrainConfig, *, ckpt_dir: Optional[str] = None,
                    log: Callable[[str], None] = print,
                    device="cuda") -> TrainReport:
     """Train per ``tc`` on ``device``; resume automatically from the
-    newest checkpoint in ``ckpt_dir`` (if any); return the report."""
+    newest checkpoint in ``ckpt_dir`` (if any); return the report.
+    Under a process group of more than one rank with ``tc.shard``, train
+    data-parallel (:func:`make_train_mesh`): every rank returns the
+    report, rank 0's with the held-out AP (NaN on the others)."""
     device = resolve_device(device)
-    _check_one_device(tc, device)
     cfg = resolve_snn_config(tc)
     opt_cfg, schedule = _recipe(tc)
+    ax = from_mesh(make_train_mesh(tc, device))
+    lead = ax.mesh is None or ax.mesh.rank == 0
+    if not lead:
+        def log(_msg):
+            return None
     state = init_detector_state(torch.Generator().manual_seed(tc.seed), cfg,
                                 opt_cfg, device)
-    step_fn = make_detector_train_step(cfg, opt_cfg, schedule)
-    eval_kw = dict(eval_seed=tc.eval_seed, batches=tc.eval_batches,
-                   batch=tc.eval_batch, max_boxes=tc.max_boxes,
-                   n_events=tc.n_events)
-    ap0, sp0 = evaluate_detector(state.params, cfg, **eval_kw)
-    log(f"[detector] untrained: AP@0.5={ap0:.4f} sparsity={sp0:.3f}")
-
     ckpt = None
     if ckpt_dir is not None:
         ckpt = CheckpointManager(ckpt_dir, keep=tc.keep_ckpts)
-    trainer = Trainer(step_fn, state, make_data_fn(tc, cfg, device),
+    start, state, ckpt = _place(state, ax, ckpt, lead, log)
+    step_fn = make_detector_train_step(cfg, opt_cfg, schedule, ax)
+    eval_kw = dict(eval_seed=tc.eval_seed, batches=tc.eval_batches,
+                   batch=tc.eval_batch, max_boxes=tc.max_boxes,
+                   n_events=tc.n_events)
+    ap0 = sp0 = ap1 = sp1 = float("nan")
+    if lead:
+        ap0, sp0 = evaluate_detector(state.params, cfg, **eval_kw)
+        log(f"[detector] untrained: AP@0.5={ap0:.4f} sparsity={sp0:.3f}")
+
+    trainer = Trainer(step_fn, state, make_data_fn(tc, cfg, ax, device),
                       ckpt=ckpt, ckpt_every=tc.ckpt_every,
                       log_every=tc.log_every, log_fn=log)
     t0 = time.perf_counter()
-    state = trainer.run(tc.steps)
+    state = trainer.run(tc.steps, start_step=start)
     wall = time.perf_counter() - t0
 
-    ap1, sp1 = evaluate_detector(state.params, cfg, **eval_kw)
+    if lead:
+        ap1, sp1 = evaluate_detector(state.params, cfg, **eval_kw)
     steady = [h["dt_s"] for h in trainer.history[1:]] or [wall]
     report = TrainReport(state=state, history=trainer.history,
                          ap_before=ap0, ap_after=ap1, sparsity=sp1,
@@ -239,17 +376,20 @@ def resume_from(tc: TrainConfig, ckpt_dir: str, *,
     and the step is deterministic, so the continued trajectory is the
     uninterrupted run's, bit for bit."""
     device = resolve_device(device)
-    _check_one_device(tc, device)
     cfg = resolve_snn_config(tc)
     opt_cfg, schedule = _recipe(tc)
+    ax = from_mesh(make_train_mesh(tc, device))
+    if ax.mesh is not None and ax.mesh.rank != 0:
+        def log(_msg):
+            return None
     template = init_detector_state(torch.Generator().manual_seed(tc.seed),
                                    cfg, opt_cfg, device)
     ckpt = CheckpointManager(ckpt_dir, keep=tc.keep_ckpts)
     at = at_step if at_step is not None else ckpt.latest_step()
     if at is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
-    state = ckpt.restore(at, like=template)
+    state = replicate_state(ckpt.restore(at, like=template), ax)
     log(f"[detector] resuming from step {at}")
-    trainer = Trainer(make_detector_train_step(cfg, opt_cfg, schedule),
-                      state, make_data_fn(tc, cfg, device), log_fn=log)
+    trainer = Trainer(make_detector_train_step(cfg, opt_cfg, schedule, ax),
+                      state, make_data_fn(tc, cfg, ax, device), log_fn=log)
     return trainer.run(tc.steps, start_step=at)

@@ -846,7 +846,7 @@ def test_harvest_waits_for_its_own_tick_only(dev):
     while an event behind the spin is pending, with A's own outputs."""
     fleet, reqs = _fleet_on_card(dev)
     banks = fleet.buffers.banks
-    assert all(b.buffer.is_pinned() for b in banks)
+    assert all(s.buffer.is_pinned() for b in banks for s in b.shards)
     _stage(fleet, banks[0], reqs[:2])
     _stage(fleet, banks[1], reqs[2:])
     pending, _, (out_a, rgb_a, _), (out_b, _, _) = \

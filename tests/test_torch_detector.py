@@ -20,8 +20,9 @@ JAX package's ``repro.train.detector``:
   where no spike flipped;
 - ``TRAIN_CONFIGS`` field by field against the reference's (backend
   names mapped); the launcher on the CPU through ``train_detector`` on
-  the kernel backend, as a module with a resume, an LM arch refused, a
-  mesh refused; the trainer's heartbeats.
+  the kernel backend, as a module with a resume, an LM arch refused,
+  several cards without a process group refused; the trainer's
+  heartbeats.
 """
 import dataclasses
 import functools
@@ -144,17 +145,19 @@ def test_train_detector_resume_bitexact(tmp_path):
 
 
 def test_train_detector_refuses_a_mesh(monkeypatch):
-    """With several cards visible and ``shard`` on, the run raises (the
-    sharded path is not ported); one card or ``shard=False`` trains."""
+    """With several cards visible, ``shard`` on and no process group, the
+    run refuses to train on one card and names torchrun; one card, the
+    CPU or ``shard=False`` is the local path (no mesh).  The data-parallel
+    run itself is in tests/test_torch_distributed.py."""
     tc = TRAIN_CONFIGS["detector_smoke"]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        det._check_one_device(tc, torch.device("cuda"))
-    det._check_one_device(dataclasses.replace(tc, shard=False),
-                          torch.device("cuda"))
-    det._check_one_device(tc, torch.device("cpu"))
+    with pytest.raises(RuntimeError, match="torchrun"):
+        det.make_train_mesh(tc, torch.device("cuda"))
+    assert det.make_train_mesh(dataclasses.replace(tc, shard=False),
+                               torch.device("cuda")) is None
+    assert det.make_train_mesh(tc, torch.device("cpu")) is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    det._check_one_device(tc, torch.device("cuda"))
+    assert det.make_train_mesh(tc, torch.device("cuda")) is None
 
 
 # ---------------------------------------------------------------------------

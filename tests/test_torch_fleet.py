@@ -4,12 +4,12 @@ shedding, ragged arrival, the double-buffered pipeline, telemetry and
 fleet-vs-CognitiveEngine parity; then what the port adds: the same
 requests against the JAX FleetEngine (``mesh=None``, jnp) on both SNN
 backends, ``dispatch`` then ``fetch`` against ``step``, a core's
-RuntimeError out of ``step()``, one card only (an explicit mesh raises),
+RuntimeError out of ``step()``, ``mesh="auto"`` as one device on the CPU,
 the hardened ``validate_request`` with the reference's messages, the
 pinned-bank rule, and the fleet configs against the reference's.
 
-The reference's two mesh tests are not mirrored: the port serves one
-card.  Tolerances: the JAX parity is tests/test_torch_engine.py's (NPU
+The reference's two mesh tests are mirrored on a mesh of CPU entries in
+tests/test_torch_fleet_mesh.py.  Tolerances: the JAX parity is tests/test_torch_engine.py's (NPU
 outputs 1e-4, rgb and stage params 1e-5); everything inside the port is
 held exact.
 """
@@ -31,6 +31,7 @@ from repro_torch import convert
 from repro_torch.configs import base, registry
 from repro_torch.configs.base import FleetConfig
 from repro_torch.core.encoding import EventStream
+from repro_torch.distributed.sharding import Mesh
 from repro_torch.serve.cognitive_engine import (CognitiveEngine,
                                                 PerceptionRequest)
 from repro_torch.serve.fleet import FleetEngine
@@ -282,16 +283,18 @@ def test_fleet_stats_percentiles(setup):
 
 @pytest.mark.parametrize("mesh", ["auto", None])
 def test_fleet_serves_one_card(setup, mesh):
-    """``mesh="auto"`` (and None) is the one device; an explicit mesh
-    waits for sharded serving."""
+    """``mesh="auto"`` on the CPU (and None) is the one device; an
+    explicit mesh is taken (tests/test_torch_fleet_mesh.py serves on
+    one), a mesh that is not one ``("data",)`` axis of local devices
+    raises."""
     _, _, cfg, params = setup
     fleet = _fleet(params, cfg, mesh=mesh,
                    fleet_cfg=FleetConfig(batch=2, max_queue=4))
     assert fleet.mesh is None
     assert len(fleet.run_to_completion(_requests(cfg, 2))) == 2
     assert fleet.core.n_devices == 1
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        _fleet(params, cfg, mesh=object())
+    with pytest.raises(ValueError, match="serving mesh"):
+        _fleet(params, cfg, mesh=Mesh(("data",), (2,)))
 
 
 @pytest.fixture(scope="module")
@@ -346,7 +349,7 @@ def test_dispatch_then_fetch_equals_step(setup):
     b = core.dispatch(core.upload(banks[1]))
     for bank, d in ((banks[0], a), (banks[1], b)):
         out, rgb, sp = core.fetch(d)
-        w_out, w_rgb, w_sp = core.step(*core.upload(bank))
+        w_out, w_rgb, w_sp = core.step(*core.upload(bank)[0])
         np.testing.assert_array_equal(out.raw_pred, w_out.raw_pred.numpy())
         np.testing.assert_array_equal(out.control, w_out.control.numpy())
         np.testing.assert_array_equal(rgb, w_rgb.numpy())
@@ -363,7 +366,7 @@ def test_core_runtime_error_propagates_out_of_step(setup, monkeypatch):
                    supervisor_cfg=base.SupervisorConfig(),
                    fleet_cfg=FleetConfig(batch=2))
 
-    def broken(*_):
+    def broken(*_, **__):
         raise RuntimeError("CUDA kernel spike_conv failed to launch: "
                            "cudaError 98")
     monkeypatch.setattr(fleet.cores[0], "step", broken)
@@ -471,5 +474,6 @@ def test_fleet_configs_equal_the_reference(port_reg, ref_reg):
 def test_bank_pinned_only_for_a_card(setup):
     _, _, cfg, params = setup
     fleet = _fleet(params, cfg, fleet_cfg=FleetConfig(batch=2))
-    assert all(not b.buffer.is_pinned() for b in fleet.buffers.banks)
+    assert all(not s.buffer.is_pinned() for b in fleet.buffers.banks
+               for s in b.shards)
     assert fleet.core.device == torch.device("cpu")

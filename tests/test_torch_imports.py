@@ -42,7 +42,9 @@ def test_every_module_imports_without_jax_or_repro():
               "serve.supervisor", "serve.scheduler",
               "distributed.fault_tolerance", "data.synthetic",
               "checkpoint.manager", "train.trainer", "train.detector",
-              "launch.train", "device"):
+              "launch.train", "device", "distributed.sharding",
+              "distributed.compress", "distributed.pipeline_parallel",
+              "launch.mesh"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
