@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's cognitive serving tick on one NVIDIA GPU, on
 the paper's four spiking backbones, and its LM serving path on
-full-width qwen2-7b, and hold each hand-written CUDA kernel against its
-plain PyTorch version.
+full-width qwen2-7b, arctic-480b and deepseek-v3-671b (the last two cut
+in depth), and hold each hand-written CUDA kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py
 
@@ -326,6 +327,37 @@ Phases (any failure raises and exits non-zero):
              step and the engine tick p50/p90, and one prefill and five
              decode steps under torch.profiler (device ops, busy time,
              idle share, the costliest device ops);
+6b. MoE and MLA — the bf16 qwen2-7b freed, arctic-480b then
+             deepseek-v3-671b at their published widths, only the depth
+             cut (MOE_DEPTH: arctic 2 MoE layers of 128 experts top-2,
+             ~55 GB; deepseek a dense MLA layer, an MLA + MoE layer of
+             256 experts top-8 with a shared expert, and the mtp
+             subtree's MLA + MoE block, ~50 GB; every cut printed), each
+             freed before the next: bf16 weights from a CUDA generator
+             seeded 0 (parameters and bytes printed); serve_prefill of 2
+             x 4096 tokens with flash_attention counted by design (arctic
+             2 "wgmma" at (128, 128), deepseek 2 "mma_sync" at (d, dv) =
+             (192, 128)); the kernel against its plain scan on layer 0's
+             own q/k/v (bf16 within the rounding bound, float32 copies
+             within 1e-5); each MoE layer's routing (expert loads, the
+             capacity, the pairs dropped); the last logits against the
+             plain-scan prefill's (< 0.05); 8 greedy decode steps (no
+             flash launch); ServeEngine at full width (batch 4, 4
+             requests, 4 tokens each); the prefill (ms, tokens/s; one
+             under torch.profiler: device ops, busy, idle share, the
+             costliest ops), the decode step, layer 0's kernel, its
+             plain scan, SDPA (or why none of its backends takes dv !=
+             d) and the bound (2 d + 2 dv operations a visible pair at
+             989 TFLOP/s); peak
+             memory; the (192, 128) instances' ptxas report; then in
+             float32 at one layer of each kind with no mtp
+             (MOE_CHECK_DEPTH) the decode of a prompt's last token
+             against the whole prompt's prefill at MOE_CHECK_SEQ tokens
+             (rel < 1e-4; no pair can drop there) and at 4096 (held
+             where the forward kept the last tokens' pairs, else
+             reported), and the engine's tokens equal to prefill +
+             decode; one "moe" JSON line, and row 14 of the kernels line
+             carries the (192, 128) instance;
 7. report  — one JSON line of per-kernel numbers, the card line, and
              the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -396,6 +428,11 @@ result line.
 builds only the NPU, encoding and ISP kernels and runs phase 5d alone;
 one JSON line, no result line.
 
+    python3 chip_smoke.py --moe-phase
+
+builds only flash_attention and runs phase 6b alone; it prints the
+"moe" JSON line, the card line and the result line.
+
     python3 chip_smoke.py --flash-phase
 
 builds only flash_attention and runs it alone at one qwen2-7b prefill
@@ -410,6 +447,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -484,6 +522,24 @@ LM_DECODE = 16                  # greedy decode steps after the prefill
 LM_CHECK_LAYERS = 2             # depth of the float32 decode-vs-prefill check
 LM_ENGINE = dict(batch=4, max_len=128, requests=6, max_new=8)
 LM_PLAIN_REPS = 5               # the plain scan's timing runs per layer
+# the MoE/MLA phase: arctic-480b, then deepseek-v3-671b, at their
+# published widths with only the depth cut (so that the bf16 weights fit
+# the card's 80 GB: ~55 and ~50 GB)
+MOE_ARCHS = ("arctic-480b", "deepseek-v3-671b")
+MOE_DEPTH = {"arctic-480b": dict(num_layers=2),
+             "deepseek-v3-671b": dict(num_layers=2, first_dense_layers=1)}
+# the float32 decode-vs-forward check: one layer of each kind, no MTP
+MOE_CHECK_DEPTH = {"arctic-480b": dict(num_layers=1),
+                   "deepseek-v3-671b": dict(mtp_depth=0)}
+MOE_DECODE = 8                  # greedy decode steps after the prefill
+# the float32 decode-vs-forward check's prompts: LM_BATCH x 4 = 8 tokens,
+# within the reference's least capacity (8 slots an expert), so that no
+# (token, expert) pair can be dropped; at LM_SEQ the forward drops pairs
+# (capacity factor 2 against random weights' skewed routing), and a
+# dropped last token's MoE output is 0 in the forward and not in the
+# decode, as in the reference
+MOE_CHECK_SEQ = 4
+MOE_ENGINE = dict(batch=4, max_len=64, requests=4, max_new=4)
 F32_TOL = 1e-5                  # flash kernel vs plain, float32
 # flash kernel vs plain, bfloat16: the rounding bound of
 # kernels.flash_attention.bf16_error_bound, never past this fixed bar
@@ -3750,7 +3806,7 @@ def attention_work(q, k, v, kw):
     pairs = int(visible_mask(kw["q_offset"] + torch.arange(Sq, device=dev),
                              torch.arange(Sk, device=dev), Sk=Sk,
                              causal=kw["causal"],
-                             window=kw["window"]).sum())
+                             window=kw.get("window", 0)).sum())
     nbytes = (q.numel() + k.numel() + v.numel() + B * Sq * Hq * dv) \
         * q.element_size()
     return nbytes, pairs * B * Hq * (2.0 * d + 2.0 * dv)
@@ -3866,6 +3922,50 @@ def flash_phase(dev, card):
     return report
 
 
+def engine_run(p, c, e, label):
+    """``e["requests"]`` requests of ``launch.serve.make_requests``
+    through a ServeEngine of ``e``'s batch and max_len on model (p, c),
+    every request answered with ``e["max_new"]`` in-range tokens ->
+    (requests by rid, host ms of each tick)."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(p, c, batch=e["batch"], max_len=e["max_len"])
+    pending = make_requests(e["requests"], c.vocab_size, e["max_new"])
+    done, ticks = [], []
+    while pending or any(r is not None for r in eng.active):
+        while pending and eng._free_slot() is not None:
+            eng.submit(pending.pop(0))
+        t = time.perf_counter()
+        done.extend(eng.tick())
+        ticks.append((time.perf_counter() - t) * 1e3)
+    check(sorted(r.rid for r in done) == list(range(e["requests"])),
+          f"{label}: the engine did not answer every request")
+    for r in done:
+        check(len(r.out_tokens) == e["max_new"] and all(
+            0 <= t < c.vocab_size for t in r.out_tokens),
+            f"{label} request {r.rid}: tokens {r.out_tokens}")
+    return sorted(done, key=lambda r: r.rid), ticks
+
+
+def engine_matches_prefill_decode(p, c, done, max_new, dev, label):
+    """Each engine request's tokens equal its serve_prefill + greedy
+    serve_decode continuation on (p, c)."""
+    import torch
+    from repro_torch.models.lm import serve_decode, serve_prefill
+    for r in done:
+        pr = torch.as_tensor(r.prompt, device=dev)[None]
+        lg, cache = serve_prefill(p, c, {"tokens": pr},
+                                  cache_len=pr.shape[1] + max_new)
+        want = [int(lg[0].argmax())]
+        for i in range(max_new - 1):
+            lg, cache = serve_decode(p, c, cache,
+                                     torch.tensor([[want[-1]]], device=dev),
+                                     pr.shape[1] + i)
+            want.append(int(lg[0].argmax()))
+        check(r.out_tokens == want, f"{label} engine request {r.rid}: "
+              f"{r.out_tokens} != prefill + decode {want}")
+
+
 def lm_phase(dev, card):
     """LM serving on full-width qwen2-7b (bf16, random weights from a
     CUDA generator seeded 0): serve_prefill of LM_BATCH prompts of LM_SEQ
@@ -3884,11 +3984,9 @@ def lm_phase(dev, card):
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.roofline import BF16_TENSOR_FLOPS
-    from repro_torch.launch.serve import make_requests
     from repro_torch.models import attention
     from repro_torch.models import transformer as tfm
     from repro_torch.models.lm import serve_decode, serve_prefill
-    from repro_torch.serve.engine import ServeEngine
 
     cfg = get_config(LM_ARCH)
     t0 = time.perf_counter()
@@ -4027,26 +4125,8 @@ def lm_phase(dev, card):
     # against prefill + greedy decode
     e = LM_ENGINE
 
-    def serve(p, c):
-        eng = ServeEngine(p, c, batch=e["batch"], max_len=e["max_len"])
-        pending = make_requests(e["requests"], c.vocab_size, e["max_new"])
-        done, ticks = [], []
-        while pending or any(r is not None for r in eng.active):
-            while pending and eng._free_slot() is not None:
-                eng.submit(pending.pop(0))
-            t = time.perf_counter()
-            done.extend(eng.tick())
-            ticks.append((time.perf_counter() - t) * 1e3)
-        check(sorted(r.rid for r in done) == list(range(e["requests"])),
-              "the engine did not answer every request")
-        for r in done:
-            check(len(r.out_tokens) == e["max_new"] and all(
-                0 <= t < c.vocab_size for t in r.out_tokens),
-                f"request {r.rid}: tokens {r.out_tokens}")
-        return sorted(done, key=lambda r: r.rid), ticks
-
     build.reset_launches()
-    done, ticks = serve(params, cfg)
+    done, ticks = engine_run(params, cfg, e, LM_ARCH)
     check(build.LAUNCHES["flash_attention"] == 0,
           "the engine prefills by decode steps: no flash_attention launch")
     tick = {"p50_ms": statistics.median(ticks),
@@ -4055,19 +4135,9 @@ def lm_phase(dev, card):
     print(f"  ServeEngine (full width, batch {e['batch']}, max_len "
           f"{e['max_len']}): {len(done)} requests answered, "
           f"{e['max_new']} in-range tokens each; tick {tick}")
-    done32, _ = serve(p32, cfg32)
-    for r in done32:
-        pr = torch.as_tensor(r.prompt, device=dev)[None]
-        lg, c = serve_prefill(p32, cfg32, {"tokens": pr},
-                              cache_len=pr.shape[1] + e["max_new"])
-        want = [int(lg[0].argmax())]
-        for i in range(e["max_new"] - 1):
-            lg, c = serve_decode(p32, cfg32, c,
-                                 torch.tensor([[want[-1]]], device=dev),
-                                 pr.shape[1] + i)
-            want.append(int(lg[0].argmax()))
-        check(r.out_tokens == want, f"engine request {r.rid}: "
-              f"{r.out_tokens} != prefill + decode {want}")
+    done32, _ = engine_run(p32, cfg32, e, LM_ARCH)
+    engine_matches_prefill_decode(p32, cfg32, done32, e["max_new"], dev,
+                                  LM_ARCH)
     print(f"  ServeEngine on the float32 {LM_CHECK_LAYERS}-layer model: "
           f"every request's tokens equal its serve_prefill + serve_decode "
           f"continuation ({len(done32)} requests)")
@@ -4126,6 +4196,392 @@ def lm_phase(dev, card):
           f"p90 {tick['p90_ms']:.2f} ms")
     del params
     return st, launches, report
+
+
+# ---------------------------------------------------------------------------
+# the MoE/MLA phase: arctic-480b and deepseek-v3-671b at full width
+# ---------------------------------------------------------------------------
+
+def moe_cut(arch, **extra):
+    """``arch``'s published config with only its depth cut: MOE_DEPTH
+    (and ``extra``) applied, the MoE fields of it to ``cfg.moe``."""
+    import dataclasses as dc
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    cut = {**MOE_DEPTH[arch], **extra}
+    moe_keys = {f.name for f in dc.fields(cfg.moe)}
+    moe_cut = {k: v for k, v in cut.items() if k in moe_keys}
+    return dc.replace(cfg, moe=dc.replace(cfg.moe, **moe_cut),
+                      **{k: v for k, v in cut.items() if k not in moe_keys})
+
+
+def routing_recorder(log, idx_log=None):
+    """A stand-in for ``moe.experts`` that records each MoE layer's
+    expert loads, its capacity and the pairs it drops (the pairs past
+    an expert's capacity) in ``log``, its routing (top_idx) in
+    ``idx_log`` if given, then runs the real experts."""
+    import torch
+    from repro_torch.models import moe
+    real = moe.experts
+
+    def experts(x2d, p, cfg, top_idx, top_w):
+        counts = torch.bincount(top_idx.reshape(-1),
+                                minlength=cfg.moe.num_experts)
+        cap = moe.capacity(x2d.shape[0], cfg)
+        log.append({"tokens": x2d.shape[0], "pairs": top_idx.numel(),
+                    "capacity": cap, "max_load": int(counts.max()),
+                    "min_load": int(counts.min()),
+                    "dropped": int((counts - cap).clamp(min=0).sum())})
+        if idx_log is not None:
+            idx_log.append((top_idx, cap))
+        return real(x2d, p, cfg, top_idx, top_w)
+    return experts
+
+
+def last_tokens_kept(idx_log, S):
+    """Whether every logged MoE layer kept all the pairs of each prompt's
+    last token (flat token S - 1 of each row of S): the dispatch keeps an
+    expert's first ``cap`` pairs in token order."""
+    for top_idx, cap in idx_log:
+        for t in range(S - 1, top_idx.shape[0], S):
+            for e in top_idx[t].tolist():
+                if int((top_idx[:t] == e).sum()) >= cap:
+                    return False
+    return True
+
+
+def patched_experts(fn, hook):
+    """``fn()`` with ``moe.experts`` replaced by ``hook``."""
+    from repro_torch.models import moe
+    real = moe.experts
+    moe.experts = hook
+    try:
+        return fn()
+    finally:
+        moe.experts = real
+
+
+def library_attention_ms(q, k, v, kw):
+    """SDPA on the same q/k/v on its flash, memory-efficient or cuDNN
+    backend (never the math backend, which would hold the S x S scores)
+    -> (ms, None), or (None, the error) where none of them takes the
+    call (dv != d)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    G = q.shape[2] // k.shape[2]
+
+    def library():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=kw["causal"], enable_gqa=G > 1)
+    try:
+        library()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+    return time_ms(library), None
+
+
+def moe_run(arch, dev, card):
+    """One MoE model at full width, its depth cut to MOE_DEPTH: bf16
+    weights from a CUDA generator seeded 0, serve_prefill of LM_BATCH
+    prompts of LM_SEQ tokens (flash_attention counted by design), the
+    kernel against its plain scan on layer 0's own q/k/v (bf16 within the
+    rounding bound, float32 copies within 1e-5), the prefill against the
+    same prefill on the plain scan, per-layer routing figures, greedy
+    serve_decode (no flash launch), the slot engine at full width, the
+    timings; then, the bf16 model freed, the float32 decode against the
+    full forward and the engine's tokens against prefill + decode at
+    MOE_CHECK_DEPTH.  -> (layer 0's KernelStats, flash launches by
+    design on the prefill, the report)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.roofline import BF16_TENSOR_FLOPS
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.lm import serve_decode, serve_prefill
+
+    full = get_config(arch)
+    cfg = moe_cut(arch)
+    kinds = tfm.layer_kinds(cfg)
+    head = (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+            cfg.mla.v_head_dim) if cfg.mla else (cfg.head_dim,) * 2
+    design = fa.kernel_design(torch.bfloat16, *head)
+    print(f"  --- {arch}: depth cut num_layers {full.num_layers} -> "
+          f"{cfg.num_layers}, first_dense_layers "
+          f"{full.moe.first_dense_layers} -> {cfg.moe.first_dense_layers}"
+          f", mtp_depth {cfg.mtp_depth}; widths as published (d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of "
+          f"{cfg.moe.d_expert}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}); "
+          f"layers {['MoE' if m else 'dense' for _, m in kinds]}; "
+          f"attention (d, dv) = {head} on {design!r}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tensors(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors(params))
+    print(f"  {n_params} parameters ({n_bytes} bytes; config count "
+          f"{cfg.param_count()} without the mtp subtree), init "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (LM_BATCH, LM_SEQ)), device=dev)
+    cache_len = LM_SEQ + MOE_DECODE
+
+    def prefill():
+        return serve_prefill(params, cfg, {"tokens": toks},
+                             cache_len=cache_len)
+
+    # the main path, counted
+    build.reset_launches()
+    logits, cache = prefill()
+    torch.cuda.synchronize()
+    launches = {d: build.LAUNCHES[f"flash_attention:{d}"]
+                for d in fa.DESIGNS}
+    check(build.LAUNCHES["flash_attention"] == cfg.num_layers
+          and launches[design] == cfg.num_layers,
+          f"{arch} serve_prefill: flash_attention launches by design "
+          f"{launches}, want {cfg.num_layers} on {design}")
+    check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), f"{arch} prefill logits")
+    check(len(cache) == cfg.num_layers and cache[0][0].shape[:2] == (
+        LM_BATCH, cache_len), f"{arch} prefill cache")
+    print(f"  serve_prefill [{LM_BATCH}, {LM_SEQ}] (cache {cache_len}, "
+          f"{type(cache[0]).__name__}): flash_attention launches by design "
+          f"{launches}")
+
+    # layer 0's own q/k/v and each MoE layer's routing, from the same
+    # prefill
+    calls, routing = [], []
+
+    def record(real, q, k, v, **kw):
+        if not calls:
+            calls.append((q, k, v, kw))
+        return real(q, k, v, **kw)
+    patched_experts(lambda: patched_attention(prefill, record),
+                    routing_recorder(routing))
+    q, k, v, kw = calls.pop()
+    e16, s16, mag16, bar16 = kernel_vs_plain(q, k, v, kw)
+    e32, s32, _, _ = kernel_vs_plain(q.float(), k.float(), v.float(), kw)
+    print(f"  layer 0: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+          f"{tuple(v.shape)}: flash_attention vs plain, bf16 max|err| "
+          f"{e16:.3g} ({s16:.2f} of the rounding bound; median |plain| "
+          f"{mag16:.3g}, median bar {bar16:.3g}), float32 max|err| "
+          f"{e32:.3g} ({s32:.2f} of {F32_TOL} + {F32_TOL}|plain|)")
+    moe_layers = [l for l, (_, m) in enumerate(kinds) if m]
+    for l, r in zip(moe_layers, routing):
+        print(f"  routing, layer {l}: {r['pairs']} (token, expert) pairs "
+              f"over {cfg.moe.num_experts} experts, capacity "
+              f"{r['capacity']}, load max {r['max_load']} min "
+              f"{r['min_load']}, {r['dropped']} pairs dropped")
+
+    logits_plain, _ = patched_attention(
+        prefill, lambda real, q, k, v, **kw: fa.flash_attention_plain(
+            q, k, v, **kw))
+    diff = (logits - logits_plain).abs()
+    rel = float(diff.max() / logits_plain.abs().max())
+    check(rel < LOGITS_REL_TOL, f"{arch} prefill logits {rel:.3g} from the "
+          f"plain scan's, past {LOGITS_REL_TOL}")
+    top2 = logits_plain.topk(2, dim=-1).values
+    decided = top2[:, 0] - top2[:, 1] > 2 * diff.amax(dim=-1)
+    same = logits.argmax(-1) == logits_plain.argmax(-1)
+    check(bool(same[decided].all()), f"{arch} prefill argmax differs from "
+          "the plain scan's where the margin decides it")
+    print(f"  end to end: last logits vs the plain scan's, max rel diff "
+          f"{rel:.3g} (< {LOGITS_REL_TOL}); argmax equal on "
+          f"{int(same.sum())}/{LM_BATCH} rows (decided by the margin on "
+          f"{int(decided.sum())})")
+    del logits_plain
+
+    # prefill -> greedy decode from its cache
+    build.reset_launches()
+    nxt = logits.argmax(-1, keepdim=True)
+    out = [nxt]
+    t0 = time.perf_counter()
+    for i in range(MOE_DECODE - 1):
+        lg, cache = serve_decode(params, cfg, cache, nxt, LM_SEQ + i)
+        nxt = lg.argmax(-1, keepdim=True)
+        out.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0) / (MOE_DECODE - 1)
+    out = torch.cat(out, dim=1)
+    check(build.LAUNCHES["flash_attention"] == 0,
+          f"{arch}: flash_attention launched during decode")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"{arch} decode tokens")
+    print(f"  serve_decode: {MOE_DECODE} greedy tokens per prompt, no "
+          f"flash_attention launch, {decode_s * 1e3:.2f} ms a step at batch "
+          f"{LM_BATCH}; tokens {out.tolist()}")
+    del cache
+
+    e = MOE_ENGINE
+
+    build.reset_launches()
+    done, ticks = engine_run(params, cfg, e, arch)
+    check(build.LAUNCHES["flash_attention"] == 0,
+          "the engine prefills by decode steps: no flash_attention launch")
+    tick = {"p50_ms": statistics.median(ticks), "ticks": len(ticks)}
+    print(f"  ServeEngine (full width, batch {e['batch']}, max_len "
+          f"{e['max_len']}): {len(done)} requests, {e['max_new']} in-range "
+          f"tokens each; tick p50 {tick['p50_ms']:.2f} ms")
+
+    # timings: the prefill, the decode step, layer 0's kernel beside its
+    # plain scan, SDPA and the bound
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        prefill()
+    torch.cuda.synchronize()
+    prefill_s = (time.perf_counter() - t0) / 2
+    wall, busy, ops, by_name = profile_window(prefill, 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"  prefill under the profiler: {ops:.0f} device ops, busy "
+          f"{busy:.2f} ms of {wall:.2f} ms wall (idle share "
+          f"{1 - busy / wall:.3f}); most time: "
+          + "; ".join(f"{n[:60]} {ms:.2f}" for n, ms in top))
+    nbytes, nops = attention_work(q, k, v, kw)
+    lib_ms, lib_err = library_attention_ms(q, k, v, kw)
+    st = KernelStats()
+    st.add((tuple(q.shape), tuple(k.shape), tuple(v.shape)),
+           time_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+           time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                   reps=LM_PLAIN_REPS, warmup=1),
+           nbytes, nops, e16, library_ms=lib_ms,
+           peak_flops=BF16_TENSOR_FLOPS)
+    del q, k, v, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_bf16 = torch.cuda.max_memory_allocated(dev)
+    print(f"  timings ({card}): prefill {prefill_s * 1e3:.1f} ms = "
+          f"{LM_BATCH * LM_SEQ / prefill_s:.0f} tokens/s; decode step "
+          f"{decode_s * 1e3:.2f} ms; layer 0's flash_attention ({design}) "
+          f"{st.ms:.4f} ms = {nops / st.ms / 1e9:.1f} TFLOP/s, plain "
+          f"{st.plain_ms:.4f}, SDPA "
+          f"{'none: ' + lib_err if lib_ms is None else f'{lib_ms:.4f}'}, "
+          f"bound {st.bound_ms:.4f} ({nops / 1e12:.3f} TFLOP at "
+          f"{BF16_TENSOR_FLOPS / 1e12:.0f} TFLOP/s); peak memory "
+          f"{peak_bf16} bytes")
+
+    # float32 at MOE_CHECK_DEPTH: decode the last token against the full
+    # forward, and the engine's tokens against prefill + decode
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg32 = dataclasses.replace(moe_cut(arch, **MOE_CHECK_DEPTH[arch]),
+                                dtype="float32")
+    p32 = tfm.init_params(torch.Generator(device=dev).manual_seed(1), cfg32,
+                          device=dev)
+
+    def decode_vs_forward(S):
+        """(rel of the decode of token S after an (S-1)-token prefill
+        against the S-token prefill, pairs the S-token forward dropped,
+        whether it kept every pair of the prompts' last tokens)."""
+        log, idx_log = [], []
+        full_logits, _ = patched_experts(
+            lambda: serve_prefill(p32, cfg32, {"tokens": toks[:, :S]}),
+            routing_recorder(log, idx_log))
+        _, c32 = serve_prefill(p32, cfg32, {"tokens": toks[:, :S - 1]},
+                               cache_len=S)
+        dec, _ = serve_decode(p32, cfg32, c32, toks[:, S - 1:S], S - 1)
+        rel = float((dec - full_logits).abs().max()
+                    / full_logits.abs().max())
+        return (rel, sum(r["dropped"] for r in log),
+                last_tokens_kept(idx_log, S))
+
+    rel_long, dropped_long, kept_long = decode_vs_forward(LM_SEQ)
+    if kept_long:
+        check(rel_long < 1e-4, f"{arch} float32 decode vs prefill at "
+              f"{LM_SEQ}: rel {rel_long:.3g}")
+    rel32, dropped32, _ = decode_vs_forward(MOE_CHECK_SEQ)
+    check(dropped32 == 0 and rel32 < 1e-4, f"{arch} float32 decode vs "
+          f"prefill at {MOE_CHECK_SEQ}: rel {rel32:.3g}, {dropped32} pairs "
+          "dropped")
+    done32, _ = engine_run(p32, cfg32, e, arch)
+    engine_matches_prefill_decode(p32, cfg32, done32, e["max_new"], dev,
+                                  arch)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_f32 = torch.cuda.max_memory_allocated(dev)
+    print(f"  float32 at num_layers {cfg32.num_layers} (layers "
+          f"{['MoE' if m else 'dense' for _, m in tfm.layer_kinds(cfg32)]}"
+          f", mtp_depth {cfg32.mtp_depth}): decode of the last token after "
+          f"a prefill of the others vs the whole prefill, at "
+          f"{MOE_CHECK_SEQ} tokens a prompt (no pair can drop) rel "
+          f"{rel32:.3g} (< 1e-4); at {LM_SEQ} rel {rel_long:.3g}, the "
+          f"forward dropped {dropped_long} pairs, the last tokens' pairs "
+          f"{'kept (held < 1e-4)' if kept_long else 'dropped (not held)'}"
+          f"; the engine's tokens equal prefill + decode ({len(done32)} "
+          f"requests); peak memory {peak_f32} bytes")
+    report = {"arch": arch, "num_layers": cfg.num_layers,
+              "first_dense_layers": cfg.moe.first_dense_layers,
+              "mtp_depth": cfg.mtp_depth, "parameters": n_params,
+              "parameter_bytes": n_bytes, "head_dims": list(head),
+              "design": design, "flash_launches": launches,
+              "routing": routing, "logits_rel_vs_plain": rel,
+              "prefill_s": prefill_s,
+              "prefill_tokens_per_s": LM_BATCH * LM_SEQ / prefill_s,
+              "decode_step_ms": decode_s * 1e3, "engine_tick": tick,
+              "prefill_profiled": {"wall_ms": wall, "device_busy_ms": busy,
+                                   "device_ops": ops,
+                                   "top_ms": dict(top)},
+              "f32_check_layers": cfg32.num_layers,
+              "f32_decode_vs_prefill_rel": rel32,
+              "f32_decode_vs_prefill_at_seq": {
+                  "rel": rel_long, "dropped": dropped_long,
+                  "last_tokens_kept": kept_long},
+              "peak_bytes_bf16": peak_bf16, "peak_bytes_f32": peak_f32,
+              "layer0_flash_attention": {
+                  **st.summary(), "sdpa_error": lib_err,
+                  "tflops": nops / st.ms / 1e9,
+                  "bf16_share_of_bound": s16, "f32_max_abs_err": e32},
+              "card": card}
+    return st, launches, report
+
+
+def ptxas_entries(name, key):
+    """{kernel: its ptxas report (registers, barriers, stack and spills)}
+    for each entry function of ``name``'s build log whose mangled name
+    holds ``key``; empty where another run built the library."""
+    from repro_torch.kernels import build
+    out, fn = {}, None
+    for ln in build.build_log(name).splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif fn and key in fn and ("registers" in ln or "spill" in ln):
+            out.setdefault(fn, []).append(ln.split(":", 1)[-1].strip())
+    return {k: " | ".join(v) for k, v in out.items()}
+
+
+def moe_phase(dev, card):
+    """arctic-480b then deepseek-v3-671b through ``moe_run``, one after
+    the other, each freed before the next.  -> (deepseek's layer-0
+    KernelStats: the (192, 128) instance; each model's flash_attention
+    launches by design on its prefill; the reports by model)."""
+    reports, launches, stats = {}, {}, {}
+    # the (192, 128) instances' registers and spills: 48 registers of Q
+    # fragments and 64 of O accumulators a thread in "mma_sync"
+    ptxas = {re.sub(r".*?(flash_[a-z0-9]+_kernel)ILi(\d+)ELi(\d+)E.*",
+                    r"\1<\2, \3>", fn): report
+             for fn, report in ptxas_entries("flash_attention",
+                                             "ILi192ELi128E").items()}
+    for fn, report in ptxas.items():
+        print(f"  ptxas, {fn}: {report}")
+    for arch in MOE_ARCHS:
+        stats[arch], launches[arch], reports[arch] = moe_run(arch, dev,
+                                                              card)
+    reports["ptxas_192_128"] = ptxas
+    return stats["deepseek-v3-671b"], launches, reports
 
 
 # ---------------------------------------------------------------------------
@@ -5224,10 +5680,11 @@ def main() -> int:
     train_only = sys.argv[1:] == ["--train-phase"]
     detector_only = sys.argv[1:] == ["--detector-phase"]
     dist_only = sys.argv[1:] == ["--dist-phase"]
+    moe_only = sys.argv[1:] == ["--moe-phase"]
     if sys.argv[1:] and not kernel_archs and not flash_only \
             and not norm_only and not conv_lif_only and not segment_only \
             and not isp_pool_only and not train_only and not detector_only \
-            and not dist_only:
+            and not dist_only and not moe_only:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -5239,7 +5696,7 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
 
     t0 = time.perf_counter()
-    built = (["flash_attention"] if flash_only else
+    built = (["flash_attention"] if flash_only or moe_only else
              ["norm_affine_lif"] if norm_only else
              ["spike_conv_lif", "spike_conv", "norm_affine_lif"]
              if conv_lif_only else
@@ -5260,6 +5717,16 @@ def main() -> int:
     dev = torch.device("cuda")
     if flash_only:
         print(json.dumps({"flash_phase": flash_phase(dev, card)}))
+        return 0
+    if moe_only:
+        t0 = time.perf_counter()
+        _, _, moe_report = moe_phase(dev, card)
+        print(f"  MoE phase: {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"moe": moe_report}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
     if detector_only:
         t0 = time.perf_counter()
@@ -5409,6 +5876,15 @@ def main() -> int:
           f"ServeEngine; {torch.cuda.memory_allocated(dev)} bytes still "
           f"allocated")
     st["flash_attention"], fa_launches, lm_report = lm_phase(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[6b/7] MoE and MLA: full-width {' and '.join(MOE_ARCHS)}, depth "
+          f"cut ({MOE_DEPTH}), serve_prefill [{LM_BATCH}, {LM_SEQ}] -> "
+          f"serve_decode, ServeEngine; "
+          f"{torch.cuda.memory_allocated(dev)} bytes still allocated")
+    t_moe = time.perf_counter()
+    mla_st, moe_launches, moe_report = moe_phase(dev, card)
+    print(f"  MoE phase: {time.perf_counter() - t_moe:.1f} s")
 
     # launches from the main path that runs each kernel: the all-kernel
     # engines, the fused-ISP engine, fast_preview fused, spiking-YOLO's
@@ -5429,6 +5905,18 @@ def main() -> int:
         ("all_kernels_segment", *(a + "_segment" for a in archs)))
     path_launches["flash_attention"] = fa_launches
     rows = [st[k].row(k, path_launches[k]) for k in KERNELS]
+    # row 14: beside qwen2-7b's (128, 128) "wgmma" prefill, deepseek-v3's
+    # (192, 128) instance (its layer 0 timed) and the MoE models' launches
+    mla = mla_st.summary()
+    rows[list(KERNELS).index("flash_attention")].update({
+        "moe_prefill_launches": moe_launches,
+        "mla_192_128": {
+            "design": moe_report["deepseek-v3-671b"]["design"],
+            "launches": moe_launches["deepseek-v3-671b"]["mma_sync"],
+            **{k: mla[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "library_ms", "max_abs_err")},
+            "bound_by": "operations" if mla_st.ops_s >= mla_st.bytes_s
+            else "bytes"}})
     print("[7/7] report")
     print(json.dumps({"serve": {"batch": BATCH, "requests": REQUESTS,
                                 "tick_latency": latency}}))
@@ -5436,6 +5924,7 @@ def main() -> int:
         arch: {k: s.summary() for k, s in sts.items() if s.shapes}
         for arch, sts in arch_st.items()}}))
     print(json.dumps({"lm": lm_report}))
+    print(json.dumps({"moe": moe_report}))
     print(json.dumps({"fleet": {k: fleet_report[k] for k in
                                 ("clean", "chaos", "harvest")}}))
     print(json.dumps({"train": train_report}))

@@ -9,7 +9,8 @@ weights ``w`` with per-channel ``scale``/``bias``, dense ``w`` [cin,
 cout] with ``bias``.  The LM trees differ in one place: the reference
 stacks its repeated unit's layers along a leading axis (``units``, one
 ``lax.scan``), the port keeps one entry per layer (``layers``, and a
-list of per-layer caches).
+list of per-layer caches); the blocks' ``moe`` and ``mla`` subtrees and
+the ``mtp`` subtree keep the reference's keys.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from repro_torch.configs.base import (EncodingConfig, ISPConfig,
 from repro_torch.core.encoding import as_stream
 from repro_torch.data.synthetic import SceneBatch
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.transformer import check_supported, layout
 
 # JAX backend name -> the port's (SNN layers, ISP stages, encoding)
@@ -153,8 +154,10 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device=None):
 
 def lm_cache_from_numpy(tree, cfg: ModelConfig, device=None):
     """A JAX LM cache (``init_cache`` or ``forward_prefill``'s, as numpy;
-    a KVCache per block) -> the port's list of per-layer KVCaches."""
+    a KVCache or, for MLA, an MLACache per block) -> the port's list of
+    per-layer caches of the same kind."""
     check_supported(cfg)
     device = resolve_device(device or "cuda")
-    return [KVCache(_tensor(c[0], device), _tensor(c[1], device))
+    kind = KVCache if cfg.mla is None else MLACache
+    return [kind(_tensor(c[0], device), _tensor(c[1], device))
             for c in _per_layer(tree, cfg)]

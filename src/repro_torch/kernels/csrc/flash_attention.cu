@@ -67,7 +67,12 @@
 // tile, query head, batch element), all on gridDim.x (block_work: any
 // batch the int arguments hold), each warp owning 16 query rows; K
 // and V tiles of 64 keys in two cp.async stages; B fragments by
-// ldmatrix (V's transposing).
+// ldmatrix (V's transposing).  It is MLA's prefill kernel: deepseek-v3
+// attends at (D, DV) = (192, 128), where a block stages 2 x 64 x (200 +
+// 136) bf16 = 84 KB (two blocks an SM) and a thread holds 48 registers
+// of Q fragments and 64 of O accumulators.  "wgmma" at (192, 128) would
+// need 256 KB as its shared memory is laid out (two 48 KB Q buffers,
+// two 48 KB K and two 32 KB V stages), past a block's 227 KB.
 //
 // In both bf16 designs P is rounded to bf16 for the P.V product, once,
 // as tensor-core flash attention does, l sums the f32 p, and a masked
@@ -1360,7 +1365,8 @@ enum Design { kF32 = 0, kMmaSync = 1, kWgmma = 2 };
 // Launches `design` on one call's tensors; a design not built for (d, dv)
 // is refused (cudaErrorInvalidValue), never replaced by another.  The
 // (D, DV) pairs built: repro_torch.kernels.flash_attention.HEAD_DIMS for
-// "f32" and "mma_sync", WGMMA_HEAD_DIMS for "wgmma".
+// "f32" and "mma_sync" (MLA's (192, 128) among them), WGMMA_HEAD_DIMS
+// for "wgmma".
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Sk, int Hq, int Hkv, int d, int dv,
@@ -1385,6 +1391,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   REPRO_FLASH_CASE(64, 64)
   REPRO_FLASH_CASE(128, 128)
   REPRO_FLASH_CASE(32, 16)
+  REPRO_FLASH_CASE(192, 128)
 #undef REPRO_FLASH_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

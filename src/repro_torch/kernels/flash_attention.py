@@ -11,9 +11,10 @@ softmax of ``repro.kernels.ref.flash_attention_ref`` on [BH, S, d].
 ``flash_attention`` is the wrapper: a CPU tensor takes the plain scan, a
 CUDA tensor launches the kernel or raises.  ``kernel_design`` names the
 kernel from the type and head dims alone: bfloat16 at
-``WGMMA_HEAD_DIMS`` (every full-width LM config's head) runs "wgmma"
+``WGMMA_HEAD_DIMS`` (every full-width GQA config's head) runs "wgmma"
 (wgmma on a TMA-fed K/V ring, warp-specialised, persistent), other
-bfloat16 head dims "mma_sync", float32 "f32" (CUDA cores).  Each launch
+bfloat16 head dims "mma_sync" (MLA's prefill at (d, dv) = (192, 128)
+among them), float32 "f32" (CUDA cores).  Each launch
 adds one to ``build.LAUNCHES["flash_attention"]`` and one to
 ``build.LAUNCHES["flash_attention:<design>"]``.  ``wgmma_schedule`` is
 the "wgmma" kernel's work list and its split over the blocks;
@@ -32,8 +33,9 @@ from repro_torch.kernels.build import (LAUNCHES, check_launch, launch, load,
 NEG_INF = -1e30
 DTYPES = (torch.float32, torch.bfloat16)
 # the (d, dv) pairs the "f32" and "mma_sync" kernels are built for
-# (csrc/flash_attention.cu), and those of the "wgmma" kernel
-HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (32, 16))
+# (csrc/flash_attention.cu; (192, 128) is deepseek-v3's MLA: 128 nope +
+# 64 rope dims against 128-dim values), and those of the "wgmma" kernel
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (32, 16), (192, 128))
 WGMMA_HEAD_DIMS = ((64, 64), (128, 128))
 # csrc/flash_attention.cu `Design`
 DESIGNS = {"f32": 0, "mma_sync": 1, "wgmma": 2}

@@ -1,12 +1,14 @@
-"""GQA attention: the full-sequence block (train / prefill) through the
-flash-attention kernel, and one-token decode against a KV cache (the
-counterpart of ``repro.models.attention``, without a mesh: the reference's
-``shard`` calls and its shard_map / LSE-merge paths are no-ops on one
-device).  MLA (``init_mla``, ``apply_mla``, ``decode_mla``, ``MLACache``)
-is not ported yet.
+"""GQA and MLA attention: the full-sequence block (train / prefill)
+through the flash-attention kernel, and one-token decode against a cache
+(the counterpart of ``repro.models.attention``, without a mesh: the
+reference's ``shard`` calls and its shard_map / LSE-merge paths are
+no-ops on one device; MLA raises for a mesh, ROADMAP.md queue 1 item
+5.7).
 
 Layouts as the reference's: q [B, S, Hq, hd], k and v [B, S, Hkv, hd],
-the cache [B, max_len, Hkv, hd], weights applied as ``x @ w``.
+the GQA cache [B, max_len, Hkv, hd], the MLA cache c_kv [B, max_len,
+kv_lora_rank] and k_rope [B, max_len, rope dim], weights applied as
+``x @ w``.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from repro_torch.configs.base import ModelConfig
 # the model-layout flash attention (the reference's twin of the TPU
 # kernel): the kernel on a CUDA tensor, its plain scan on a CPU one
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.blocks import apply_rope, dense_init
+from repro_torch.models.blocks import apply_rope, dense_init, refuse_mesh
 
 NEG_INF = -1e30
 
@@ -37,6 +39,24 @@ def init_attention(gen, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
         for name, n in (("bq", Hq), ("bk", Hkv), ("bv", Hkv)):
             p[name] = torch.zeros((n * hd,), dtype=dtype, device=dev)
     return {"attn": p}
+
+
+def init_mla(gen, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
+    """DeepSeek's multi-head latent attention: the q down/up projections,
+    the down-projection to the kv latent and the decoupled RoPE key, the
+    latent's up-projection to each head's nope key and value, and wo."""
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    shapes = {
+        "wq_a": (D, m.q_lora_rank),
+        "wq_b": (m.q_lora_rank, H * qk),
+        "wkv_a": (D, m.kv_lora_rank + m.qk_rope_head_dim),
+        "wkv_b": (m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim)),
+        "wo": (H * m.v_head_dim, D),
+    }
+    return {"mla": {k: dense_init(gen, s, dtype=dtype, device=device)
+                    for k, s in shapes.items()}}
 
 
 def _project_qkv(a, x, cfg: ModelConfig):
@@ -67,10 +87,50 @@ def apply_attention(p, x, positions, cfg: ModelConfig, *,
     return out
 
 
+def apply_mla(p, x, positions, cfg: ModelConfig, *, return_kv: bool = False,
+              mesh=None):
+    """MLA's full-sequence block in the non-absorbed form: every head's
+    key is its nope part from the latent and the one RoPE key, broadcast
+    over the H heads (so Hkv = H), and attention runs at (d, dv) = (nope
+    + rope dim, v_head_dim) with scale d^-0.5.  x: [B, S, D];
+    positions: [S].  Returns [B, S, D] (+ (c_kv [B, S, c], k_rope [B, S,
+    dr]), the decode cache's state)."""
+    refuse_mesh(mesh, "MLA")
+    m = cfg.mla
+    w = p["mla"]
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+
+    q = ((x @ w["wq_a"]) @ w["wq_b"]).reshape(B, S, H, dn + dr)
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+    kv_a = x @ w["wkv_a"]                                # [B, S, c + dr]
+    c_kv = kv_a[..., :m.kv_lora_rank]
+    k_rope = apply_rope(kv_a[:, :, None, m.kv_lora_rank:], positions,
+                        cfg.rope_theta)                  # [B, S, 1, dr]
+    kv = (c_kv @ w["wkv_b"]).reshape(B, S, H, dn + dv)
+
+    q_full = torch.cat([q[..., :dn], q_rope], dim=-1)
+    k_full = torch.cat([kv[..., :dn], k_rope.expand(B, S, H, dr)], dim=-1)
+    out = flash_attention(q_full, k_full, kv[..., dn:].contiguous(),
+                          causal=cfg.causal, q_offset=0)
+    out = out.reshape(B, S, H * dv) @ w["wo"]
+    if return_kv:
+        return out, (c_kv, k_rope[:, :, 0, :])
+    return out
+
+
 class KVCache(NamedTuple):
     """GQA cache. k/v: [B, S, Hkv, hd]."""
     k: torch.Tensor
     v: torch.Tensor
+
+
+class MLACache(NamedTuple):
+    """MLA compressed cache. c_kv: [B, S, c], k_rope: [B, S, dr]."""
+    c_kv: torch.Tensor
+    k_rope: torch.Tensor
 
 
 def _decode_attn(q, kc, vc, cache_len):
@@ -125,6 +185,14 @@ def positions_vector(pos, batch: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, device=device).reshape(-1).expand(batch)
 
 
+def _write_slot(cache_t, rows, idx, ok, new):
+    """cache_t[b, idx[b]] = new[b] where ok[b], in place (a masked
+    select: an inactive or out-of-range slot writes its old value back)."""
+    ok = ok.reshape(ok.shape + (1,) * (new.dim() - 1))
+    cache_t[rows, idx] = torch.where(ok, new.to(cache_t.dtype),
+                                     cache_t[rows, idx])
+
+
 def decode_attention(p, x, cache: KVCache, pos, cfg: ModelConfig):
     """One-token decode. x: [B, 1, D]; pos: a scalar position, or a
     per-slot [B] vector (continuous batching; -1 marks an inactive slot,
@@ -146,16 +214,67 @@ def decode_attention(p, x, cache: KVCache, pos, cfg: ModelConfig):
 
     kc, vc = cache
     S = kc.shape[1]
-    # write slot b's token at pos[b] when 0 <= pos[b] < S (a masked
-    # select: an out-of-range or inactive slot writes its old value back)
+    # write slot b's token at pos[b] when 0 <= pos[b] < S
     rows = torch.arange(B, device=x.device)
-    ok = ((posv >= 0) & (posv < S))[:, None, None]
+    ok = (posv >= 0) & (posv < S)
     idx = posv.clamp(0, S - 1)
-    kc[rows, idx] = torch.where(ok, k.to(kc.dtype), kc[rows, idx])
-    vc[rows, idx] = torch.where(ok, v.to(vc.dtype), vc[rows, idx])
+    _write_slot(kc, rows, idx, ok, k)
+    _write_slot(vc, rows, idx, ok, v)
 
     out = _decode_attn(q, kc, vc, posv + 1)
     # f32 attention output against the weights' type: the reference
     # promotes the product to f32
     out = _f32_matmul(out.reshape(B, Hq * hd), a["wo"])
     return out[:, None, :], KVCache(kc, vc)
+
+
+def decode_mla(p, x, cache: MLACache, pos, cfg: ModelConfig, *, mesh=None):
+    """MLA one-token decode with the absorbed weights: the query's nope
+    part is taken into the latent space (q_lat = q_nope . wk, float32), the
+    scores run against the compressed cache (c_kv and k_rope), the output
+    is un-absorbed through wv.  x: [B, 1, D]; pos: a scalar, or per-slot
+    [B] (-1 = inactive, writes nothing).  Returns ([B, 1, D], cache), the
+    new token's latent and RoPE key written into ``cache`` in place."""
+    refuse_mesh(mesh, "MLA")
+    m = cfg.mla
+    w = p["mla"]
+    B = x.shape[0]
+    H = cfg.num_heads
+    dn, dr, dv, c = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
+                     m.kv_lora_rank)
+    posv = positions_vector(pos, B, x.device)
+    rope_pos = posv[:, None]
+
+    xq = x[:, 0, :]
+    q = ((xq @ w["wq_a"]) @ w["wq_b"]).reshape(B, H, dn + dr)
+    q_rope = apply_rope(q[:, None, :, dn:], rope_pos, cfg.rope_theta)[:, 0]
+    kv_a = xq @ w["wkv_a"]
+    kr_new = apply_rope(kv_a[:, None, None, c:], rope_pos,
+                        cfg.rope_theta)[:, 0, 0]
+
+    wkv_b = w["wkv_b"].reshape(c, H, dn + dv)
+    q_lat = torch.einsum("bhd,chd->bhc", q[..., :dn].float(),
+                         wkv_b[..., :dn].float())
+
+    cc, krc = cache
+    S = cc.shape[1]
+    rows = torch.arange(B, device=x.device)
+    ok = (posv >= 0) & (posv < S)
+    idx = posv.clamp(0, S - 1)
+    _write_slot(cc, rows, idx, ok, kv_a[:, :c])
+    _write_slot(krc, rows, idx, ok, kr_new)
+
+    ccf = cc.float()
+    s = (torch.einsum("bhc,bkc->bhk", q_lat, ccf)
+         + torch.einsum("bhd,bkd->bhk", q_rope.float(), krc.float())) \
+        * (dn + dr) ** -0.5
+    k_pos = torch.arange(S, device=x.device)
+    s = torch.where(k_pos[None, None, :] < (posv + 1)[:, None, None], s,
+                    NEG_INF)
+    mx = s.amax(dim=-1)
+    pr = torch.exp(s - mx[..., None])
+    o_lat = torch.einsum("bhk,bkc->bhc", pr, ccf) / torch.clamp(
+        pr.sum(dim=-1)[..., None], min=1e-30)
+    out = torch.einsum("bhc,chd->bhd", o_lat, wkv_b[..., dn:].float())
+    out = out.reshape(B, H * dv).to(x.dtype) @ w["wo"]
+    return out[:, None, :], MLACache(cc, krc)

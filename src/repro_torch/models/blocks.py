@@ -21,6 +21,27 @@ def dense_init(gen: torch.Generator, shape, in_axis=0, dtype=torch.float32,
     return w.to(device=device or gen.device, dtype=dtype)
 
 
+def stacked_init(gen: torch.Generator, shape, dtype=torch.float32,
+                 device=None) -> torch.Tensor:
+    """A stack of ``shape[0]`` matrices ``shape[1:]`` (experts), each
+    Normal(0, 1 / shape[1]) as ``dense_init(gen, shape, in_axis=1)``,
+    drawn one matrix at a time: a full-width expert stack never exists in
+    float32 (arctic-480b's is 17.8 GB)."""
+    out = torch.empty(shape, dtype=dtype, device=device or gen.device)
+    for e in range(shape[0]):
+        out[e] = dense_init(gen, shape[1:], dtype=dtype, device=out.device)
+    return out
+
+
+def refuse_mesh(mesh, what: str) -> None:
+    """Raise ``NotImplementedError`` for a mesh: ``what`` runs on one
+    device; its sharded form waits for ROADMAP.md queue 1 item 5.7."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what} under a mesh is not ported yet (ROADMAP.md queue 1, "
+            "item 5.7: the LM's sharding)")
+
+
 def act_fn(name: str):
     # jax.nn.gelu is the tanh approximation by default
     return {"silu": F.silu,

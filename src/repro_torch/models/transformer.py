@@ -1,14 +1,15 @@
-"""The LM model for attention blocks with a dense FFN: parameters, the
-full-sequence forward, prefill and one-token decode (the counterpart of
-``repro.models.transformer``).
+"""The LM model for attention blocks (GQA or MLA) with a dense or MoE
+FFN: parameters, the full-sequence forward, prefill and one-token decode
+(the counterpart of ``repro.models.transformer``).
 
 The reference groups its layers into a prefix and a repeated unit whose
 parameters ``jax.vmap`` stacks for one ``lax.scan``; PyTorch runs
 eagerly, so the port keeps one entry per layer: ``params["layers"][l]``
 and ``cache[l]`` (``repro_torch.convert`` unstacks the reference's
 units, layer ``prefix + u * U + i``).  ``layout`` is kept for that
-mapping.  Configurations that need MoE, MLA, mamba or xLSTM blocks, a
-multi-token-prediction head or the audio/VLM front ends raise
+mapping.  A ``mtp_depth`` config gets the reference's ``mtp`` parameter
+subtree; its loss comes with LM training.  Configurations that need
+mamba or xLSTM blocks or the audio/VLM front ends raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -22,13 +23,14 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.models.blocks import (apply_mlp, apply_norm, dense_init,
                                        init_mlp, init_norm)
+from repro_torch.models.moe import apply_moe, init_moe
 
 # what is not ported yet, and where ROADMAP.md queues it
-_NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1, item 5: the rest "
-               "of the LM stack)")
+_NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1, item 5: mamba "
+               "5.3, xLSTM 5.4, the audio and VLM front ends 5.6)")
 
 
 # ---------------------------------------------------------------------------
@@ -63,15 +65,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family in ("audio", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} front end {_NOT_PORTED}")
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA {_NOT_PORTED}")
-    if cfg.mtp_depth:
-        raise NotImplementedError(
-            f"{cfg.name}: the MTP head (LM training) {_NOT_PORTED}")
-    for l, (kind, is_moe) in enumerate(layer_kinds(cfg)):
-        if is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: layer {l} is MoE; models/moe.py {_NOT_PORTED}")
+    for l, (kind, _) in enumerate(layer_kinds(cfg)):
         if kind != "A":
             what = {"M": "mamba", "L": "mLSTM", "S": "sLSTM"}.get(kind, kind)
             raise NotImplementedError(
@@ -86,42 +80,70 @@ def _dtype(cfg: ModelConfig, dtype):
 # Block init / apply
 # ---------------------------------------------------------------------------
 
-def init_block(gen, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
+def init_block(gen, cfg: ModelConfig, is_moe: bool, dtype=torch.bfloat16,
+               device=None):
     p: Dict[str, Any] = {"ln1": init_norm(cfg, device=device)}
-    p["mixer"] = attn_mod.init_attention(gen, cfg, dtype, device=device)
-    if cfg.d_ff:
+    init_mixer = attn_mod.init_attention if cfg.mla is None \
+        else attn_mod.init_mla
+    p["mixer"] = init_mixer(gen, cfg, dtype, device=device)
+    if is_moe:
+        p["ln2"] = init_norm(cfg, device=device)
+        p["ffn"] = init_moe(gen, cfg, dtype, device=device)
+    elif cfg.d_ff:
         p["ln2"] = init_norm(cfg, device=device)
         p["ffn"] = init_mlp(gen, cfg, dtype=dtype, device=device)
     return p
 
 
-def _ffn(p, x, cfg: ModelConfig):
-    if "ffn" in p:
-        x = x + apply_mlp(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg).to(
-            x.dtype)
-    return x
+def _ffn(p, x, cfg: ModelConfig, is_moe: bool):
+    """x + the block's FFN (dense or MoE) -> (x, the MoE aux loss or
+    None)."""
+    if "ffn" not in p:
+        return x, None
+    h = apply_norm(p["ln2"], x, cfg)
+    aux = None
+    if is_moe:
+        out, aux = apply_moe(p["ffn"], h, cfg)
+    else:
+        out = apply_mlp(p["ffn"], h, cfg)
+    return x + out.to(x.dtype), aux
 
 
-def apply_block(p, x, positions, cfg: ModelConfig):
-    """Full-sequence block: x [B, S, D] -> x."""
-    h = apply_norm(p["ln1"], x, cfg)
-    x = x + attn_mod.apply_attention(p["mixer"], h, positions, cfg).to(x.dtype)
-    return _ffn(p, x, cfg)
+def _mix(p, h, positions, cfg: ModelConfig, return_kv=False):
+    mix = attn_mod.apply_attention if cfg.mla is None \
+        else attn_mod.apply_mla
+    return mix(p["mixer"], h, positions, cfg, return_kv=return_kv)
+
+
+def apply_block(p, x, positions, cfg: ModelConfig, is_moe: bool = False):
+    """Full-sequence block: x [B, S, D] -> (x, the MoE aux loss or None)."""
+    x = x + _mix(p, apply_norm(p["ln1"], x, cfg), positions, cfg).to(x.dtype)
+    return _ffn(p, x, cfg, is_moe)
 
 
 def init_block_cache(cfg: ModelConfig, batch: int, seq_len: int,
-                     dtype=torch.bfloat16, device=None) -> KVCache:
-    hd = cfg.resolved_head_dim
-    shape = (batch, seq_len, cfg.num_kv_heads, hd)
+                     dtype=torch.bfloat16, device=None):
+    """A zero KVCache, or an MLACache for an MLA config."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        return MLACache(
+            c_kv=torch.zeros((batch, seq_len, m.kv_lora_rank), dtype=dtype,
+                             device=device),
+            k_rope=torch.zeros((batch, seq_len, m.qk_rope_head_dim),
+                               dtype=dtype, device=device))
+    shape = (batch, seq_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def apply_block_decode(p, x, cache: KVCache, pos, cfg: ModelConfig):
+def apply_block_decode(p, x, cache, pos, cfg: ModelConfig,
+                       is_moe: bool = False):
     h = apply_norm(p["ln1"], x, cfg)
-    mix, cache = attn_mod.decode_attention(p["mixer"], h, cache, pos, cfg)
-    x = x + mix.to(x.dtype)
-    return _ffn(p, x, cfg), cache
+    decode = attn_mod.decode_attention if cfg.mla is None \
+        else attn_mod.decode_mla
+    mix, cache = decode(p["mixer"], h, cache, pos, cfg)
+    x, _ = _ffn(p, x + mix.to(x.dtype), cfg, is_moe)
+    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -144,8 +166,19 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=None,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                        in_axis=1, dtype=dtype, device=device)
-    params["layers"] = [init_block(gen, cfg, dtype, device=device)
-                        for _ in range(cfg.num_layers)]
+    params["layers"] = [init_block(gen, cfg, is_moe, dtype, device=device)
+                        for _, is_moe in layer_kinds(cfg)]
+    if cfg.mtp_depth:
+        D = cfg.d_model
+        params["mtp"] = {
+            "proj": dense_init(gen, (2 * D, D), dtype=dtype, device=device),
+            "block": init_block(gen, cfg,
+                                cfg.is_moe_layer(cfg.num_layers - 1),
+                                dtype, device=device),
+            "norm_h": init_norm(cfg, device=device),
+            "norm_e": init_norm(cfg, device=device),
+            "final": init_norm(cfg, device=device),
+        }
     return params
 
 
@@ -160,14 +193,17 @@ def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
 
 
 def forward_lm(params, cfg: ModelConfig, batch):
-    """Full-sequence forward -> (hidden [B, S, D], aux_loss); a dense
-    model's aux loss is 0."""
+    """Full-sequence forward -> (hidden [B, S, D], aux_loss): the MoE
+    layers' aux losses summed, float32 (0 for a dense model)."""
     x = embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
-    for p in params["layers"]:
-        x = apply_block(p, x, positions, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, (_, is_moe) in zip(params["layers"], layer_kinds(cfg)):
+        x, a = apply_block(p, x, positions, cfg, is_moe)
+        if a is not None:
+            aux = aux + a
     x = apply_norm(params["final"], x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _head(params, cfg: ModelConfig):
@@ -195,11 +231,11 @@ def lm_logits(params, cfg: ModelConfig, hidden):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None,
-               device="cuda") -> List[KVCache]:
-    """One zero KVCache per layer.  ``dtype`` defaults to ``cfg.dtype``:
-    the reference allocates bf16, and its first write promotes a float32
-    model's cache to float32; the port writes in place, so it allocates
-    the activations' type."""
+               device="cuda") -> List[Any]:
+    """One zero KVCache (MLACache for MLA) per layer.  ``dtype``
+    defaults to ``cfg.dtype``: the reference allocates bf16, and its
+    first write promotes a float32 model's cache to float32; the port
+    writes in place, so it allocates the activations' type."""
     check_supported(cfg)
     device = resolve_device(device)
     dtype = _dtype(cfg, dtype)
@@ -215,8 +251,8 @@ def forward_decode(params, cfg: ModelConfig, tokens, cache, pos):
     # once per step, not once per layer
     pos = attn_mod.positions_vector(pos, x.shape[0], x.device)
     new_cache = []
-    for p, c in zip(params["layers"], cache):
-        x, c = apply_block_decode(p, x, c, pos, cfg)
+    for p, c, (_, is_moe) in zip(params["layers"], cache, layer_kinds(cfg)):
+        x, c = apply_block_decode(p, x, c, pos, cfg, is_moe)
         new_cache.append(c)
     x = apply_norm(params["final"], x, cfg)
     return _logits_matmul(x[:, 0], _head(params, cfg)), new_cache
@@ -226,17 +262,19 @@ def forward_decode(params, cfg: ModelConfig, tokens, cache, pos):
 # Prefill (full sequence -> cache + last-token logits)
 # ---------------------------------------------------------------------------
 
-def _block_prefill(p, x, positions, cfg: ModelConfig, cache_len: int):
-    """Full-sequence block that also emits its decode cache, k and v
-    padded with zeros to ``cache_len``."""
-    h = apply_norm(p["ln1"], x, cfg)
-    mix, (k, v) = attn_mod.apply_attention(p["mixer"], h, positions, cfg,
-                                           return_kv=True)
+def _block_prefill(p, x, positions, cfg: ModelConfig, is_moe: bool,
+                   cache_len: int):
+    """Full-sequence block that also emits its decode cache (k and v, or
+    MLA's c_kv and k_rope) padded with zeros to ``cache_len``."""
+    mix, kv = _mix(p, apply_norm(p["ln1"], x, cfg), positions, cfg,
+                   return_kv=True)
     pad = cache_len - x.shape[1]
-    state = KVCache(k=F.pad(k, (0, 0, 0, 0, 0, pad)),
-                    v=F.pad(v, (0, 0, 0, 0, 0, pad)))
-    x = x + mix.to(x.dtype)
-    return _ffn(p, x, cfg), state
+    if cfg.mla is not None:
+        state = MLACache(*(F.pad(t, (0, 0, 0, pad)) for t in kv))
+    else:
+        state = KVCache(*(F.pad(t, (0, 0, 0, 0, 0, pad)) for t in kv))
+    x, _ = _ffn(p, x + mix.to(x.dtype), cfg, is_moe)
+    return x, state
 
 
 def forward_prefill(params, cfg: ModelConfig, batch, cache_len=None):
@@ -249,8 +287,8 @@ def forward_prefill(params, cfg: ModelConfig, batch, cache_len=None):
         raise ValueError(f"forward_prefill: cache_len {clen} < {S} tokens")
     positions = torch.arange(S, device=x.device)
     cache = []
-    for p in params["layers"]:
-        x, st = _block_prefill(p, x, positions, cfg, clen)
+    for p, (_, is_moe) in zip(params["layers"], layer_kinds(cfg)):
+        x, st = _block_prefill(p, x, positions, cfg, is_moe, clen)
         cache.append(st)
     x = apply_norm(params["final"], x, cfg)
     return _logits_matmul(x[:, -1], _head(params, cfg)), cache

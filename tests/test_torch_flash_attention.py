@@ -6,8 +6,9 @@ On the CPU: the plain scan against ``repro.kernels.ref.flash_attention_ref``
 bq = bk = 64 (2e-4, the repo's own bar), on ``tests/test_kernels.py``'s
 shapes; the model-layout function against the reference model's
 ``repro.models.attention.flash_attention`` at 1e-5 in float32 (GQA, a
-window, a query offset, a non-causal ragged Sk, dv != d); the wrapper on
-CPU tensors takes the plain version, and what it does not take raises.
+window, a query offset, a non-causal ragged Sk, dv != d, MLA's (d, dv)
+= (192, 128) and reduced MLA's (24, 16)); the wrapper on CPU tensors
+takes the plain version, and what it does not take raises.
 
 Also on the CPU: ``kernel_design`` (the kernel a CUDA call runs, from its
 type and head dims alone), ``key_range`` against the visibility mask,
@@ -25,7 +26,8 @@ BF16_RTOL * |plain|``; the "wgmma" design at d = dv = 128 (and 64) on
 GQA, window, offset, ragged and non-causal cases, each counted on its
 design; its two products alone (``wgmma_products``); a 28-layer
 prefill with head dim 128 whose every launch runs "wgmma"; small head
-dims on "mma_sync".  JAX is imported inside the CPU tests only, so
+dims on "mma_sync"; deepseek-v3's MLA head dims (192, 128) on
+"mma_sync" and "f32" (causal, non-causal, ragged, 128 heads).  JAX is imported inside the CPU tests only, so
 the ``cuda`` cases run where JAX is absent:
 
     python -m pytest -q -m cuda tests/test_torch_flash_attention.py
@@ -62,6 +64,20 @@ MODEL_CASES = (
        (2, 70, 70, 4, 1, 32, 16, True, 5, 16)])
 # the prefill's shape: qwen2-7b, 4096 tokens
 FULL_CASE = (1, 4096, 4096, 28, 4, 128, 128, True, 0, 0)
+# MLA's head dims on the CPU: deepseek-v3's (192, 128) and reduced
+# deepseek-v3's (24, 16), Hkv = Hq (the RoPE key broadcast over the heads)
+MLA_CPU_CASES = [(1, 70, 70, 2, 2, 192, 128, True, 0, 0),
+                 (2, 40, 40, 4, 4, 24, 16, True, 0, 0),
+                 (1, 30, 50, 2, 2, 192, 128, False, 0, 0)]
+# deepseek-v3's MLA prefill on "mma_sync" / "f32": causal, non-causal,
+# ragged Sq and Sk, and its 128 heads
+MLA_CASES = [
+    (2, 256, 256, 4, 4, 192, 128, True, 0, 0),
+    (1, 130, 130, 8, 8, 192, 128, True, 0, 0),       # ragged Sq = Sk
+    (2, 100, 333, 4, 4, 192, 128, False, 0, 0),      # non-causal, ragged Sk
+    (1, 200, 330, 4, 4, 192, 128, True, 130, 0),     # q_offset, Sq != Sk
+    (1, 512, 512, 128, 128, 192, 128, True, 0, 0),   # H = Hkv = 128
+]
 # the "wgmma" design: d = dv = 128 (every full-width LM head), and 64
 WGMMA_CASES = [
     (2, 256, 256, 4, 4, 128, 128, True, 0, 0),      # G = 1
@@ -155,6 +171,20 @@ def test_model_layout_matches_jax(jx, case):
                                rtol=F32_TOL)
 
 
+@pytest.mark.parametrize("case", MLA_CPU_CASES, ids=_case_id)
+def test_mla_head_dims_match_jax(jx, case):
+    """The plain scan (the wrapper's CPU path) at MLA's (d, dv) against
+    the reference model's scan, the scale d^-0.5 from q's head dim."""
+    _, _, _, _, _, _, _, causal, qo, w = case
+    q, k, v = _inputs(case, seed=13)
+    want = np.asarray(jx.flash(*(jx.jnp.asarray(a) for a in (q, k, v)),
+                               causal=causal, q_offset=qo, window=w))
+    got = flash_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                          causal=causal, q_offset=qo, window=w)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+
+
 def test_bf16_plain_returns_q_type(jx):
     """bf16 in, f32 math, bf16 out, as the reference model's scan."""
     case = MODEL_CASES[2]
@@ -244,7 +274,9 @@ def test_wrapper_raises_on_what_it_does_not_take(name):
 @pytest.mark.parametrize("dtype,d,dv,want", [
     (torch.bfloat16, 128, 128, "wgmma"), (torch.bfloat16, 64, 64, "wgmma"),
     (torch.bfloat16, 16, 16, "mma_sync"), (torch.bfloat16, 32, 32, "mma_sync"),
-    (torch.bfloat16, 32, 16, "mma_sync"), (torch.float32, 128, 128, "f32"),
+    (torch.bfloat16, 32, 16, "mma_sync"), (torch.bfloat16, 192, 128,
+                                           "mma_sync"),
+    (torch.float32, 128, 128, "f32"), (torch.float32, 192, 128, "f32"),
     (torch.float32, 16, 16, "f32")])
 def test_kernel_design_by_type_and_head_dims(dtype, d, dv, want):
     assert fa.kernel_design(dtype, d, dv) == want
@@ -314,13 +346,27 @@ def test_wgmma_schedule_order_and_balance_at_the_prefill_shape():
 
 
 def test_launcher_refusals_that_need_no_card():
-    """Head dims the named design is not built for, a type the design
+    """Head dims the named design is not built for (MLA's (192, 128) on
+    "wgmma"; reduced MLA's (24, 16) on every design), a type the design
     does not take, and TMA's 16-byte alignment raise before any launch."""
     q = torch.zeros(1, 8, 4, 32, dtype=torch.bfloat16)
     k = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="not built for 'wgmma'"):
         fa._launch(q, k, k, causal=True, q_offset=0, window=0,
                    design="wgmma")
+    q, k = torch.zeros(1, 8, 2, 192, dtype=torch.bfloat16), \
+        torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="not built for 'wgmma'"):
+        fa._launch(q, q, k, causal=True, q_offset=0, window=0,
+                   design="wgmma")
+    q, k = torch.zeros(1, 8, 2, 24), torch.zeros(1, 8, 2, 16)
+    for dtype, design in ((torch.bfloat16, "mma_sync"),
+                          (torch.float32, "f32")):
+        with pytest.raises(ValueError, match=f"not built for '{design}'"):
+            fa._launch(q.to(dtype), q.to(dtype), k.to(dtype), causal=True,
+                       q_offset=0, window=0, design=design)
+    q = torch.zeros(1, 8, 4, 32, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 32, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="design"):
         fa._launch(q.float(), k.float(), k.float(), causal=True, q_offset=0,
                    window=0, design="mma_sync")
@@ -503,3 +549,23 @@ def test_mma_sync_design_at_the_prefill_head_dim(dev):
     assert build.LAUNCHES["flash_attention:mma_sync"] == 1
     assert_kernel_close(got, flash_attention_plain(q, k, v, causal=True),
                         q, k, v, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", MLA_CASES, ids=_case_id)
+def test_mla_head_dims_on_the_card(dev, case, dtype):
+    """deepseek-v3's MLA prefill shape (d, dv) = (192, 128): bf16 on
+    "mma_sync" within the rounding bound, float32 on "f32" within 1e-5."""
+    _, _, _, _, _, _, _, causal, qo, w = case
+    q, k, v = (torch.tensor(a).to(dev, dtype)
+               for a in _inputs(case, seed=17))
+    build.reset_launches()
+    got = flash_attention(q, k, v, causal=causal, q_offset=qo, window=w)
+    torch.cuda.synchronize()
+    design = "f32" if dtype == torch.float32 else "mma_sync"
+    assert build.LAUNCHES[f"flash_attention:{design}"] == 1
+    kw = dict(causal=causal, q_offset=qo, window=w)
+    assert_kernel_close(got, flash_attention_plain(q, k, v, **kw), q, k, v,
+                        **kw)

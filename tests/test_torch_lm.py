@@ -1,13 +1,17 @@
 """The port's LM serving path (``repro_torch.models``, ``serve.engine``)
 against the JAX package in float32 on ``reduced(...)`` configurations,
 the weights carried across by ``convert.lm_params_from_numpy`` (random
-qkv biases and norm scales, so both are exercised).
+qkv biases and norm scales, so both are exercised): the dense GQA
+models, arctic-480b (MoE with a dense residual) and deepseek-v3-671b
+(MLA, a dense first layer, MoE with a shared expert, the ``mtp``
+subtree).
 
 Tolerances: blocks, attention, the decode step and the caches at 1e-5
 (absolute and relative); whole-model logits and hidden states within
-1e-5 relative to their largest magnitude; the port's decode against its
-own full forward at 1e-4 relative, the reference's bar
-(``tests/test_archs_smoke.py``); the slot engine's tokens equal.
+1e-5 relative to their largest magnitude, the MoE aux loss within 1e-6;
+the port's decode against its own full forward at 1e-4 relative, the
+reference's bar (``tests/test_archs_smoke.py``); the slot engine's
+tokens equal.
 """
 import dataclasses
 import functools
@@ -37,7 +41,8 @@ from repro_torch.serve.engine import Request, ServeEngine
 AX = MeshAxes()
 TOL = 1e-5
 DENSE = ["qwen2-7b", "qwen1.5-4b", "glm4-9b", "mistral-nemo-12b"]
-NOT_DENSE = sorted(set(jreg.ARCHS) - set(DENSE))
+MOE = ["arctic-480b", "deepseek-v3-671b"]
+NOT_PORTED = sorted(set(jreg.ARCHS) - set(DENSE) - set(MOE))
 
 
 def _np(t):
@@ -95,7 +100,7 @@ def test_registry_copies_the_reference(arch):
     assert tfm.layout(registry.ARCHS[arch]) == jtfm.layout(jreg.ARCHS[arch])
 
 
-@pytest.mark.parametrize("arch", NOT_DENSE)
+@pytest.mark.parametrize("arch", NOT_PORTED)
 def test_non_dense_configs_raise(arch):
     cfg = registry.reduced(arch)
     gen = torch.Generator().manual_seed(0)
@@ -242,14 +247,19 @@ def test_decode_attention(pos):
 # whole model: forward, prefill, decode
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_forward_prefill_decode_match_jax(arch):
     jcfg, cfg, jp, p = lm(arch)
     toks = _tokens(cfg, (2, 16))
-    jh, _ = jtfm.forward_lm(jp, jcfg, {"tokens": jnp.asarray(toks)}, AX,
-                            remat="none")
+    jh, jaux = jtfm.forward_lm(jp, jcfg, {"tokens": jnp.asarray(toks)}, AX,
+                               remat="none")
     h, aux = tfm.forward_lm(p, cfg, {"tokens": torch.tensor(toks)})
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32
+    if arch in DENSE:
+        assert float(aux) == 0.0
+    else:
+        assert float(aux) > 0.0
+        assert abs(float(aux) - float(jaux)) < 1e-6
     assert_rel(h, jh)
     assert_rel(tfm.lm_logits(p, cfg, h), jtfm.lm_logits(jp, jcfg, jh, AX))
 
@@ -263,8 +273,8 @@ def test_forward_prefill_decode_match_jax(arch):
         jax.tree_util.tree_map(np.asarray, jc), cfg, device="cpu")
     assert len(c) == len(want_c) == cfg.num_layers
     for got, want in zip(c, want_c):
-        assert got.k.shape == (2, 24, cfg.num_kv_heads,
-                               cfg.resolved_head_dim)
+        assert type(got) is type(want)
+        assert got[0].shape[:2] == (2, 24)
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.numpy(), b.numpy(), atol=TOL,
                                        rtol=TOL)
@@ -281,7 +291,7 @@ def test_forward_prefill_decode_match_jax(arch):
                                        rtol=TOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_decode_matches_full_forward(arch):
     """The reference's check on the port: prefill 15 tokens, decode the
     16th, against the full forward's last logits (rel < 1e-4)."""
@@ -308,6 +318,94 @@ def test_init_params_shapes_and_device():
     biases = cfg.num_layers * cfg.resolved_head_dim * (
         cfg.num_heads + 2 * cfg.num_kv_heads)
     assert n == cfg.param_count() + norms + biases
+
+
+def _shapes(tree, prefix=""):
+    """{path: (shape, dtype name)} of a nested dict / list / NamedTuple."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_shapes(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_shapes(v, f"{prefix}/{i}"))
+        return out
+    return {prefix: (tuple(tree.shape), str(tree.dtype).split(".")[-1])}
+
+
+def _jax_per_layer_shapes(tree, cfg):
+    """The reference's abstract tree with its units unstacked, keyed as
+    the port's: ``layers/l`` for layer prefix + u * U + i."""
+    pfx, U, n_units = tfm.layout(cfg)
+    out = {}
+    for k, v in tree.items():
+        if k == "prefix":
+            for i, blk in v.items():
+                out.update(_shapes(blk, f"/layers/{i}"))
+        elif k == "units":
+            for i, blk in v.items():
+                for path, (shape, dt) in _shapes(blk).items():
+                    for u in range(n_units):
+                        out[f"/layers/{pfx + u * U + int(i)}{path}"] = (
+                            shape[1:], dt)
+        else:
+            out.update(_shapes(v, f"/{k}"))
+    return out
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_init_params_tree_matches_reference(arch):
+    """The port's parameters (bf16, norms and the router float32) have
+    the reference's keys, shapes and types layer by layer, the ``mtp``
+    subtree's MoE block included."""
+    jcfg, cfg = jreg.reduced(arch), registry.reduced(arch)
+    want = _jax_per_layer_shapes(jax.eval_shape(
+        lambda: jtfm.init_params(jax.random.PRNGKey(0), jcfg)), jcfg)
+    p = tfm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert _shapes(p) == want
+    assert ("mtp" in p) == bool(cfg.mtp_depth)
+    kinds = [("moe" in blk["ffn"]) for blk in p["layers"]]
+    assert kinds == [m for _, m in tfm.layer_kinds(cfg)]
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_convert_carries_moe_mla_and_mtp_trees(arch):
+    """``lm_params_from_numpy`` carries every leaf (the blocks' ``moe``
+    and ``mla`` subtrees, the ``mtp`` subtree) bit for bit, unstacked per
+    layer; ``lm_cache_from_numpy`` carries MLACache for an MLA model."""
+    jcfg, cfg, jp, p = lm(arch)
+    tree = jax.tree_util.tree_map(np.asarray, jp)
+    pfx, U, _ = tfm.layout(cfg)
+    for l, blk in enumerate(p["layers"]):
+        src = tree["prefix"][str(l)] if l < pfx else jax.tree_util.tree_map(
+            lambda a: a[(l - pfx) // U], tree["units"][str((l - pfx) % U)])
+        got = jax.tree_util.tree_leaves_with_path(
+            blk, is_leaf=lambda t: isinstance(t, torch.Tensor))
+        want = dict(jax.tree_util.tree_leaves_with_path(src))
+        assert len(got) == len(want)
+        for path, t in got:
+            np.testing.assert_array_equal(t.numpy(), want[path])
+    if cfg.mtp_depth:
+        for path, t in jax.tree_util.tree_leaves_with_path(
+                p["mtp"], is_leaf=lambda t: isinstance(t, torch.Tensor)):
+            np.testing.assert_array_equal(
+                t.numpy(), dict(jax.tree_util.tree_leaves_with_path(
+                    tree["mtp"]))[path])
+        assert "moe" in p["mtp"]["block"]["ffn"]
+    jc = jtfm.init_cache(jcfg, 2, 8, dtype=jnp.float32)
+    jc = jax.tree_util.tree_map(
+        lambda a: np.random.default_rng(a.size).normal(0, 1, a.shape).astype(
+            np.float32), jc)
+    c = convert.lm_cache_from_numpy(jc, cfg, device="cpu")
+    kind = attention.MLACache if cfg.mla else attention.KVCache
+    assert len(c) == cfg.num_layers and all(type(x) is kind for x in c)
+    for got, want in zip(c, tfm.init_cache(cfg, 2, 8, device="cpu")):
+        assert [t.shape for t in got] == [t.shape for t in want]
+    last = jax.tree_util.tree_map(lambda a: a[-1], jc["units"]["0"])
+    for a, b in zip(c[-1], last):
+        np.testing.assert_array_equal(a.numpy(), b)
 
 
 # ---------------------------------------------------------------------------
@@ -370,3 +468,24 @@ def test_engine_budget_and_eos(engine_model):
     # the prefill's token is not checked against eos; the ticks' are
     stop = next(j for j in range(1, 5) if r.out_tokens[j] == eos)
     assert r2.out_tokens == r.out_tokens[:stop + 1]
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_engine_matches_jax_engine_moe(arch):
+    """The slot engine on MoE and MLA models: tests/test_serving.py's
+    requests (batch 3, 5 requests, max_new 4), tokens equal to the JAX
+    engine's."""
+    jcfg, cfg, jp, p = lm(arch)
+    prompts = [np.arange(3 + 2 * i) % cfg.vocab_size for i in range(5)]
+    jeng = JServeEngine(jp, jcfg, AX, batch=3, max_len=64)
+    jdone = jeng.run_to_completion(
+        [JRequest(rid=i, prompt=jnp.asarray(pr), max_new=4)
+         for i, pr in enumerate(prompts)])
+    eng = ServeEngine(p, cfg, batch=3, max_len=64)
+    done = eng.run_to_completion(
+        [Request(rid=i, prompt=pr, max_new=4) for i, pr in enumerate(prompts)])
+    assert [type(c) for c in eng.cache] == [
+        attention.MLACache if cfg.mla else attention.KVCache] * cfg.num_layers
+    assert [r.rid for r in done] == [r.rid for r in jdone]
+    for r, jr in zip(done, jdone):
+        assert r.out_tokens == jr.out_tokens, r.rid
